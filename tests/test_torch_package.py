@@ -1,0 +1,108 @@
+"""The port stands alone: no jax, no druid_tpu, no silent CPU fallback."""
+import ast
+import ctypes
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from druid_tpu_torch import _build, device
+from druid_tpu_torch.engine import QueryExecutor
+from druid_tpu_torch.engine import kernels as K
+from druid_tpu_torch.engine import sorted_reduce as sr
+from druid_tpu_torch.query import aggregators as A
+
+# One intra-op thread: these tensors are small, and an OpenMP pool in every
+# test worker would compete for cores with the suite's timing tests.
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def test_import_pulls_in_neither_jax_nor_druid_tpu():
+    code = ("import sys, druid_tpu_torch, druid_tpu_torch.engine, "
+            "druid_tpu_torch.data.generator, druid_tpu_torch.data.convert; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'druid_tpu' "
+            "or m.startswith('druid_tpu.')); print(bad)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(ROOT).as_posix()
+     for p in (ROOT / "druid_tpu_torch").rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_no_source_imports_jax_or_druid_tpu(path):
+    bad = [m for m in _imports(ROOT / path)
+           if m.split(".")[0] in ("jax", "jaxlib", "druid_tpu")]
+    assert bad == []
+
+
+def test_executor_without_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        QueryExecutor()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device.resolve("cuda")
+    assert device.resolve("cpu").type == "cpu"
+
+
+def test_cuda_wrapper_refuses_cpu_tensors_without_building(monkeypatch):
+    def no_build(*a, **k):
+        raise AssertionError("kernel build attempted on the CPU")
+    monkeypatch.setattr(_build, "build_all", no_build)
+    monkeypatch.setattr(_build, "load", no_build)
+    kernels = [K.CountKernel(A.CountAggregator("rows"))]
+    key = torch.zeros(4096, dtype=torch.int32)
+    mask = torch.ones(4096, dtype=torch.bool)
+    before = sr.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        sr.sorted_reduce_cuda({}, mask, key, kernels, 256, 1)
+    counts, _ = sr.sorted_reduce({}, mask, key, kernels, 256, 1)
+    assert int(counts[0]) == 4096 and sr.LAUNCHES == before
+
+
+def test_wrapper_rejects_plans_outside_the_caps():
+    kernels = [K.CountKernel(A.CountAggregator("rows"))]
+    key = torch.zeros(64, dtype=torch.int32)
+    mask = torch.ones(64, dtype=torch.bool)
+    with pytest.raises(ValueError, match="caps"):
+        sr.sorted_reduce({}, mask, key, kernels, sr.MAX_PALLAS_GROUPS * 2, 1)
+    with pytest.raises(ValueError, match="caps"):
+        sr.sorted_reduce({}, mask, key, kernels, 256, sr.MAX_W + 1)
+
+
+def test_build_targets_sm90a_from_repo_sources():
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert (_build.CSRC / "sorted_reduce.cu").exists()
+    assert _build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_params_struct_matches_cuda_layout():
+    """The ctypes mirror of SrParams: 4 pointers, an int64, seven ints, two
+    arrays of 17 ints, 8 field pointers and two arrays of 17 pointers
+    (natural alignment)."""
+    off = {name: getattr(sr._Params, name).offset
+           for name, _ in sr._Params._fields_}
+    assert off["n"] == 32 and off["kind"] == 68
+    assert off["field"] == 68 + 17 * 4
+    assert off["fsrc"] == 136 + 17 * 4 + 4
+    assert off["part"] == off["fsrc"] + 8 * 8
+    assert ctypes.sizeof(sr._Params) == off["out"] + 17 * 8
