@@ -10,16 +10,25 @@ Phases, each fatal on failure:
      on synthetic projections: a 12.5M-row one with G = 131072 and five ops,
      and edge cases; integers and min/max exact, float sums within
      1e-5 * sum|v| per group, and bit-identical across two runs;
-  4. the main path at full size: the headline data (100M rows in 8 segments
+  4. kernel B2 (megakernel.mega_reduce, the row mask as words) on synthetic
+     12.5M-row projections: against its plain version under the same rule,
+     against B1 given the same mask as bools (every output bit-identical,
+     floats included), and bit-identical across two runs; cases: two fused
+     bitmap nodes plus a residual mask with n % 32 != 0, sums past 2^31,
+     fully masked blocks with NaN, every row masked;
+  5. the main path at full size: the headline data (100M rows in 8 segments
      of 12.5M, seed 1234) through QueryExecutor(device="cuda").run_json —
-     the headline groupBy (through B1: +8 launches per run), topN and an
-     hourly timeseries, each checked against an independent numpy result.
-     The groupBy's B1 calls keep their inputs (and print their windows);
-  5. B1 against its plain version on the inputs the main path gave it (the
-     first segment's projection), then timed there with CUDA events beside
-     its HBM bound, its plain version and a library yardstick
-     (index_add_/scatter_reduce over the same keys, never used by the port);
-     and the warm p50 of each query.
+     the headline groupBy (through B1: +8 launches per run, B2 none), topN
+     and an hourly timeseries, and a filtered groupBy (a dashboard panel:
+     dimA in half its values, not dimB's most frequent value, a bound on
+     metLong; through B2: +8 launches per run, B1 none), each checked
+     against an independent numpy result. The first B1 and B2 calls keep
+     their inputs;
+  6. B1 and B2 against their plain versions on the inputs the main path gave
+     them (the first segment's), then timed there with CUDA events beside
+     their HBM bound, their plain version and a library yardstick
+     (index_add_/scatter_reduce over the same keys, B2's with the word
+     unpack, never used by the port); and the warm p50 of each query.
 The line before the last is the kernels JSON line; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -106,32 +115,32 @@ def make_projection(n, groups, lo, hi, keep, seed, dev):
     return {"vlong": vlong, "vfloat": vfloat}, mask, key, span
 
 
-def check_b1(name, arrays, mask, key, kernels, num_total, span):
-    """Kernel (twice) vs its plain version on the same inputs; returns
-    (max_abs_err of the float sums, kernel states). Raises on any
-    disagreement."""
+def same_bits(a, b):
+    """Equal dtype and bits (floats compared as their int32 words)."""
     import torch
-    from druid_tpu_torch.engine import sorted_reduce as sr
-    kc, ks = sr.sorted_reduce_cuda(arrays, mask, key, kernels, num_total,
-                                   span)
-    kc2, ks2 = sr.sorted_reduce_cuda(arrays, mask, key, kernels, num_total,
-                                     span)
-    # the plain version runs on CPU copies of the same inputs: its scatter
-    # ops are sequential there, so NaN and order questions have one answer
-    pc, ps = sr.sorted_reduce_plain({f: v.cpu() for f, v in arrays.items()},
-                                    mask.cpu(), key.cpu(), kernels,
-                                    num_total, span)
-    pc, ps = pc.to(key.device), [b.to(key.device) for b in ps]
+    if a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def compare_states(name, arrays, mask, key, kernels, num_total, kernel_out,
+                   again_out, plain_out):
+    """A kernel's (counts, states) against a second run (same bits) and its
+    plain version (integers and min/max exact, NaN included; float sums
+    within 1e-5 * sum|v| per group). Returns the float sums' max abs error;
+    raises on any disagreement."""
+    import torch
+    (kc, ks), (kc2, ks2), (pc, ps) = kernel_out, again_out, plain_out
     torch.cuda.synchronize()
     if not torch.equal(kc.long(), pc.long()):
         raise AssertionError(f"{name}: counts differ")
+    if not same_bits(kc, kc2):
+        raise AssertionError(f"{name}: two runs differ in counts")
     err = 0.0
     for k, a, a2, b in zip(kernels, ks, ks2, ps):
-        if a.dtype.is_floating_point:
-            same = torch.equal(a.view(torch.int32), a2.view(torch.int32))
-        else:
-            same = torch.equal(a, a2)
-        if not same:
+        if not same_bits(a, a2):
             raise AssertionError(f"{name}/{k.name}: two runs differ in bits")
         if getattr(k, "vtype", None) is not None and a.dtype.is_floating_point \
                 and not hasattr(k, "is_max"):
@@ -155,9 +164,59 @@ def check_b1(name, arrays, mask, key, kernels, num_total, span):
                 and torch.equal(a[~torch.isnan(a)], b[~torch.isnan(b)]))
             if not eq:
                 raise AssertionError(f"{name}/{k.name}: kernel != plain")
+    return err
+
+
+def check_b1(name, arrays, mask, key, kernels, num_total, span):
+    """Kernel (twice) vs its plain version on the same inputs; returns
+    (max_abs_err of the float sums, kernel states). Raises on any
+    disagreement."""
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    saved = sr.LAUNCHES
+    out = sr.sorted_reduce_cuda(arrays, mask, key, kernels, num_total, span)
+    again = sr.sorted_reduce_cuda(arrays, mask, key, kernels, num_total,
+                                  span)
+    sr.LAUNCHES = saved               # parity launches are not the path's
+    # the plain version runs on CPU copies of the same inputs: its scatter
+    # ops are sequential there, so NaN and order questions have one answer
+    pc, ps = sr.sorted_reduce_plain({f: v.cpu() for f, v in arrays.items()},
+                                    mask.cpu(), key.cpu(), kernels,
+                                    num_total, span)
+    plain = (pc.to(key.device), [b.to(key.device) for b in ps])
+    err = compare_states(f"B1 {name}", arrays, mask, key, kernels, num_total,
+                         out, again, plain)
     log(f"  B1 {name}: ok (n={key.shape[0]}, G={num_total}, span={span}, "
         f"window={sr.plan_window(span)}, float-sum max_abs_err={err:.6g})")
-    return err, ks
+    return err, out[1]
+
+
+def check_b2(name, arrays, words, key, kernels, num_total, span):
+    """Kernel B2 (twice) vs its plain version, and vs kernel B1 given the
+    same mask as bools (every output bit-identical); returns (max_abs_err
+    of the float sums, B2's states). Raises on any disagreement."""
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    from druid_tpu_torch.engine.filters import expand_mask_words
+    saved = (sr.LAUNCHES, mk.LAUNCHES)
+    out = mk.mega_reduce_cuda(arrays, words, key, kernels, num_total, span)
+    again = mk.mega_reduce_cuda(arrays, words, key, kernels, num_total, span)
+    mask = expand_mask_words(words, key.shape[0])
+    b1 = sr.sorted_reduce_cuda(arrays, mask, key, kernels, num_total, span)
+    sr.LAUNCHES, mk.LAUNCHES = saved  # parity launches are not the path's
+    pc, ps = mk.mega_reduce_plain({f: v.cpu() for f, v in arrays.items()},
+                                  words.cpu(), key.cpu(), kernels, num_total,
+                                  span)
+    plain = (pc.to(key.device), [b.to(key.device) for b in ps])
+    err = compare_states(f"B2 {name}", arrays, mask, key, kernels, num_total,
+                         out, again, plain)
+    for k, a, b in zip(["counts"] + [k.name for k in kernels],
+                       [out[0]] + list(out[1]), [b1[0]] + list(b1[1])):
+        if not same_bits(a, b):
+            raise AssertionError(f"B2 {name}/{k}: B2 != B1 in bits")
+    log(f"  B2 {name}: ok, = B1 bit for bit (n={key.shape[0]}, "
+        f"G={num_total}, span={span}, window={sr.plan_window(span)}, live "
+        f"rows={int(mask.sum())}, float-sum max_abs_err={err:.6g})")
+    return err, out[1]
 
 
 def phase_b1(dev):
@@ -200,14 +259,74 @@ def phase_b1(dev):
     return res
 
 
-class CaptureB1:
-    """Wraps sorted_reduce.sorted_reduce while the main path runs: every
-    call's span is kept, and the first call's inputs, so that B1 can be held
-    against its plain version and timed at the shapes the main path gives
-    it. The wrapped function runs unchanged (and counts its launches)."""
+def phase_b2(dev, rows=12_500_000):
+    """Kernel B2 on synthetic projections of `rows` rows (see check_b2)."""
+    import torch
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine.filters import (expand_mask_words,
+                                                pack_mask_words)
+    res = {}
+    ks = _kernels()
+    n = rows + 1                        # n % 32 != 0: a partial last word
+    arrays, mask, key, span = make_projection(n, 100_000, 0, 10_001, 0.98,
+                                              11, dev)
+    # two fused bitmap nodes over three random leaves, ANDed with the base
+    # (residual) mask through the entry point's own word algebra
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    leaves = [torch.rand(n, generator=g, device=dev) < 0.8 for _ in range(3)]
+    nodes = [mk.MegaBitmapNode(("and", (("leaf", 0), ("not", ("leaf", 1)))),
+                               [("l0", None), ("l1", None)], 0),
+             mk.MegaBitmapNode(("or", (("and", (("leaf", 0), ("leaf", 1))),
+                                       ("not", ("leaf", 2)))),
+                               [("l0", None), ("l2", None), ("l1", None)], 1)]
+    cols = dict(arrays)
+    for node, idx in zip(nodes, ([0, 1], [0, 2, 1])):
+        for j, li in enumerate(idx):
+            cols[node.leaf_col(j)] = pack_mask_words(leaves[li])
+    words = mk.fused_mask_words(cols, mask, nodes)
+    want = mask & leaves[0] & ~leaves[1] \
+        & ((leaves[0] & leaves[2]) | ~leaves[1])
+    if not torch.equal(expand_mask_words(words, n), want):
+        raise AssertionError("fused mask words != the bool algebra")
+    res["max_abs_err"], _ = check_b2("two-nodes+residual", arrays, words,
+                                     key, ks, 131072, span)
+    del arrays, mask, key, leaves, cols, words
+    # int32 sums past 2^31 per group
+    a, m, k, s = make_projection(rows, 6, 300_000, 360_000, 0.9, 13, dev)
+    _, st = check_b2("sum-past-int32", a, pack_mask_words(m), k,
+                     _kernels(False), 8, s)
+    if int(st[1].max()) <= 2**31:
+        raise AssertionError("B2 sum-past-int32: sums did not pass 2^31")
+    # fully masked blocks + NaN in float max/min
+    a, m, k, s = make_projection(rows, 100_000, -50, 50, 0.9, 14, dev)
+    m[4096:rows // 12] = False
+    a["vfloat"][7] = float("nan")
+    m[7] = True
+    _, st = check_b2("masked-blocks+nan", a, pack_mask_words(m), k, ks,
+                     131072, s)
+    if not bool(torch.isnan(st[2]).any()):
+        raise AssertionError("B2: NaN did not reach float max")
+    # every row masked
+    _, st = check_b2("all-masked", a, torch.zeros(-(-k.shape[0] // 32),
+                                                  dtype=torch.int32,
+                                                  device=dev),
+                     k, ks, 131072, s)
+    if int(st[0].sum()) != 0:
+        raise AssertionError("B2 all-masked: rows counted")
+    return res
 
-    def __init__(self, sr):
-        self.sr, self.orig = sr, sr.sorted_reduce
+
+class Capture:
+    """Wraps a kernel's entry (`module.attr`) while the main path runs:
+    every call's span is kept, and the first call's inputs, so that the
+    kernel can be held against its plain version and timed at the shapes
+    the main path gives it. The wrapped function runs unchanged (and counts
+    its launches)."""
+
+    def __init__(self, module, attr):
+        self.module, self.attr = module, attr
+        self.orig = getattr(module, attr)
         self.spans, self.first = [], None
 
     def __call__(self, arrays, mask, key, kernels, num_total, span):
@@ -218,14 +337,15 @@ class CaptureB1:
         return self.orig(arrays, mask, key, kernels, num_total, span)
 
     def __enter__(self):
-        self.sr.sorted_reduce = self
+        setattr(self.module, self.attr, self)
         return self
 
     def __exit__(self, *exc):
-        self.sr.sorted_reduce = self.orig
+        setattr(self.module, self.attr, self.orig)
 
     def windows(self):
-        return sorted({self.sr.plan_window(s) for s in self.spans})
+        from druid_tpu_torch.engine.sorted_reduce import plan_window
+        return sorted({plan_window(s) for s in self.spans})
 
 
 def run_shape(mask, key, blk):
@@ -247,19 +367,42 @@ def run_shape(mask, key, blk):
                                           .mean())
 
 
-def time_b1(dev, inputs):
-    """B1 on the main path's inputs: kernel, plain, library yardstick,
-    bound."""
+def time_kernel(which, dev, inputs):
+    """Kernel B1 or B2 on the main path's inputs (the row mask as bools for
+    B1, as words for B2): ms per launch, its plain version's ms, a library
+    yardstick (index_add_/scatter_reduce over the same keys, B2's with the
+    word unpack), the bound from the bytes, and torch.profiler's split by
+    kernel name."""
     import torch
+    from druid_tpu_torch.engine import megakernel as mk
     from druid_tpu_torch.engine import sorted_reduce as sr
-    arrays, mask, key, ks, G, span = inputs
+    from druid_tpu_torch.engine.filters import (expand_mask_words,
+                                                pack_mask_words)
+    arrays, m_in, key, ks, G, span = inputs
     n = key.shape[0]
-    saved = sr.LAUNCHES
-    ms = cuda_ms(lambda: sr.sorted_reduce_cuda(arrays, mask, key, ks, G,
-                                               span), 20)
-    sr.LAUNCHES = saved               # timing launches are not the path's
-    plain_ms = cuda_ms(lambda: sr.sorted_reduce_plain(arrays, mask, key, ks,
-                                                      G, span), 5)
+    if which == "B1":
+        def kernel():
+            return sr.sorted_reduce_cuda(arrays, m_in, key, ks, G, span)
+
+        def plain():
+            return sr.sorted_reduce_plain(arrays, m_in, key, ks, G, span)
+
+        def row_mask():
+            return m_in
+        mask_bytes = n                          # bool rows
+    else:
+        def kernel():
+            return mk.mega_reduce_cuda(arrays, m_in, key, ks, G, span)
+
+        def plain():
+            return mk.mega_reduce_plain(arrays, m_in, key, ks, G, span)
+
+        def row_mask():
+            return expand_mask_words(m_in, n)
+        mask_bytes = 4 * -(-n // 32)            # int32 words
+    saved = (sr.LAUNCHES, mk.LAUNCHES)
+    ms = cuda_ms(kernel, 20)
+    plain_ms = cuda_ms(plain, 5)
     col_dtypes = {c: str(a.dtype).replace("torch.", "")
                   for c, a in arrays.items()}
     ops = [k.pallas_op(col_dtypes) for k in ks]
@@ -268,6 +411,7 @@ def time_b1(dev, inputs):
     k64 = key.long()
 
     def library():
+        mask = row_mask()
         for kind, field in slots:
             dt = sr._slot_dtype(kind)
             out = torch.full((G,), sr._identity(kind), dtype=dt, device=dev)
@@ -282,11 +426,17 @@ def time_b1(dev, inputs):
                                         sr._identity(kind)),
                     "amin" if kind.startswith("min") else "amax")
     library_ms = cuda_ms(library, 10)
-    # each input read once (key int32, mask bool, each value column 4 B),
-    # each output grid written once
+    # the bytes this run's data needs, each read or written once: the whole
+    # mask; the key and each value column (4 B a row) only in the 32-row
+    # groups that hold a live row (a group is one 128-B line of each; a
+    # group with no live row needs none of them); each output grid
     out_bytes = sum(torch.empty((), dtype=sr._slot_dtype(k)).element_size()
                     for k, _ in slots)
-    nbytes = n * (4 + 1 + 4 * len(fields)) + G * out_bytes
+    mask = row_mask()
+    words = pack_mask_words(mask)
+    live_words = int(torch.count_nonzero(words))
+    nbytes = mask_bytes + live_words * 32 * (4 + 4 * len(fields)) \
+        + G * out_bytes
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     run_median, run_long_share = run_shape(mask, key,
                                            sr.plan_window(span)[0])
@@ -296,9 +446,9 @@ def time_b1(dev, inputs):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            sr.sorted_reduce_cuda(arrays, mask, key, ks, G, span)
+            kernel()
         torch.cuda.synchronize()
-    sr.LAUNCHES = saved
+    sr.LAUNCHES, mk.LAUNCHES = saved  # timing launches are not the path's
     by_kernel = {}
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", None)
@@ -310,6 +460,8 @@ def time_b1(dev, inputs):
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "device_ms_by_kernel": by_kernel,
             "bound_ms": bound_ms, "bytes": nbytes, "n": n, "G": G,
+            "live_rows": int(mask.sum()),
+            "live_word_share": live_words / words.shape[0],
             "ops": [k for k, _ in slots], "span": span,
             "longest_run_median": run_median,
             "blocks_with_half_block_run": run_long_share,
@@ -317,7 +469,7 @@ def time_b1(dev, inputs):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path at full size
+# phase 5: the main path at full size
 # ---------------------------------------------------------------------------
 
 def headline_segments():
@@ -335,9 +487,15 @@ def headline_segments():
                         datasource="bench")
 
 
+def dimb_head(segments):
+    """dimB's most frequent id (the zipf head), counted in segment 0."""
+    return int(np.bincount(segments[0].dims["dimB"].ids).argmax())
+
+
 def queries(segments):
     iv = f"{DAY[0]}/{DAY[1]}"
     dim_a = list(segments[0].dims["dimA"].dictionary.values)
+    head = segments[0].dims["dimB"].dictionary.values[dimb_head(segments)]
     groupby = {
         "queryType": "groupBy", "dataSource": "bench", "intervals": [iv],
         "granularity": "all", "dimensions": ["dimA", "dimB"],
@@ -364,16 +522,27 @@ def queries(segments):
             {"type": "longSum", "name": "lsum", "fieldName": "metLong"},
             {"type": "floatMax", "name": "fmax", "fieldName": "metFloat"},
             {"type": "doubleSum", "name": "dsum", "fieldName": "metFloat"}]}
-    return {"groupby": groupby, "topn": topn, "timeseries": timeseries}
+    # a dashboard panel: slice by dimA, drop dimB's dominant value
+    filtered = dict(groupby, filter={"type": "and", "fields": [
+        {"type": "in", "dimension": "dimA", "values": dim_a[0:100:2]},
+        {"type": "not", "field": {"type": "selector", "dimension": "dimB",
+                                  "value": head}},
+        groupby["filter"]]})
+    return {"groupby": groupby, "topn": topn, "timeseries": timeseries,
+            "groupby_filtered": filtered}
 
 
 def numpy_reference(segments):
-    """Independent numpy results for the three headline queries."""
+    """Independent numpy results for the four main-path queries."""
     t0 = segments[0].interval.start
+    head = dimb_head(segments)
     G = 100 * 1000
     cnt = np.zeros(G, np.int64)
     lsum = np.zeros(G, np.float64)
     fmax = np.full(G, -np.inf, np.float32)
+    f_cnt = np.zeros(G, np.int64)
+    f_lsum = np.zeros(G, np.float64)
+    f_fmax = np.full(G, -np.inf, np.float32)
     tb_cnt = np.zeros(1000, np.int64)
     tb_lsum = np.zeros(1000, np.float64)
     h_cnt = np.zeros(24, np.int64)
@@ -393,6 +562,12 @@ def numpy_reference(segments):
                             minlength=G)
         np.maximum.at(fmax, key, mf[keep])
         even = (a % 2) == 0
+        fk = keep & even & (b != head)
+        key = a[fk] * 1000 + b[fk]
+        f_cnt += np.bincount(key, minlength=G)
+        f_lsum += np.bincount(key, weights=ml[fk].astype(np.float64),
+                              minlength=G)
+        np.maximum.at(f_fmax, key, mf[fk])
         tb_cnt += np.bincount(b[even], minlength=1000)
         tb_lsum += np.bincount(b[even], weights=ml[even].astype(np.float64),
                                minlength=1000)
@@ -404,21 +579,27 @@ def numpy_reference(segments):
         h_abs += np.bincount(h, weights=np.abs(mf.astype(np.float64)),
                              minlength=24)
     return dict(cnt=cnt, lsum=lsum.astype(np.int64), fmax=fmax,
+                f_cnt=f_cnt, f_lsum=f_lsum.astype(np.int64), f_fmax=f_fmax,
                 tb_cnt=tb_cnt, tb_lsum=tb_lsum.astype(np.int64),
                 h_cnt=h_cnt, h_lsum=h_lsum.astype(np.int64), h_fmax=h_fmax,
                 h_dsum=h_dsum, h_abs=h_abs, t0=t0)
 
 
-def check_groupby(rows, ref):
-    live = np.flatnonzero(ref["cnt"])
+def check_groupby(rows, ref, pre=""):
+    cnt, lsum, fmax = ref[pre + "cnt"], ref[pre + "lsum"], ref[pre + "fmax"]
+    live = np.flatnonzero(cnt)
     if len(rows) != len(live):
         raise AssertionError(f"groupBy: {len(rows)} rows, numpy {len(live)}")
     for r in rows:
         e = r["event"]
         g = int(e["dimA"][1:]) * 1000 + int(e["dimB"][1:])
-        if (e["rows"], e["lsum"]) != (int(ref["cnt"][g]), int(ref["lsum"][g])) \
-                or np.float32(e["fmax"]) != ref["fmax"][g]:
+        if (e["rows"], e["lsum"]) != (int(cnt[g]), int(lsum[g])) \
+                or np.float32(e["fmax"]) != fmax[g]:
             raise AssertionError(f"groupBy row {e} != numpy group {g}")
+
+
+def check_filtered(rows, ref):
+    check_groupby(rows, ref, "f_")
 
 
 def check_topn(rows, ref):
@@ -457,8 +638,9 @@ def split_times(q, segments, dev):
     finish = engines.finish_groupby if isinstance(query, GroupByQuery) \
         else engines.finish_timeseries if isinstance(query, TimeseriesQuery) \
         else engines.finish_topn
+    from druid_tpu_torch.engine import megakernel as mk
     part, fin = [], []
-    saved = sr.LAUNCHES
+    saved = (sr.LAUNCHES, mk.LAUNCHES)
     for _ in range(3):
         t = time.perf_counter()
         ap = engines.make_aggregate_partials(query, segments, dev)
@@ -467,7 +649,7 @@ def split_times(q, segments, dev):
         t = time.perf_counter()
         finish(query, ap)
         fin.append((time.perf_counter() - t) * 1e3)
-    sr.LAUNCHES = saved               # these runs are measurement, not path
+    sr.LAUNCHES, mk.LAUNCHES = saved  # these runs are measurement, not path
     return {"partials_ms": float(np.median(part)),
             "finish_ms": float(np.median(fin))}
 
@@ -475,6 +657,7 @@ def split_times(q, segments, dev):
 def phase_main(dev):
     import torch
     from druid_tpu_torch.engine import QueryExecutor
+    from druid_tpu_torch.engine import megakernel as mk
     from druid_tpu_torch.engine import sorted_reduce as sr
     t = time.perf_counter()
     segments = headline_segments()
@@ -486,50 +669,59 @@ def phase_main(dev):
     qs = queries(segments)
     ex = QueryExecutor(segments, device=dev)
     checks = {"groupby": check_groupby, "topn": check_topn,
-              "timeseries": check_timeseries}
+              "timeseries": check_timeseries,
+              "groupby_filtered": check_filtered}
+    # (B1, B2) launches per run of each query
+    wants = {"groupby": (SEGMENTS, 0), "groupby_filtered": (0, SEGMENTS)}
     out = {"gen_s": gen_s}
-    launches = 0
+
+    def launches():
+        return (sr.LAUNCHES, mk.LAUNCHES)
     for name, q in qs.items():
+        want = wants.get(name, (0, 0))
         t = time.perf_counter()
-        before = sr.LAUNCHES
-        with CaptureB1(sr) as cap:
+        before = launches()
+        with Capture(sr, "sorted_reduce") as cap1, \
+                Capture(mk, "mega_reduce_cuda") as cap2:
             rows = ex.run_json(q)
             torch.cuda.synchronize()
         cold = time.perf_counter() - t
-        delta = sr.LAUNCHES - before
+        delta = tuple(a - b for a, b in zip(launches(), before))
         checks[name](rows, ref)
-        want = SEGMENTS if name == "groupby" else 0
-        if delta != want or len(cap.spans) != want:
-            raise AssertionError(f"{name}: B1 launched {delta} times "
-                                 f"({len(cap.spans)} calls), expected {want}")
-        if cap.first is not None:
-            out["b1_inputs"] = cap.first
-            out["b1_windows"] = [list(w) for w in cap.windows()]
-            out["b1_spans"] = cap.spans
-        launches += delta
+        if delta != want or (len(cap1.spans), len(cap2.spans)) != want:
+            raise AssertionError(
+                f"{name}: (B1, B2) launched {delta} times ({len(cap1.spans)},"
+                f" {len(cap2.spans)} calls), expected {want}")
+        for tag, cap in (("b1", cap1), ("b2", cap2)):
+            if cap.first is not None:
+                out[f"{tag}_inputs"] = cap.first
+                out[f"{tag}_windows"] = [list(w) for w in cap.windows()]
+                out[f"{tag}_spans"] = cap.spans
         warm = []
         for _ in range(5):
-            before = sr.LAUNCHES
+            before = launches()
             t = time.perf_counter()
             rows = ex.run_json(q)
             torch.cuda.synchronize()
             warm.append((time.perf_counter() - t) * 1e3)
-            if sr.LAUNCHES - before != want:
-                raise AssertionError(f"{name}: warm run launched "
-                                     f"{sr.LAUNCHES - before} times")
+            got = tuple(a - b for a, b in zip(launches(), before))
+            if got != want:
+                raise AssertionError(f"{name}: warm run launched (B1, B2) "
+                                     f"{got} times, expected {want}")
         checks[name](rows, ref)
         split = split_times(q, segments, dev)
         p50 = float(np.median(warm))
         out[name] = {"cold_s": cold, "warm_ms": warm, "p50_ms": p50,
                      "rows_per_s": ROWS / (p50 / 1e3), "result_rows": len(rows),
-                     "b1_launches_per_run": delta, **split}
-        planned = (f", B1 spans {cap.spans} -> (BLK, W) {cap.windows()}"
-                   if cap.spans else "")
+                     "b1_launches_per_run": delta[0],
+                     "b2_launches_per_run": delta[1], **split}
+        planned = "".join(
+            f", {tag} spans {cap.spans} -> (BLK, W) {cap.windows()}"
+            for tag, cap in (("B1", cap1), ("B2", cap2)) if cap.spans)
         log(f"  {name}: ok, cold {cold:.2f} s, warm p50 {p50:.1f} ms "
-            f"({ROWS / (p50 / 1e3):.3e} rows/s), B1 launches/run {delta}"
-            f"{planned}; partials {split['partials_ms']:.1f} ms, "
+            f"({ROWS / (p50 / 1e3):.3e} rows/s), (B1, B2) launches/run "
+            f"{delta}{planned}; partials {split['partials_ms']:.1f} ms, "
             f"merge+finish {split['finish_ms']:.1f} ms")
-    out["b1_launches_first_runs"] = launches
     return out
 
 
@@ -541,6 +733,7 @@ def main():
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     from druid_tpu_torch import _build
+    from druid_tpu_torch.engine import megakernel as mk
     from druid_tpu_torch.engine import sorted_reduce as sr
 
     dev = torch.device("cuda", 0)
@@ -564,39 +757,54 @@ def main():
     log("phase B1 parity, synthetic projections")
     b1 = phase_b1(dev)
     report["b1_parity"] = b1
+    log("phase B2 parity, synthetic")
+    b2 = phase_b2(dev)
+    report["b2_parity"] = b2
 
     log("phase main path")
-    sr.LAUNCHES = 0
+    sr.LAUNCHES = mk.LAUNCHES = 0
     main_out = phase_main(dev)
-    launches = sr.LAUNCHES
-    inputs = main_out.pop("b1_inputs")
+    launches = {"B1": sr.LAUNCHES, "B2": mk.LAUNCHES}
+    inputs = {"B1": main_out.pop("b1_inputs"),
+              "B2": main_out.pop("b2_inputs")}
     report["main"] = main_out
 
-    log("phase B1 on the main path's inputs (first groupBy segment)")
-    arrays, mask, key, ks, G, span = inputs
-    err, _ = check_b1("main-path", arrays, mask, key, ks, G, span)
-    b1["main_path_max_abs_err"] = err
-    tb = time_b1(dev, inputs)
-    report["b1_times"] = tb
-    log(f"  B1 {tb['ms']:.3f} ms/launch (n={tb['n']}, G={G}, span={span}, "
-        f"window={tb['window']}, ops={tb['ops']}), bound "
-        f"{tb['bound_ms']:.3f} ms ({tb['bytes']} B), plain "
-        f"{tb['plain_ms']:.3f} ms, library {tb['library_ms']:.3f} ms; "
-        f"longest run of one key per block: median "
-        f"{tb['longest_run_median']:.0f} rows, "
-        f"{tb['blocks_with_half_block_run']:.4f} of blocks >= half a block")
-    for kname, kms in sorted(tb["device_ms_by_kernel"].items(),
-                             key=lambda kv: -kv[1]):
-        log(f"    device {kms:.4f} ms/launch  {kname}")
-    kernels_line = {"kernels": [{
-        "name": "sorted_reduce", "route": "cuda",
-        "source": "druid_tpu_torch/csrc/sorted_reduce.cu",
-        "replaces": "druid_tpu/engine/pallas_agg.py:166",
-        "launches": launches, "max_abs_err": max(err, b1["max_abs_err"]),
-        "ms": tb["ms"], "plain_ms": tb["plain_ms"],
-        "bound_ms": tb["bound_ms"], "bound_by": "bytes",
-        "library_ms": tb["library_ms"]}]}
-    report["kernels"] = kernels_line["kernels"]
+    entries = []
+    for which, parity, check, name, source, replaces in (
+            ("B1", b1, check_b1, "sorted_reduce",
+             "druid_tpu_torch/csrc/sorted_reduce.cu",
+             "druid_tpu/engine/pallas_agg.py:166"),
+            ("B2", b2, check_b2, "mega_reduce",
+             "druid_tpu_torch/csrc/sorted_reduce.cu (sr_partial_words)",
+             "druid_tpu/engine/megakernel.py:742")):
+        log(f"phase {which} on the main path's inputs (first segment)")
+        arrays, m_in, key, ks, G, span = inputs[which]
+        err, _ = check("main-path", arrays, m_in, key, ks, G, span)
+        parity["main_path_max_abs_err"] = err
+        tb = time_kernel(which, dev, inputs[which])
+        report[f"{which.lower()}_times"] = tb
+        log(f"  {which} {tb['ms']:.3f} ms/launch (n={tb['n']}, "
+            f"live rows={tb['live_rows']}, G={G}, span={span}, "
+            f"window={tb['window']}, ops={tb['ops']}), bound "
+            f"{tb['bound_ms']:.4f} ms ({tb['bytes']} B; 32-row groups "
+            f"with a live row: {tb['live_word_share']:.4f}), plain "
+            f"{tb['plain_ms']:.3f} ms, library {tb['library_ms']:.3f} ms; "
+            f"longest run of one key per block: median "
+            f"{tb['longest_run_median']:.0f} rows, "
+            f"{tb['blocks_with_half_block_run']:.4f} of blocks >= half a "
+            f"block")
+        for kname, kms in sorted(tb["device_ms_by_kernel"].items(),
+                                 key=lambda kv: -kv[1]):
+            log(f"    device {kms:.4f} ms/launch  {kname}")
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[which],
+            "max_abs_err": max(err, parity["max_abs_err"]),
+            "ms": tb["ms"], "plain_ms": tb["plain_ms"],
+            "bound_ms": tb["bound_ms"], "bound_by": "bytes",
+            "library_ms": tb["library_ms"]})
+    kernels_line = {"kernels": entries}
+    report["kernels"] = entries
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=float)

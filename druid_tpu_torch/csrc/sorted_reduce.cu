@@ -1,10 +1,15 @@
 // Grouped reduction over a sorted, key-compacted projection, for Hopper.
 //
-// Replaces the TPU kernel druid_tpu/engine/pallas_agg.py::pallas_reduce
-// (pl.pallas_call at pallas_agg.py:400) for dense int32/float32 value columns.
-// Python side: druid_tpu_torch/engine/sorted_reduce.py (wrapper, plain
-// PyTorch version, launch counter). Built with nvcc for sm_90a into a shared
-// library with a plain C interface (druid_tpu_torch/_build.py).
+// Two TPU kernels, for dense int32/float32 value columns:
+//   B1 (sr_partial): druid_tpu/engine/pallas_agg.py::pallas_reduce
+//      (pl.pallas_call at pallas_agg.py:400); masked rows arrive as the key
+//      sentinel.
+//   B2 (sr_partial_words): druid_tpu/engine/megakernel.py::mega_reduce
+//      (pl.pallas_call at megakernel.py:742); the row mask arrives as bits.
+// Python side: druid_tpu_torch/engine/sorted_reduce.py (B1's wrapper, the
+// shared launch) and engine/megakernel.py (B2's wrapper); plain PyTorch
+// versions and launch counters beside them. Built with nvcc for sm_90a into a
+// shared library with a plain C interface (druid_tpu_torch/_build.py).
 //
 // What it computes. Rows come in blocks of `blk` rows (2048 or 1024). Each
 // block takes the minimum key over its rows (masked rows carry the sentinel
@@ -34,6 +39,16 @@
 // Float min/max propagate NaN the way jnp.min/jnp.max do (fminf/fmaxf would
 // drop it). Fully masked blocks are marked with base -1 and contribute
 // nothing; a ragged last block reads rows past n as the sentinel.
+//
+// B2 differs from B1 at one place, the read of a row's key: the key if the
+// row's mask bit is set, else the sentinel. Everything after that read is
+// B1's, so for the same mask the two give the same bits, floats included.
+// The mask is plain LSB-first int32 words (row r is bit r % 32 of word
+// r / 32), the layout of the port's staged filter words, not the TPU's
+// width-1 tile-planar layout (which exists for its sub-lane unpack): the 32
+// consecutive rows a warp reads share one word, so a warp makes one
+// broadcast load per 32 rows. The words cost n / 8 bytes against B1's n
+// bytes of bool mask plus the sentinel-folded key copy the wrapper makes.
 //
 // Bound. The kernel must read each key (4 B) and each value column (4 B per
 // column) once: bytes / 3.35 TB/s on an H100 SXM. This first design
@@ -86,6 +101,7 @@ struct SrParams {
   const void* fsrc[SR_MAX_FIELDS]; // [n] int32/float32 value columns
   void* part[SR_MAX_SLOTS];        // [nblk, W] partial rows per slot
   void* out[SR_MAX_SLOTS];         // [G] result per slot
+  const int* mask_words;           // B2: [ceil(n/32)] row mask bits
 };
 
 __device__ __forceinline__ float sr_fmax(float a, float v) {
@@ -122,7 +138,9 @@ __device__ __forceinline__ void sr_init(const SrParams& p,
   }
 }
 
-// up to MAX_W = 1024 threads (one per window slot): cap registers to fit
+// up to MAX_W = 1024 threads (one per window slot): cap registers to fit.
+// kWords: the row mask is p.mask_words (B2), else folded into p.keys (B1).
+template <bool kWords>
 __global__ void __launch_bounds__(1024) sr_partial_kernel(const SrParams p) {
   __shared__ int slot_sh[SR_MAX_BLK];
   __shared__ int first_sh[SR_MAX_W];   // first / last row of each slot
@@ -139,7 +157,13 @@ __global__ void __launch_bounds__(1024) sr_partial_kernel(const SrParams p) {
   int m = SR_SENTINEL;
   for (int j = tid; j < p.blk; j += blockDim.x) {
     const long long row = row0 + j;
-    const int k = row < p.n ? p.keys[row] : SR_SENTINEL;
+    int k = SR_SENTINEL;
+    if (row < p.n) {
+      k = p.keys[row];
+      if (kWords && !((__ldg(p.mask_words + (row >> 5)) >> (row & 31)) & 1)) {
+        k = SR_SENTINEL;
+      }
+    }
     slot_sh[j] = k;
     m = min(m, k);
   }
@@ -262,10 +286,8 @@ __global__ void sr_combine_kernel(const SrParams p) {
   }
 }
 
-extern "C" {
-
-// Pass 1: partial rows and window bases. Returns the launch's cudaError_t.
-int sr_partial(const SrParams* p, void* stream) {
+template <bool kWords>
+static int sr_partial_launch(const SrParams* p, void* stream) {
   if (p->blk > SR_MAX_BLK || p->W % 128 != 0 || p->W > SR_MAX_W
       || p->nslots < 1 || p->nslots > SR_MAX_SLOTS
       || p->nfields < 0 || p->nfields > SR_MAX_FIELDS
@@ -280,14 +302,30 @@ int sr_partial(const SrParams* p, void* stream) {
   if (p->nblk == 0) return 0;
   const int smem = p->nfields * p->blk * (int)sizeof(int);
   cudaError_t e = cudaFuncSetAttribute(
-      sr_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      sr_partial_kernel<kWords>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return (int)e;
-  sr_partial_kernel<<<p->nblk, p->W, smem,
-                      static_cast<cudaStream_t>(stream)>>>(*p);
+  sr_partial_kernel<kWords><<<p->nblk, p->W, smem,
+                              static_cast<cudaStream_t>(stream)>>>(*p);
   return (int)cudaGetLastError();
 }
 
-// Pass 2: fold the partial rows into the [G] grids. Returns cudaError_t.
+extern "C" {
+
+// Pass 1 of B1: partial rows and window bases, masked rows already carry
+// the sentinel key. Returns the launch's cudaError_t.
+int sr_partial(const SrParams* p, void* stream) {
+  return sr_partial_launch<false>(p, stream);
+}
+
+// Pass 1 of B2: as sr_partial, with raw keys and the row mask as words.
+int sr_partial_words(const SrParams* p, void* stream) {
+  if (p->mask_words == nullptr) return (int)cudaErrorInvalidValue;
+  return sr_partial_launch<true>(p, stream);
+}
+
+// Pass 2 of B1 and B2: fold the partial rows into the [G] grids. Returns
+// cudaError_t.
 int sr_combine(const SrParams* p, void* stream) {
   if (p->G == 0) return 0;
   const int threads = 128;

@@ -174,6 +174,11 @@ class Segment:
         with self._lock:
             return self._device_cache.setdefault(key, value)
 
+    def device_contains(self, key: Tuple) -> bool:
+        """Whether `device_cached` holds `key` (a residency probe)."""
+        with self._lock:
+            return key in self._device_cache
+
     def column_minmax(self, name: str) -> Tuple[int, int]:
         """Cached (min, max) of a numeric column (0, 0 when empty)."""
         def _compute():

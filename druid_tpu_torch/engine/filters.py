@@ -1,15 +1,28 @@
 """Filter planning: DimFilter trees -> row-mask programs over staged tensors.
 
-The port's counterpart of the row-domain half of the reference package's
-`engine/filters.py` (its `plan_filter` with device bitmaps off). String
-predicates are evaluated on the host against the dimension dictionary into
-a boolean lookup table; on the device the predicate is one gather,
-`lut[ids]`. Numeric predicates compare the staged value column in its staged
-dtype. Constants are folded out of the tree before any device work.
+The port's counterpart of the reference package's `engine/filters.py`.
+String predicates are evaluated on the host against the dimension dictionary
+into a boolean lookup table (LUT). Two device forms follow from it:
+  * row domain: the predicate is one gather, `lut[ids]` (LutNode);
+  * device bitmaps (on by default, `set_device_bitmap_enabled`): a maximal
+    subtree of string predicates plans to one DeviceBitmapNode, an
+    AND/OR/NOT word algebra over per-leaf row bitmaps. Staged, the algebra
+    runs once per (segment, filter) into combined words cached on the
+    segment, and the row mask is a bit test of those words; fused
+    (engine/megakernel.py), the leaf words stay resident and the algebra
+    runs inside the aggregation.
+Numeric predicates compare the staged value column in its staged dtype.
+Constants are folded out of the tree before any device work.
+
+Word layout, everywhere in the port: int32 words, LSB first — row r is bit
+r % 32 of word r // 32 (the reference's staged filter-word layout,
+`druid_tpu/data/bitmap.py` to_words32).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Set
+import hashlib
+import threading
+from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +32,25 @@ from druid_tpu_torch.data.segment import Segment, ValueType
 from druid_tpu_torch.query import filters as F
 
 Cols = Dict[str, torch.Tensor]
+
+#: process default for the device-bitmap filter path (on, as in the
+#: reference); tests flip it with set_device_bitmap_enabled
+_DEVICE_BITMAP = True
+_DEVICE_BITMAP_LOCK = threading.Lock()
+
+
+def set_device_bitmap_enabled(on: bool) -> bool:
+    """Flip the process-wide device-bitmap default; returns the previous
+    value."""
+    global _DEVICE_BITMAP
+    with _DEVICE_BITMAP_LOCK:
+        prev = _DEVICE_BITMAP
+        _DEVICE_BITMAP = bool(on)
+        return prev
+
+
+def device_bitmap_enabled() -> bool:
+    return _DEVICE_BITMAP
 
 
 class FilterNode:
@@ -119,7 +151,7 @@ class TimeIntervalsNode(FilterNode):
         return time_mask(cols["__time_offset"], self.offsets)
 
 
-class AndNode(FilterNode):
+class _NaryNode(FilterNode):
     def __init__(self, children: List[FilterNode]):
         self.children = children
 
@@ -127,6 +159,8 @@ class AndNode(FilterNode):
         return set().union(*(c.required_device_columns()
                              for c in self.children))
 
+
+class AndNode(_NaryNode):
     def build(self, cols):
         mask = self.children[0].build(cols)
         for c in self.children[1:]:
@@ -134,7 +168,7 @@ class AndNode(FilterNode):
         return mask
 
 
-class OrNode(AndNode):
+class OrNode(_NaryNode):
     def build(self, cols):
         mask = self.children[0].build(cols)
         for c in self.children[1:]:
@@ -151,6 +185,185 @@ class NotNode(FilterNode):
 
     def build(self, cols):
         return ~self.child.build(cols)
+
+
+class DeviceBitmapNode(FilterNode):
+    """A bitmap-eligible filter subtree compiled to word algebra.
+
+    `structure` is ("and"|"or", children) / ("not", child) / ("leaf", i) /
+    ("const", bool); leaf i is `leaves[i]` = (dim, LUT). On the staged path
+    stage_device_bitmaps evaluates the algebra once into combined words,
+    cached on the segment under bitmap_pool_key and staged as `col`; build()
+    bit-tests them. The node reads no segment column: a dimension that only
+    the filter names is not staged."""
+
+    def __init__(self, flt: F.DimFilter, segment: Segment):
+        self.slot = 0                    # assigned by assign_bitmap_slots
+        self.leaves: List[Tuple[str, np.ndarray]] = []
+        self.structure = self._compile(flt, segment)
+
+    def _compile(self, flt: F.DimFilter, segment: Segment):
+        if isinstance(flt, F.TrueFilter):
+            return ("const", True)
+        if isinstance(flt, F.FalseFilter):
+            return ("const", False)
+        if isinstance(flt, F.AndFilter):
+            return ("and", tuple(self._compile(f, segment)
+                                 for f in flt.fields))
+        if isinstance(flt, F.OrFilter):
+            return ("or", tuple(self._compile(f, segment)
+                                for f in flt.fields))
+        if isinstance(flt, F.NotFilter):
+            return ("not", self._compile(flt.field, segment))
+        dim = flt.dimension
+        self.leaves.append((dim, _dictionary_lut(segment.dims[dim].dictionary,
+                                                 _string_predicate(flt))))
+        return ("leaf", len(self.leaves) - 1)
+
+    @property
+    def col(self) -> str:
+        return f"__fbmp{self.slot}"
+
+    def structure_sig(self) -> str:
+        def render(node):
+            op = node[0]
+            if op == "leaf":
+                return f"leaf({self.leaves[node[1]][0]})"
+            if op == "const":
+                return f"const({node[1]})"
+            if op == "not":
+                return f"not({render(node[1])})"
+            return f"{op}(" + ",".join(render(c) for c in node[1]) + ")"
+        return render(self.structure)
+
+    def digest(self) -> str:
+        """Which dictionary ids each leaf matches: same structure, same
+        digest and same segment give the same words."""
+        h = hashlib.sha1(self.structure_sig().encode())
+        for dim, lut in self.leaves:
+            h.update(dim.encode())
+            h.update(lut.tobytes())
+        return h.hexdigest()[:20]
+
+    def build(self, cols):
+        return expand_mask_words(cols[self.col], cols["__valid"].shape[0])
+
+
+def collect_bitmap_nodes(node: Optional[FilterNode]
+                         ) -> List[DeviceBitmapNode]:
+    """Every DeviceBitmapNode in a planned tree, in DFS order."""
+    out: List[DeviceBitmapNode] = []
+
+    def walk(n):
+        if isinstance(n, DeviceBitmapNode):
+            out.append(n)
+        elif isinstance(n, _NaryNode):
+            for c in n.children:
+                walk(c)
+        elif isinstance(n, NotNode):
+            walk(n.child)
+    if node is not None:
+        walk(node)
+    return out
+
+
+def assign_bitmap_slots(filter_node: Optional[FilterNode]) -> int:
+    """Unique slots (hence staged names `__fbmpN`) for the tree's bitmap
+    nodes, in DFS order; returns the slot count. The reference numbers the
+    filtered aggregators' trees after the query filter's; the port has no
+    filtered aggregators yet."""
+    nodes = collect_bitmap_nodes(filter_node)
+    for slot, node in enumerate(nodes):
+        node.slot = slot
+    return len(nodes)
+
+
+def perm_digest(perm_key) -> Optional[str]:
+    """Stable digest of a row permutation's identity (the projection's
+    cache key); None = the segment's own row order."""
+    if perm_key is None:
+        return None
+    return hashlib.sha1(repr(perm_key).encode()).hexdigest()[:16]
+
+
+def bitmap_pool_key(node: DeviceBitmapNode, padded_rows: int,
+                    perm_dig: Optional[str], device: torch.device) -> Tuple:
+    """THE segment cache key of a node's combined words: shared by
+    stage_device_bitmaps and the megakernel's residency probe
+    (megakernel.megaize), so the two cannot drift apart."""
+    return ("fbmp", node.structure_sig(), node.digest(), padded_rows,
+            perm_dig, str(device))
+
+
+def _leaf_digest(lut: np.ndarray) -> str:
+    return hashlib.sha1(lut.tobytes()).hexdigest()[:16]
+
+
+# ---------------------------------------------------------------------------
+# Mask words: one layout (row r = bit r % 32 of int32 word r // 32) for the
+# staged combined words, the fused leaf words and kernel B2's row mask
+# ---------------------------------------------------------------------------
+
+def host_words(bits: np.ndarray) -> np.ndarray:
+    """Host bool rows (length a multiple of 32) -> int32 words."""
+    return np.packbits(bits, bitorder="little").view(np.int32)
+
+
+def pack_mask_words(mask: torch.Tensor) -> torch.Tensor:
+    """Bool rows -> int32 words; rows past the end pack as 0 bits. An OR
+    fold of 32 shifted slices: the bits are disjoint, so it is exact, and
+    it stays in int32 (a sum would widen to int64)."""
+    pad = (-mask.shape[0]) % 32
+    m = mask.to(torch.int32)
+    if pad:
+        m = torch.cat([m, m.new_zeros(pad)])
+    planes = m.view(-1, 32).t().contiguous()     # [32, words]: bit planes
+    words = planes[0].clone()
+    for s in range(1, 32):
+        words |= planes[s] << s
+    return words
+
+
+def expand_mask_words(words: torch.Tensor, rows: int) -> torch.Tensor:
+    """int32 words -> the first `rows` bool rows."""
+    sh = torch.arange(32, dtype=torch.int32, device=words.device)
+    return ((words[:, None] >> sh) & 1).reshape(-1)[:rows].bool()
+
+
+def combine_structure_words(structure, leaf_words, const_words):
+    """THE word-algebra evaluator, AND/OR/NOT over whatever
+    `leaf_words(i)` / `const_words(bool)` return. The staged fill
+    (_fill_single) and the fused path (megakernel.MegaBitmapNode.words)
+    both evaluate through it (by structure_words), so their bits cannot
+    differ."""
+    def ev(node):
+        op = node[0]
+        if op == "leaf":
+            return leaf_words(node[1])
+        if op == "const":
+            return const_words(node[1])
+        if op == "not":
+            return ~ev(node[1])
+        kids = [ev(c) for c in node[1]]
+        out = kids[0]
+        for k in kids[1:]:
+            out = (out & k) if op == "and" else (out | k)
+        return out
+
+    return ev(structure)
+
+
+def structure_words(structure, leaf_words) -> torch.Tensor:
+    """A bitmap node's combined int32 words from its leaves' words
+    (`leaf_words(i)`); constants are full words shaped like leaf 0's (a
+    bitmap node always has a leaf)."""
+    ref = leaf_words(0)
+
+    def const_words(value):
+        return torch.full(ref.shape, -1 if value else 0, dtype=torch.int32,
+                          device=ref.device)
+
+    return combine_structure_words(structure, leaf_words, const_words)
 
 
 def time_mask(t: torch.Tensor, offsets: np.ndarray) -> torch.Tensor:
@@ -219,32 +432,69 @@ def _string_predicate(flt: F.DimFilter):
 # Planner
 # ---------------------------------------------------------------------------
 
-def plan_filter(flt: Optional[F.DimFilter],
-                segment: Segment) -> Optional[FilterNode]:
+def plan_filter(flt: Optional[F.DimFilter], segment: Segment,
+                device_bitmap: Optional[bool] = None
+                ) -> Optional[FilterNode]:
     """Plan `flt` for `segment` and fold its constants: None (no filter),
-    a ConstNode(False) root (nothing matches), or a constant-free tree."""
+    a ConstNode(False) root (nothing matches), or a constant-free tree.
+    device_bitmap: plan maximal bitmap-eligible subtrees to
+    DeviceBitmapNodes (None = the process default)."""
     if flt is None:
         return None
-    node = _simplify(_plan(flt.optimize(), segment))
+    use_bitmap = device_bitmap_enabled() if device_bitmap is None \
+        else device_bitmap
+    node = _simplify(_plan(flt.optimize(), segment, use_bitmap))
     if isinstance(node, ConstNode) and node.value:
         return None
+    assign_bitmap_slots(node)
     return node
 
 
 _I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
+_BITMAP_LEAVES = (F.SelectorFilter, F.InFilter, F.BoundFilter)
 
 
-def _plan(flt: F.DimFilter, segment: Segment) -> FilterNode:
+def can_use_bitmap(flt: F.DimFilter, segment: Segment) -> bool:
+    """Every leaf is a string predicate on a dimension of the segment."""
+    if isinstance(flt, (F.TrueFilter, F.FalseFilter)):
+        return True
+    if isinstance(flt, (F.AndFilter, F.OrFilter)):
+        return all(can_use_bitmap(f, segment) for f in flt.fields)
+    if isinstance(flt, F.NotFilter):
+        return can_use_bitmap(flt.field, segment)
+    return isinstance(flt, _BITMAP_LEAVES) and flt.dimension in segment.dims
+
+
+def _bitmap_compilable(flt: F.DimFilter, segment: Segment) -> bool:
+    """The whole subtree is bitmap material and names at least one
+    dimension (a constant-only subtree folds to a ConstNode instead)."""
+    if not can_use_bitmap(flt, segment):
+        return False
+
+    def has_leaf(f):
+        if isinstance(f, (F.AndFilter, F.OrFilter)):
+            return any(has_leaf(x) for x in f.fields)
+        if isinstance(f, F.NotFilter):
+            return has_leaf(f.field)
+        return getattr(f, "dimension", None) in segment.dims
+    return has_leaf(flt)
+
+
+def _plan(flt: F.DimFilter, segment: Segment,
+          use_bitmap: bool = False) -> FilterNode:
     if isinstance(flt, F.TrueFilter):
         return ConstNode(True)
     if isinstance(flt, F.FalseFilter):
         return ConstNode(False)
+    if use_bitmap and _bitmap_compilable(flt, segment):
+        # a maximal eligible subtree is one node; mixed trees recurse
+        return DeviceBitmapNode(flt, segment)
     if isinstance(flt, F.AndFilter):
-        return AndNode([_plan(f, segment) for f in flt.fields])
+        return AndNode([_plan(f, segment, use_bitmap) for f in flt.fields])
     if isinstance(flt, F.OrFilter):
-        return OrNode([_plan(f, segment) for f in flt.fields])
+        return OrNode([_plan(f, segment, use_bitmap) for f in flt.fields])
     if isinstance(flt, F.NotFilter):
-        return NotNode(_plan(flt.field, segment))
+        return NotNode(_plan(flt.field, segment, use_bitmap))
     if isinstance(flt, F.IntervalFilter):
         if flt.dimension != "__time":
             raise ValueError("interval filter supported on __time only")
@@ -324,3 +574,94 @@ def _simplify(node: FilterNode) -> FilterNode:
             return ConstNode(not c.value)
         return NotNode(c)
     return node
+
+
+# ---------------------------------------------------------------------------
+# Staged device bitmaps: combined words per (segment, filter), cached
+# ---------------------------------------------------------------------------
+
+class FilterBitmapStats:
+    """hits / misses of the combined-words cache probe (a hit skips leaf
+    staging and the algebra); built_bytes = the words built on misses."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        self.built_bytes = 0
+
+    def record(self, hit: bool, nbytes: int = 0) -> None:
+        with self._lock:
+            if hit:
+                self.hits += 1
+            else:
+                self.misses += 1
+                self.built_bytes += nbytes
+
+    def snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return {"hits": self.hits, "misses": self.misses,
+                    "builtBytes": self.built_bytes}
+
+
+_FBMP_STATS = FilterBitmapStats()
+
+
+def filter_bitmap_stats() -> FilterBitmapStats:
+    return _FBMP_STATS
+
+
+def leaf_bits(segment: Segment, dim: str, lut: np.ndarray, rows: int,
+              perm: Optional[np.ndarray] = None) -> np.ndarray:
+    """A leaf's row bitmap as host bools, padded with False to `rows`:
+    `lut[ids]`, in the permuted (projection) row order where `perm` is
+    given. The port has no bitmap index; these are the bits of the
+    reference's `bitmap_index().union_of(...)` (and `_permuted_bitmap`)."""
+    b = lut[segment.dims[dim].ids]
+    if perm is not None:
+        b = b[perm]
+    out = np.zeros(rows, dtype=bool)
+    out[: b.shape[0]] = b
+    return out
+
+
+def leaf_words(segment: Segment, dim: str, lut: np.ndarray, padded_rows: int,
+               device: torch.device, perm: Optional[np.ndarray] = None,
+               perm_key=None) -> torch.Tensor:
+    """A leaf's row bitmap as int32 words [padded_rows / 32] on `device`,
+    cached on the segment per (dim, LUT, rows, permutation, device). The
+    one staging of leaf bits: the staged fill and the fused path
+    (megakernel.stage_mega_leaves) both read it."""
+    key = ("leafwords", dim, _leaf_digest(lut), padded_rows,
+           perm_digest(perm_key), str(device))
+    return segment.device_cached(key, lambda: torch.from_numpy(host_words(
+        leaf_bits(segment, dim, lut, padded_rows, perm))).to(device))
+
+
+def _fill_single(segment: Segment, node: DeviceBitmapNode, padded_rows: int,
+                 device: torch.device, perm: Optional[np.ndarray] = None,
+                 perm_key=None) -> torch.Tensor:
+    """One (segment, filter) fill: the node's combined words."""
+    words = [leaf_words(segment, dim, lut, padded_rows, device, perm,
+                        perm_key) for dim, lut in node.leaves]
+    return structure_words(node.structure, words.__getitem__)
+
+
+def stage_device_bitmaps(segment: Segment, filter_node: Optional[FilterNode],
+                         padded_rows: int, device: torch.device,
+                         perm: Optional[np.ndarray] = None,
+                         perm_key=None) -> Dict[str, torch.Tensor]:
+    """{node.col: int32 words [padded_rows / 32]} for every DeviceBitmapNode
+    of the tree, cached on the segment under bitmap_pool_key; with `perm`,
+    the words are in the permuted row order, under their own key. Batched
+    fill waves across segments are not ported."""
+    pdg = perm_digest(perm_key)
+    out: Dict[str, torch.Tensor] = {}
+    for node in collect_bitmap_nodes(filter_node):
+        key = bitmap_pool_key(node, padded_rows, pdg, device)
+        hit = segment.device_contains(key)
+        _FBMP_STATS.record(hit, 0 if hit else padded_rows // 8)
+        out[node.col] = segment.device_cached(
+            key, lambda n=node: _fill_single(segment, n, padded_rows, device,
+                                             perm, perm_key))
+    return out

@@ -10,12 +10,15 @@ mask = valid AND time in the query intervals AND filter; key = fused
 eagerly, so there is no program cache: each call runs the tensor ops on the
 segment's staged block.
 
-Two reduction strategies (`select_strategy`):
+Reduction strategies (`select_strategy`):
   * "projection" — under the reference's own conditions (a group space above
     MM_GROUP_LIMIT over a segment of at least PROJECTION_MIN_ROWS rows, every
     aggregator blocked-eligible, the sorted-projection caps met): the segment
     is sorted by compacted key once (`build_projection`, cached) and reduced
     by kernel B1 (engine/sorted_reduce.py).
+  * "megakernel" — "projection" when the filter's root or top-level AND
+    conjuncts are fused bitmap nodes (engine/megakernel.py): the row mask
+    goes to kernel B2 as words.
   * "mixed" — torch scatter (`index_add_` / `scatter_reduce`) everywhere else.
 A CUDA tensor goes through the kernel or the call raises; nothing falls back.
 """
@@ -29,9 +32,11 @@ import numpy as np
 import torch
 
 from druid_tpu_torch.data.segment import Segment
+from druid_tpu_torch.engine import megakernel
 from druid_tpu_torch.engine import sorted_reduce as sorted_reduce_mod
 from druid_tpu_torch.engine.filters import (ConstNode, FilterNode,
-                                            interval_offsets, plan_filter,
+                                            interval_offsets, perm_digest,
+                                            plan_filter, stage_device_bitmaps,
                                             time_mask)
 from druid_tpu_torch.engine.kernels import AggKernel, make_kernel
 from druid_tpu_torch.utils.granularity import Granularity
@@ -73,7 +78,7 @@ class GroupSpec:
     host_unique: Optional[np.ndarray] = None      # raw fused key per compact id
     num_total: int = 1                 # padded key-space size
     strategy: str = "mixed"
-    window: int = 0                    # projection span for "projection"
+    window: int = 0                    # projection span (B1/B2 strategies)
     host_keys_cache: Optional[Tuple] = None
     host_bucket_cache: Optional[Tuple] = None
 
@@ -265,6 +270,15 @@ def fuse_filter_update(arrays: Dict[str, torch.Tensor], mask: torch.Tensor,
     for d in dims:
         if d.column is not None:
             key = key * d.cardinality + arrays[d.column].to(torch.int64)
+    if strategy == "megakernel":
+        # top-level mega conjuncts stay words into kernel B2; only the
+        # residual tree builds a row mask
+        mega_nodes, residual = megakernel.split_for_kernel(filter_node)
+        if residual is not None:
+            mask = mask & residual.build(arrays)
+        key = key.clamp(0, num_total - 1).to(torch.int32)
+        return megakernel.mega_reduce(arrays, mask, key, mega_nodes, kernels,
+                                      num_total, span)
     if filter_node is not None:
         mask = mask & filter_node.build(arrays)
     key = key.clamp(0, num_total - 1)
@@ -309,6 +323,8 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
 
     base_needed = set()
     if filter_node is not None:
+        # the PLANNED tree's columns: a bitmap node reads words, not its
+        # dimensions
         base_needed |= filter_node.required_device_columns()
     for a in aggs:
         base_needed |= a.required_columns()
@@ -342,9 +358,27 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
         else:
             spec.strategy = "mixed"
 
+    # bitmap subtrees whose combined words are not cached fuse into the
+    # aggregation (engine/megakernel.py); cached ones keep the bit test
+    if megakernel.enabled():
+        filter_node = megakernel.megaize(filter_node, segment, padded_rows,
+                                         device, perm_digest(perm_key))
+    else:
+        megakernel.record_disabled_fallback(filter_node)
+
     block = segment.device_block(sorted(needed), device, perm=perm,
                                  perm_key=perm_key)
     arrays = dict(block.arrays)
+    # staged combined words and fused leaf words, in the projection's row
+    # order on that path
+    arrays.update(stage_device_bitmaps(segment, filter_node,
+                                       block.padded_rows, device, perm,
+                                       perm_key))
+    arrays.update(megakernel.stage_mega_leaves(
+        segment, filter_node, block.padded_rows, device, perm, perm_key))
+    if spec.strategy == "projection" \
+            and megakernel.split_for_kernel(filter_node)[0]:
+        spec.strategy = "megakernel"
     t = arrays["__time_offset"]
     mask = arrays["__valid"] & time_mask(
         t, interval_offsets(intervals, segment.interval.start))

@@ -13,6 +13,9 @@ columns (the reference's bit-packed word inputs are not ported yet).
 * `LAUNCHES` counts the kernel's launches (one per `sorted_reduce_cuda`
   call, which runs the kernel's two passes); `PLAIN_CALLS` counts the CPU
   calls `sorted_reduce` routed to the plain version.
+* `launch` runs the two passes for B1 and for kernel B2
+  (engine/megakernel.py), which takes the row mask as int32 words instead
+  of folding it into the keys; B2 counts its own launches.
 
 Contract, as in the reference: (counts int32 [G], per-kernel states). For
 every block of BLK rows the window starts at the block's minimum key aligned
@@ -29,7 +32,7 @@ Bound on an H100: the kernel reads the key (4 B) and each value column
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -181,30 +184,28 @@ class _Params(ctypes.Structure):
                 ("field", ctypes.c_int * _MAX_SLOTS),
                 ("fsrc", ctypes.c_void_p * _MAX_FIELDS),
                 ("part", ctypes.c_void_p * _MAX_SLOTS),
-                ("out", ctypes.c_void_p * _MAX_SLOTS)]
+                ("out", ctypes.c_void_p * _MAX_SLOTS),
+                ("mask_words", ctypes.c_void_p)]
 
 
 def _lib():
     from druid_tpu_torch import _build
     lib = _build.load("sorted_reduce")
     if not getattr(lib, "_sr_typed", False):
-        for fn in (lib.sr_partial, lib.sr_combine):
+        for fn in (lib.sr_partial, lib.sr_partial_words, lib.sr_combine):
             fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib._sr_typed = True
     return lib
 
 
-def _check_cuda(arrays: Dict, mask, key, fields) -> None:
+def _check_cuda(arrays: Dict, key, fields, mask_words) -> None:
     if key.device.type != "cuda":
-        raise ValueError(f"sorted_reduce_cuda needs CUDA tensors, got "
-                         f"{key.device}")
+        raise ValueError(f"the sorted-projection kernels need CUDA tensors, "
+                         f"got {key.device}")
     n = key.shape[0]
-    if key.dim() != 1 or key.dtype != torch.int32:
-        raise ValueError("key must be a 1-D int32 tensor")
-    if mask.shape != key.shape or mask.dtype != torch.bool \
-            or mask.device != key.device:
-        raise ValueError("mask must be a bool tensor shaped like key")
+    if key.dim() != 1 or key.dtype != torch.int32 or not key.is_contiguous():
+        raise ValueError("key must be a contiguous 1-D int32 tensor")
     for f in fields:
         a = arrays[f]
         if a.shape != (n,) or a.device != key.device \
@@ -212,30 +213,39 @@ def _check_cuda(arrays: Dict, mask, key, fields) -> None:
                 or not a.is_contiguous():
             raise ValueError(f"value column {f!r} must be a contiguous "
                              f"int32/float32 [{n}] tensor on {key.device}")
+    if mask_words is not None and (
+            mask_words.dim() != 1 or mask_words.dtype != torch.int32
+            or mask_words.device != key.device
+            or not mask_words.is_contiguous()
+            or mask_words.shape[0] < -(-n // 32)):
+        raise ValueError(f"mask words must be a contiguous int32 tensor of "
+                         f"at least {-(-n // 32)} words on {key.device}")
 
 
-def sorted_reduce_cuda(arrays: Dict[str, torch.Tensor], mask: torch.Tensor,
-                       key: torch.Tensor, kernels: Sequence, num_total: int,
-                       span: int):
-    """Launch the CUDA kernel on CUDA tensors; raises on anything else."""
-    global LAUNCHES
+def launch(arrays: Dict[str, torch.Tensor], key: torch.Tensor,
+           kernels: Sequence, num_total: int, span: int,
+           mask_words: Optional[torch.Tensor] = None):
+    """Both passes on CUDA tensors; raises on anything else. Without
+    `mask_words` (B1) masked rows must already carry SENTINEL in `key`;
+    with them (B2) `key` is raw and row r counts iff bit r % 32 of word
+    r // 32 is set. Counts no launch: each kernel's wrapper does."""
     ops, blk, w = _plan(arrays, kernels, num_total, span)
     slots = _slot_plan(ops)
     fields = op_fields(ops)
-    _check_cuda(arrays, mask, key, fields)
+    _check_cuda(arrays, key, fields, mask_words)
     dev = key.device
     n = key.shape[0]
     nblk = max(1, -(-n // blk))
-    keyx = torch.where(mask, key, torch.full((), SENTINEL, dtype=torch.int32,
-                                             device=dev)).contiguous()
     abase = torch.empty(nblk, dtype=torch.int32, device=dev)
     parts = [torch.empty(nblk * w, dtype=_slot_dtype(k), device=dev)
              for k, _ in slots]
     outs = [torch.empty(num_total, dtype=_slot_dtype(k), device=dev)
             for k, _ in slots]
-    p = _Params(keys=keyx.data_ptr(), abase=abase.data_ptr(), n=n, blk=blk,
+    p = _Params(keys=key.data_ptr(), abase=abase.data_ptr(), n=n, blk=blk,
                 W=w, gbase_max=_round_up(num_total, LANE), nblk=nblk,
-                G=num_total, nslots=len(slots), nfields=len(fields))
+                G=num_total, nslots=len(slots), nfields=len(fields),
+                mask_words=None if mask_words is None
+                else mask_words.data_ptr())
     for f, field in enumerate(fields):
         p.fsrc[f] = arrays[field].data_ptr()
     for q, (kind, field) in enumerate(slots):
@@ -245,9 +255,10 @@ def sorted_reduce_cuda(arrays: Dict[str, torch.Tensor], mask: torch.Tensor,
         p.out[q] = outs[q].data_ptr()
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.sr_partial(ctypes.byref(p), stream)
+    partial = lib.sr_partial if mask_words is None else lib.sr_partial_words
+    rc = partial(ctypes.byref(p), stream)
     if rc:
-        raise RuntimeError(f"sr_partial launch failed: cudaError {rc}")
+        raise RuntimeError(f"partial pass launch failed: cudaError {rc}")
     # CSR of the blocks covering each 128-group row, in (window base, block)
     # order; fully masked blocks and rows past G go to a row never read
     rg = -(-num_total // LANE)
@@ -265,8 +276,22 @@ def sorted_reduce_cuda(arrays: Dict[str, torch.Tensor], mask: torch.Tensor,
     rc = lib.sr_combine(ctypes.byref(p), stream)
     if rc:
         raise RuntimeError(f"sr_combine launch failed: cudaError {rc}")
-    LAUNCHES += 1
     return _states(kernels, ops, outs, num_total)
+
+
+def sorted_reduce_cuda(arrays: Dict[str, torch.Tensor], mask: torch.Tensor,
+                       key: torch.Tensor, kernels: Sequence, num_total: int,
+                       span: int):
+    """Launch kernel B1 on CUDA tensors; raises on anything else."""
+    global LAUNCHES
+    if mask.shape != key.shape or mask.dtype != torch.bool \
+            or mask.device != key.device:
+        raise ValueError("mask must be a bool tensor shaped like key")
+    keyx = torch.where(mask, key, torch.full((), SENTINEL, dtype=key.dtype,
+                                             device=key.device))
+    out = launch(arrays, keyx, kernels, num_total, span)
+    LAUNCHES += 1
+    return out
 
 
 def sorted_reduce(arrays: Dict[str, torch.Tensor], mask: torch.Tensor,

@@ -2,6 +2,7 @@
 import ast
 import ctypes
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -12,6 +13,7 @@ import torch
 from druid_tpu_torch import _build, device
 from druid_tpu_torch.engine import QueryExecutor
 from druid_tpu_torch.engine import kernels as K
+from druid_tpu_torch.engine import megakernel as mk
 from druid_tpu_torch.engine import sorted_reduce as sr
 from druid_tpu_torch.query import aggregators as A
 
@@ -78,6 +80,24 @@ def test_cuda_wrapper_refuses_cpu_tensors_without_building(monkeypatch):
     assert int(counts[0]) == 4096 and sr.LAUNCHES == before
 
 
+def test_b2_wrapper_refuses_cpu_tensors_without_building(monkeypatch):
+    def no_build(*a, **k):
+        raise AssertionError("kernel build attempted on the CPU")
+    monkeypatch.setattr(_build, "build_all", no_build)
+    monkeypatch.setattr(_build, "load", no_build)
+    kernels = [K.CountKernel(A.CountAggregator("rows"))]
+    key = torch.zeros(4100, dtype=torch.int32)
+    words = torch.full((129,), -1, dtype=torch.int32)
+    before = (sr.LAUNCHES, mk.LAUNCHES, mk.PLAIN_CALLS)
+    with pytest.raises(ValueError, match="CUDA"):
+        mk.mega_reduce_cuda({}, words, key, kernels, 256, 1)
+    counts, _ = mk.mega_reduce({}, torch.ones(4100, dtype=torch.bool), key,
+                               [], kernels, 256, 1)
+    assert int(counts[0]) == 4100
+    assert (sr.LAUNCHES, mk.LAUNCHES, mk.PLAIN_CALLS) \
+        == (before[0], before[1], before[2] + 1)
+
+
 def test_wrapper_rejects_plans_outside_the_caps():
     kernels = [K.CountKernel(A.CountAggregator("rows"))]
     key = torch.zeros(64, dtype=torch.int32)
@@ -97,12 +117,22 @@ def test_build_targets_sm90a_from_repo_sources():
 
 def test_params_struct_matches_cuda_layout():
     """The ctypes mirror of SrParams: 4 pointers, an int64, seven ints, two
-    arrays of 17 ints, 8 field pointers and two arrays of 17 pointers
-    (natural alignment)."""
+    arrays of 17 ints, 8 field pointers, two arrays of 17 pointers and the
+    mask-words pointer (natural alignment)."""
     off = {name: getattr(sr._Params, name).offset
            for name, _ in sr._Params._fields_}
     assert off["n"] == 32 and off["kind"] == 68
     assert off["field"] == 68 + 17 * 4
     assert off["fsrc"] == 136 + 17 * 4 + 4
     assert off["part"] == off["fsrc"] + 8 * 8
-    assert ctypes.sizeof(sr._Params) == off["out"] + 17 * 8
+    assert off["mask_words"] == off["out"] + 17 * 8
+    assert ctypes.sizeof(sr._Params) == off["mask_words"] + 8
+
+
+def test_params_struct_fields_in_source_order():
+    """The ctypes field names follow SrParams's members in the CUDA source,
+    in order: a member added to one side only would shift the rest."""
+    src = (_build.CSRC / "sorted_reduce.cu").read_text()
+    body = src[src.index("struct SrParams {"):].split("};")[0]
+    members = re.findall(r"(\w+)(?:\[\w+\])?;", body)
+    assert members == [name for name, _ in sr._Params._fields_]

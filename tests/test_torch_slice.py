@@ -24,7 +24,7 @@ from druid_tpu_torch.data import generator as port_generator
 from druid_tpu_torch.data.convert import segment_from_arrays
 from druid_tpu_torch.engine import QueryExecutor as PortExecutor
 from druid_tpu_torch.engine import grouping as port_grouping
-from druid_tpu_torch.engine import sorted_reduce
+from druid_tpu_torch.engine import megakernel, sorted_reduce
 from druid_tpu_torch.utils.intervals import Interval as PortInterval
 
 # One intra-op thread: these tensors are small, and an OpenMP pool in every
@@ -162,12 +162,13 @@ def test_topn_matches_reference(segs, flt):
 ])
 def test_groupby_projection_matches_reference(segs, flt, monkeypatch):
     """dimA x dimB = 6000 groups > 4096: both packages take the sorted
-    projection (the reference's Pallas kernel in interpret mode, the port's
-    kernel B1 in its plain version)."""
+    projection (the reference's Pallas kernels in interpret mode, the port's
+    kernels in their plain versions): B1 for the numeric filter, B2 (the
+    row mask as words) where the filter names a dimension."""
     monkeypatch.setattr(ref_grouping, "PROJECTION_MIN_ROWS", 0)
     monkeypatch.setattr(port_grouping, "PROJECTION_MIN_ROWS", 0)
     monkeypatch.setattr(pallas_agg, "_FORCE_INTERPRET", True)
-    before = sorted_reduce.PLAIN_CALLS
+    before = (sorted_reduce.PLAIN_CALLS, megakernel.PLAIN_CALLS)
     q = {"queryType": "groupBy", "dataSource": "ds", "intervals": [IV],
          "granularity": "all", "dimensions": ["dimA", "dimB"],
          "aggregations": PROJ_AGGS, "postAggregations": POST,
@@ -177,7 +178,9 @@ def test_groupby_projection_matches_reference(segs, flt, monkeypatch):
                                     "dimensionOrder": "numeric"}]}}
     want, _ = _both(segs, q)
     assert want
-    assert sorted_reduce.PLAIN_CALLS - before == 2   # one per segment
+    calls = (sorted_reduce.PLAIN_CALLS - before[0],
+             megakernel.PLAIN_CALLS - before[1])
+    assert calls == ((2, 0) if flt is BOUND else (0, 2))   # one per segment
 
 
 def test_force_mixed_matches_reference_projection(segs, monkeypatch):
