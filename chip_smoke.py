@@ -8,14 +8,18 @@ Phases, each fatal on failure:
   2. build every CUDA kernel from druid_tpu_torch/csrc (nvcc, sm_90a);
   3. kernel B1 (sorted_reduce) against its plain PyTorch version on the card,
      on synthetic projections: a 12.5M-row one with G = 131072 and five ops,
-     and edge cases; integers and min/max exact, float sums within
-     1e-5 * sum|v| per group, and bit-identical across two runs;
+     and edge cases, among them the partial pass's runs (one key over more
+     than three blocks with masked rows, a NaN and a sum past 2^31 inside
+     it; runs of 1, 31, 32, 33 and a thread's chunk -1/0/+1 rows and one
+     over exactly a warp's rows; keys permuted within each span block);
+     integers and min/max exact, float sums within 1e-5 * sum|v| per group,
+     and bit-identical across two runs;
   4. kernel B2 (megakernel.mega_reduce, the row mask as words) on synthetic
      12.5M-row projections: against its plain version under the same rule,
      against B1 given the same mask as bools (every output bit-identical,
      floats included), and bit-identical across two runs; cases: two fused
      bitmap nodes plus a residual mask with n % 32 != 0, sums past 2^31,
-     fully masked blocks with NaN, every row masked;
+     fully masked blocks with NaN, every row masked, B1's long-run case;
   5. the main path at full size: the headline data (100M rows in 8 segments
      of 12.5M, seed 1234) through QueryExecutor(device="cuda").run_json —
      the headline groupBy (through B1: +8 launches per run, B2 none), topN
@@ -28,7 +32,9 @@ Phases, each fatal on failure:
      them (the first segment's), then timed there with CUDA events beside
      their HBM bound, their plain version and a library yardstick
      (index_add_/scatter_reduce over the same keys, B2's with the word
-     unpack, never used by the port); and the warm p50 of each query.
+     unpack, never used by the port), the host's enqueue time per launch
+     and torch.profiler's device time by kernel; and the warm p50 of each
+     query.
 The line before the last is the kernels JSON line; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -99,7 +105,6 @@ def make_projection(n, groups, lo, hi, keep, seed, dev):
     """Sorted compact keys (the Projection layout) + value columns, made on
     the card from a seed; returns (arrays, mask, key, span)."""
     import torch
-    from druid_tpu_torch.engine.sorted_reduce import SPAN_BLOCK
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     key = torch.randint(0, groups, (n,), generator=g, device=dev,
@@ -108,11 +113,48 @@ def make_projection(n, groups, lo, hi, keep, seed, dev):
     vlong = torch.randint(lo, hi, (n,), generator=g, device=dev,
                           dtype=torch.int64).to(torch.int32)
     vfloat = torch.randn(n, generator=g, device=dev) * 25.0 + 100.0
-    pad = (-n) % SPAN_BLOCK
+    return {"vlong": vlong, "vfloat": vfloat}, mask, key, projection_span(key)
+
+
+def projection_span(key):
+    """The widest key range of any SPAN_BLOCK rows (Projection.max_span)."""
+    import torch
+    from druid_tpu_torch.engine.sorted_reduce import SPAN_BLOCK
+    pad = (-key.shape[0]) % SPAN_BLOCK
     kp = torch.cat([key, key[-1:].expand(pad)]) if pad else key
     kb = kp.view(-1, SPAN_BLOCK)
-    span = int((kb.max(dim=1).values - kb.min(dim=1).values + 1).max())
-    return {"vlong": vlong, "vfloat": vfloat}, mask, key, span
+    return int((kb.max(dim=1).values - kb.min(dim=1).values + 1).max())
+
+
+HEAD_RUN = (3000, 3000 + 4 * 2048 + 777)   # head_run_projection's run
+
+
+def head_run_projection(n, seed, dev):
+    """A sorted projection of n / 32 keys (n <= 2^21 keeps them within
+    65536) with one key over rows HEAD_RUN: it starts and ends inside a
+    2048-row block and fills the three blocks between; about 10% of its rows
+    are masked, scattered; a NaN sits in its middle (live); its long sum
+    passes 2^31. Returns (arrays, mask, key, span, the run's key)."""
+    arrays, mask, key, _ = make_projection(n, n // 32, 300_000, 360_000,
+                                           0.9, seed, dev)
+    lo, hi = HEAD_RUN
+    head = int(key[lo])
+    key[lo:hi] = head                 # still sorted: key[lo] <= key[lo:hi]
+    mid = (lo + hi) // 2
+    arrays["vfloat"][mid] = float("nan")
+    mask[mid] = True
+    return arrays, mask, key, projection_span(key), head
+
+
+def check_head_run(name, states, head):
+    """The head run's group: its long sum passed 2^31 and the NaN reached
+    float max and min (states in _kernels() order)."""
+    import torch
+    if int(states[1][head]) <= 2**31:
+        raise AssertionError(f"{name}: the run's sum did not pass 2^31")
+    if not (bool(torch.isnan(states[2][head]))
+            and bool(torch.isnan(states[5][head]))):
+        raise AssertionError(f"{name}: the NaN did not reach float max/min")
 
 
 def same_bits(a, b):
@@ -256,7 +298,49 @@ def phase_b1(dev):
     if sr.plan_window(s)[0] != sr.BLK_WIDE_W:
         raise AssertionError(f"wide-window case planned {sr.plan_window(s)}")
     check_b1("blk1024", a, m, k, ks, 1 << 17, s)
+    # the partial pass's runs: one key over more than three blocks, masked
+    # rows and a NaN inside it, its sum past 2^31
+    a, m, k, s, head = head_run_projection(2_000_000, 6, dev)
+    _, st = check_b1("head-runs", a, m, k, ks, 65536, s)
+    check_head_run("B1 head-runs", st, head)
+    # runs of 1, 31, 32, 33, c - 1, c, c + 1 rows (c: rows per thread) and
+    # one over exactly one warp's rows
+    k = boundary_run_keys(1_000_000, dev)
+    a, m, _, _ = make_projection(k.shape[0], 1, -50, 50, 1.0, 7, dev)
+    check_b1("boundary-runs", a, m, k, ks, int(k.max()) + 1,
+             projection_span(k))
+    # sorted keys with every SPAN_BLOCK rows permuted in place: the plan of
+    # the sorted case, many runs per slot
+    a, m, k, s = make_projection(2_048_000, 100_000, -9, 9, 0.9, 8, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    kb = k.view(-1, sr.SPAN_BLOCK)
+    perm = torch.rand(kb.shape, generator=g, device=dev).argsort(dim=1)
+    k = kb.gather(1, perm).reshape(-1).contiguous()
+    if projection_span(k) != s:
+        raise AssertionError("unsorted-in-block: the span changed")
+    check_b1("unsorted-in-block", a, m, k, ks, 131072, s)
     return res
+
+
+def boundary_run_keys(n, dev):
+    """Sorted keys whose runs cycle through 1, 31, 32, 33, c - 1, c, c + 1
+    rows (c = BLK_SMALL_W / PARTIAL_THREADS, one thread's chunk), with one
+    run over exactly the rows of warp 1 of the second 2048-row block."""
+    import torch
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    c = sr.BLK_SMALL_W // sr.PARTIAL_THREADS
+    cycle = [1, 31, 32, 33, c - 1, c, c + 1]
+    start = sr.BLK_SMALL_W + 32 * c
+    before = []
+    while sum(before) < start:
+        before.append(cycle[len(before) % len(cycle)])
+    before[-1] -= sum(before) - start      # the last run ends at `start`
+    after = [cycle[i % len(cycle)] for i in range(n // 8)]
+    lengths = [x for x in before if x > 0] + [32 * c] + after
+    key = torch.repeat_interleave(torch.arange(len(lengths)),
+                                  torch.tensor(lengths))[:n]
+    return key.to(torch.int32).to(dev)
 
 
 def phase_b2(dev, rows=12_500_000):
@@ -314,6 +398,10 @@ def phase_b2(dev, rows=12_500_000):
                      k, ks, 131072, s)
     if int(st[0].sum()) != 0:
         raise AssertionError("B2 all-masked: rows counted")
+    # B1's head-run case with the mask as words, n % 32 != 0
+    a, m, k, s, head = head_run_projection(2_000_001, 15, dev)
+    _, st = check_b2("head-runs", a, pack_mask_words(m), k, ks, 65536, s)
+    check_head_run("B2 head-runs", st, head)
     return res
 
 
@@ -349,8 +437,8 @@ class Capture:
 
 
 def run_shape(mask, key, blk):
-    """Longest run of one live key inside each blk-row block: the rows one
-    thread of the partial pass walks for its window slot. Returns (median
+    """Longest run of one live key inside each blk-row block: the rows the
+    partial pass joins across threads and warps. Returns (median
     over blocks with a live row, share of those blocks whose longest run is
     at least blk / 2)."""
     import torch
@@ -403,6 +491,14 @@ def time_kernel(which, dev, inputs):
     saved = (sr.LAUNCHES, mk.LAUNCHES)
     ms = cuda_ms(kernel, 20)
     plain_ms = cuda_ms(plain, 5)
+    # host time to enqueue one launch (wrapper, torch ops, ctypes), with the
+    # card still busy from the calls before: near `ms`, the host limits it
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(20):
+        kernel()
+    enqueue_ms = (time.perf_counter() - t) / 20 * 1e3
+    torch.cuda.synchronize()
     col_dtypes = {c: str(a.dtype).replace("torch.", "")
                   for c, a in arrays.items()}
     ops = [k.pallas_op(col_dtypes) for k in ks]
@@ -456,8 +552,11 @@ def time_kernel(which, dev, inputs):
             us = getattr(ev, "cuda_time_total", 0)
         if us and ev.key and not ev.key.startswith("aten::") \
                 and "Memcpy" not in ev.key:
-            by_kernel[ev.key[:60]] = us / 1e3 / reps
+            by_kernel[ev.key] = us / 1e3 / reps
+    device_ms = sum(v for k, v in by_kernel.items()
+                    if not k.startswith(("cuda", "Activity")))
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "enqueue_ms": enqueue_ms, "device_ms": device_ms,
             "device_ms_by_kernel": by_kernel,
             "bound_ms": bound_ms, "bytes": nbytes, "n": n, "G": G,
             "live_rows": int(mask.sum()),
@@ -793,9 +892,11 @@ def main():
             f"{tb['longest_run_median']:.0f} rows, "
             f"{tb['blocks_with_half_block_run']:.4f} of blocks >= half a "
             f"block")
+        log(f"    host enqueue {tb['enqueue_ms']:.4f} ms/launch, device "
+            f"{tb['device_ms']:.4f} ms/launch in all (torch.profiler):")
         for kname, kms in sorted(tb["device_ms_by_kernel"].items(),
                                  key=lambda kv: -kv[1]):
-            log(f"    device {kms:.4f} ms/launch  {kname}")
+            log(f"    device {kms:.4f} ms/launch  {kname[:100]}")
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[which],

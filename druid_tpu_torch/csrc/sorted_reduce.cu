@@ -22,17 +22,27 @@
 // Design. The TPU kernel keeps every [G] grid resident in VMEM across a
 // sequential grid; Hopper has 227 KB of shared memory per block and runs
 // blocks in no order, so the reduction takes two passes:
-//   1. sr_partial_kernel: one thread block per row block, one thread per
-//      window slot. The block's local slots and the value words of its
-//      in-window rows (one copy per distinct value column, however many
-//      output slots read it) are staged in shared memory with coalesced loads,
-//      with each slot's first and last row (integer atomics). Each thread
-//      then walks its slot's row range in row order, once per output slot,
-//      and writes one partial row [W] per output slot. For sorted keys the
-//      range is the slot's run, so a block's rows are read about once per
-//      output slot; unsorted keys stay correct at up to W x blk compares.
-//      No atomics: float sums are summed in row order, so two runs give the
-//      same bits.
+//   1. sr_partial_kernel: one thread block of SR_THREADS threads per row
+//      block. The block's local slots and the value words of its in-window
+//      rows (one copy per distinct value column, however many output slots
+//      read it) are staged in shared memory with coalesced loads. Then, once
+//      per output slot, threads own rows, not window slots: thread t folds
+//      the contiguous chunk of blk / SR_THREADS rows at t * chunk in row
+//      order. A run is a maximal sequence of in-window rows with one slot;
+//      masked and out-of-window rows are transparent and end no run. A run
+//      inside one chunk is finished there; a run that crosses chunks is
+//      joined by a segmented reduction of per-chunk summaries (first run,
+//      last run, whether there are more) over the warp with __shfl_down_sync
+//      and then over the warps, a tree whose shape depends on blk and
+//      SR_THREADS only. Each finished run's total lands in shared memory at
+//      its first row. A slot's partial is its runs folded in row order,
+//      from the first and last run start of each slot (integer atomics):
+//      with sorted keys a slot has one run, whose total is the partial; with
+//      unsorted keys a thread walks the rows between the two starts. Each
+//      thread writes W / SR_THREADS entries of the partial row [W] of each
+//      output slot, the identity for an empty slot. No float atomics: every
+//      float output has one order of operations, so two runs give the same
+//      bits.
 //   2. sr_combine_kernel: one thread per group. It folds the partial rows of
 //      the blocks whose window covers the group, in an order fixed by the
 //      caller (window base, then block index), from a CSR list.
@@ -50,10 +60,14 @@
 // broadcast load per 32 rows. The words cost n / 8 bytes against B1's n
 // bytes of bool mask plus the sentinel-folded key copy the wrapper makes.
 //
-// Bound. The kernel must read each key (4 B) and each value column (4 B per
-// column) once: bytes / 3.35 TB/s on an H100 SXM. This first design
-// stages every block through shared memory and writes [nblk, W] partial
-// rows per slot (about W / blk of the input again), then re-reads them.
+// Bound. Bytes, over 3.35 TB/s on an H100 SXM: the whole row mask (B1's
+// bools, B2's words), the key and each value column (4 B a row) only in the
+// 32-row groups that hold a live row, and the [G] grids, each once. The
+// operations per row (a compare and an add or min/max per output slot) are
+// far below the card's integer and float rates. Above the bound, this
+// design writes the [nblk, W] partial rows of every output slot (16 B per
+// window slot for count + long sum + float max, about W / blk x 16 / 12 of
+// the input again) and the combine reads them back.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,14 +77,10 @@
 #define SR_MAX_BLK 2048
 #define SR_MAX_W 1024
 #define SR_SENTINEL 0x7fffffff
-
-// Shared memory of one sr_partial_kernel block at the largest plan: the
-// static slot, first/last-row and reduction arrays plus one staged word per
-// row per value column. Within Hopper's 227 KB per block, so no plan the
-// wrapper accepts can exceed it.
-static_assert(4 * (SR_MAX_BLK + 2 * SR_MAX_W + 32 + SR_MAX_FIELDS * SR_MAX_BLK)
-                  <= 232448,
-              "sr_partial_kernel shared memory exceeds Hopper's 227 KB");
+#define SR_THREADS 256             // threads per sr_partial_kernel block
+#define SR_WARPS (SR_THREADS / 32)
+#define SR_EMPTY 1                 // SrRuns flags: no in-window row
+#define SR_MULTI 2                 //   more than one run
 
 enum SrKind {
   SR_COUNT = 0,
@@ -138,24 +148,295 @@ __device__ __forceinline__ void sr_init(const SrParams& p,
   }
 }
 
-// up to MAX_W = 1024 threads (one per window slot): cap registers to fit.
+// One output kind: its accumulator type T (the type of its partial row),
+// identity, value of a staged word, and fold.
+template <int K> struct SrOp;
+template <> struct SrOp<SR_COUNT> {
+  typedef int T;
+  static __device__ T id() { return 0; }
+  static __device__ T load(int) { return 1; }
+  static __device__ T op(T a, T v) { return a + v; }
+};
+template <> struct SrOp<SR_SUM_I32> {   // exact: int32 words summed in int64
+  typedef long long T;
+  static __device__ T id() { return 0; }
+  static __device__ T load(int w) { return (long long)w; }
+  static __device__ T op(T a, T v) { return a + v; }
+};
+template <> struct SrOp<SR_SUM_F32> {
+  typedef float T;
+  static __device__ T id() { return 0.0f; }
+  static __device__ T load(int w) { return __int_as_float(w); }
+  static __device__ T op(T a, T v) { return a + v; }
+};
+template <> struct SrOp<SR_MIN_I32> {
+  typedef int T;
+  static __device__ T id() { return 0x7fffffff; }
+  static __device__ T load(int w) { return w; }
+  static __device__ T op(T a, T v) { return min(a, v); }
+};
+template <> struct SrOp<SR_MAX_I32> {
+  typedef int T;
+  static __device__ T id() { return (int)0x80000000; }
+  static __device__ T load(int w) { return w; }
+  static __device__ T op(T a, T v) { return max(a, v); }
+};
+template <> struct SrOp<SR_MIN_F32> {
+  typedef float T;
+  static __device__ T id() { return __int_as_float(0x7f800000); }
+  static __device__ T load(int w) { return __int_as_float(w); }
+  static __device__ T op(T a, T v) { return sr_fmin(a, v); }
+};
+template <> struct SrOp<SR_MAX_F32> {
+  typedef float T;
+  static __device__ T id() { return __int_as_float(0xff800000); }
+  static __device__ T load(int w) { return __int_as_float(w); }
+  static __device__ T op(T a, T v) { return sr_fmax(a, v); }
+};
+
+// The runs of a contiguous range of a block's rows. With SR_MULTI clear the
+// range holds one run: fs == ls, fstart == lstart, hv == lv.
+template <typename T>
+struct SrRuns {
+  int fs, ls;           // window slot of the first and of the last run
+  int fstart, lstart;   // first row of the first and of the last run
+  int flags;            // SR_EMPTY, SR_MULTI
+  T hv, lv;             // total over the range of the first and last run
+};
+
+// Static shared memory of one sr_partial_kernel block.
+struct __align__(16) SrSmem {
+  long long run[SR_MAX_BLK];      // total of each finished run, at its start
+  long long wv[SR_WARPS][2];      // warp summaries: hv, lv
+  int slot[SR_MAX_BLK];           // window slot of each row, -1: not counted
+  int first[SR_MAX_W];            // first and last run start of each slot
+  int last[SR_MAX_W];
+  int red[32];
+  int wi[SR_WARPS][5];            // warp summaries: fs, ls, fstart, lstart,
+                                  // flags
+  unsigned char head[SR_MAX_BLK]; // 1 where a run starts
+};
+
+// The static arrays plus one staged word per row per value column, at the
+// largest plan: within Hopper's 227 KB per block, so no plan the wrapper
+// accepts can exceed it (and the static part within the 48 KB a kernel may
+// declare).
+static_assert(sizeof(SrSmem) + 4 * SR_MAX_FIELDS * SR_MAX_BLK <= 232448,
+              "sr_partial_kernel shared memory exceeds Hopper's 227 KB");
+static_assert(sizeof(SrSmem) <= 48 * 1024,
+              "sr_partial_kernel static shared memory exceeds 48 KB");
+
+// A finished run of slot s starting at row `start` with total v. The count
+// pass (the first) also records where runs start, for every later pass.
+template <int K>
+__device__ __forceinline__ void sr_emit(SrSmem& sm, int s,
+                                        typename SrOp<K>::T v, int start) {
+  *reinterpret_cast<typename SrOp<K>::T*>(sm.run + start) = v;
+  if (K == SR_COUNT) {
+    sm.head[start] = 1;
+    atomicMin(sm.first + s, start);   // integer atomics: order-free
+    atomicMax(sm.last + s, start);
+  }
+}
+
+// The runs of range a followed by those of range b. A run that the join
+// closes on both sides is emitted; the order of every fold is a's then b's.
+template <int K>
+__device__ __forceinline__ SrRuns<typename SrOp<K>::T> sr_join(
+    SrRuns<typename SrOp<K>::T> a, const SrRuns<typename SrOp<K>::T>& b,
+    SrSmem& sm) {
+  typedef SrOp<K> O;
+  if (b.flags & SR_EMPTY) return a;
+  if (a.flags & SR_EMPTY) return b;
+  const bool join = a.ls == b.fs;
+  const bool am = a.flags & SR_MULTI, bm = b.flags & SR_MULTI;
+  if (join && !am && !bm) {           // still one run
+    a.hv = a.lv = O::op(a.lv, b.hv);
+    return a;
+  }
+  SrRuns<typename O::T> r;
+  r.fs = a.fs;
+  r.fstart = a.fstart;
+  r.ls = b.ls;
+  r.lstart = b.lstart;
+  r.flags = SR_MULTI;
+  if (join) {                         // a's last run goes on into b
+    const typename O::T m = O::op(a.lv, b.hv);
+    if (am && bm) sr_emit<K>(sm, a.ls, m, a.lstart);
+    r.hv = am ? a.hv : m;
+    r.lv = bm ? b.lv : m;
+    if (!bm) r.lstart = a.lstart;
+  } else {
+    if (am) sr_emit<K>(sm, a.ls, a.lv, a.lstart);
+    if (bm) sr_emit<K>(sm, b.fs, b.hv, b.fstart);
+    r.hv = a.hv;
+    r.lv = b.lv;
+  }
+  return r;
+}
+
+template <typename T>
+__device__ __forceinline__ SrRuns<T> sr_shfl_down(const SrRuns<T>& x, int o) {
+  SrRuns<T> y;
+  y.fs = __shfl_down_sync(0xffffffffu, x.fs, o);
+  y.ls = __shfl_down_sync(0xffffffffu, x.ls, o);
+  y.fstart = __shfl_down_sync(0xffffffffu, x.fstart, o);
+  y.lstart = __shfl_down_sync(0xffffffffu, x.lstart, o);
+  y.flags = __shfl_down_sync(0xffffffffu, x.flags, o);
+  y.hv = __shfl_down_sync(0xffffffffu, x.hv, o);
+  y.lv = __shfl_down_sync(0xffffffffu, x.lv, o);
+  return y;
+}
+
+// Lane 0 of the warp ends with the runs of the warp's 32 ranges; a fixed
+// tree (lane i takes lane i + o at distance o = 1, 2, 4, ...), `levels`
+// levels deep.
+template <int K>
+__device__ __forceinline__ SrRuns<typename SrOp<K>::T> sr_warp_join(
+    SrRuns<typename SrOp<K>::T> r, int levels, SrSmem& sm) {
+  const int lane = threadIdx.x & 31;
+  for (int l = 0; l < levels; ++l) {
+    const int o = 1 << l;
+    const SrRuns<typename SrOp<K>::T> nb = sr_shfl_down(r, o);
+    if ((lane & (2 * o - 1)) == 0) r = sr_join<K>(r, nb, sm);
+  }
+  return r;
+}
+
+// Step 3 for output slot q of kind K: every thread folds its chunk of rows,
+// runs crossing chunks are joined across the warp and then the warps, and
+// each window slot's runs are folded in row order into partial row q.
+template <int K>
+__device__ void sr_slot_pass(const SrParams& p, SrSmem& sm, const int* col,
+                             int q) {
+  typedef SrOp<K> O;
+  typedef typename O::T T;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int chunk = p.blk / SR_THREADS;   // a multiple of 4 (launch check)
+  const int j0 = tid * chunk;
+  SrRuns<T> r;
+  r.fs = r.ls = -1;
+  r.fstart = r.lstart = 0;
+  r.flags = SR_EMPTY;
+  r.hv = r.lv = O::id();
+  int cur = -1, cstart = 0;
+  T acc = O::id();
+  for (int i0 = 0; i0 < chunk; i0 += 4) {
+    const int4 s4 = *reinterpret_cast<const int4*>(sm.slot + j0 + i0);
+    int4 w4 = make_int4(0, 0, 0, 0);
+    if constexpr (K != SR_COUNT) {
+      w4 = *reinterpret_cast<const int4*>(col + j0 + i0);
+    }
+    const int ss[4] = {s4.x, s4.y, s4.z, s4.w};
+    const int ww[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int s = ss[i];
+      if (s < 0) continue;              // masked or outside: transparent
+      const T v = O::load(ww[i]);
+      if (s == cur) {
+        acc = O::op(acc, v);
+        continue;
+      }
+      if (cur >= 0) {                   // the run of `cur` ends here
+        if (r.flags & SR_EMPTY) {       // the chunk's first run
+          r.flags = 0;
+          r.fs = cur;
+          r.fstart = cstart;
+          r.hv = acc;
+        } else {                        // a run inside the chunk: finished
+          r.flags = SR_MULTI;
+          sr_emit<K>(sm, cur, acc, cstart);
+        }
+      }
+      cur = s;
+      cstart = j0 + i0 + i;
+      acc = v;
+    }
+  }
+  if (cur >= 0) {                       // the chunk's last run
+    if (r.flags & SR_EMPTY) {
+      r.flags = 0;
+      r.fs = cur;
+      r.fstart = cstart;
+      r.hv = acc;
+    } else {
+      r.flags = SR_MULTI;
+    }
+    r.ls = cur;
+    r.lstart = cstart;
+    r.lv = acc;
+  }
+  r = sr_warp_join<K>(r, 5, sm);
+  if (lane == 0) {
+    sm.wi[warp][0] = r.fs;
+    sm.wi[warp][1] = r.ls;
+    sm.wi[warp][2] = r.fstart;
+    sm.wi[warp][3] = r.lstart;
+    sm.wi[warp][4] = r.flags;
+    *reinterpret_cast<T*>(&sm.wv[warp][0]) = r.hv;
+    *reinterpret_cast<T*>(&sm.wv[warp][1]) = r.lv;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    if (lane < SR_WARPS) {
+      r.fs = sm.wi[lane][0];
+      r.ls = sm.wi[lane][1];
+      r.fstart = sm.wi[lane][2];
+      r.lstart = sm.wi[lane][3];
+      r.flags = sm.wi[lane][4];
+      r.hv = *reinterpret_cast<const T*>(&sm.wv[lane][0]);
+      r.lv = *reinterpret_cast<const T*>(&sm.wv[lane][1]);
+    } else {
+      r.flags = SR_EMPTY;
+    }
+    int levels = 0;
+    while ((1 << levels) < SR_WARPS) ++levels;
+    r = sr_warp_join<K>(r, levels, sm);
+    if (lane == 0 && !(r.flags & SR_EMPTY)) {   // the block's end runs
+      sr_emit<K>(sm, r.fs, r.hv, r.fstart);
+      if (r.flags & SR_MULTI) sr_emit<K>(sm, r.ls, r.lv, r.lstart);
+    }
+  }
+  __syncthreads();
+  // each slot: its runs in row order; one run (sorted keys) is read once,
+  // several (unsorted keys) are found between the first and last start
+  T* part = static_cast<T*>(p.part[q]) + (long long)blockIdx.x * p.W;
+  for (int s = tid; s < p.W; s += SR_THREADS) {
+    const int lo = sm.first[s], hi = sm.last[s];
+    T a = O::id();
+    if (lo == hi) {
+      a = O::op(a, *reinterpret_cast<const T*>(sm.run + lo));
+    } else {
+      for (int j = lo; j <= hi; ++j) {
+        if (sm.head[j] && sm.slot[j] == s) {
+          a = O::op(a, *reinterpret_cast<const T*>(sm.run + j));
+        }
+      }
+    }
+    part[s] = a;                       // empty slot: the identity
+  }
+  __syncthreads();                     // run[] and wi/wv are reused
+}
+
 // kWords: the row mask is p.mask_words (B2), else folded into p.keys (B1).
 template <bool kWords>
-__global__ void __launch_bounds__(1024) sr_partial_kernel(const SrParams p) {
-  __shared__ int slot_sh[SR_MAX_BLK];
-  __shared__ int first_sh[SR_MAX_W];   // first / last row of each slot
-  __shared__ int last_sh[SR_MAX_W];
-  __shared__ int red[32];
-  extern __shared__ int vals_sh[];   // nfields * blk value words
+__global__ void __launch_bounds__(SR_THREADS) sr_partial_kernel(
+    const SrParams p) {
+  __shared__ SrSmem sm;
+  extern __shared__ __align__(16) int vals_sh[];   // nfields * blk words
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const long long row0 = (long long)b * p.blk;
-  first_sh[tid] = p.blk;               // blockDim.x == W: one entry each
-  last_sh[tid] = -1;
+  for (int s = tid; s < p.W; s += SR_THREADS) {
+    sm.first[s] = p.blk;
+    sm.last[s] = -1;
+  }
+  for (int j = tid; j < p.blk; j += SR_THREADS) sm.head[j] = 0;
 
   // 1. stage the block's keys; block minimum over every row
   int m = SR_SENTINEL;
-  for (int j = tid; j < p.blk; j += blockDim.x) {
+  for (int j = tid; j < p.blk; j += SR_THREADS) {
     const long long row = row0 + j;
     int k = SR_SENTINEL;
     if (row < p.n) {
@@ -164,19 +445,19 @@ __global__ void __launch_bounds__(1024) sr_partial_kernel(const SrParams p) {
         k = SR_SENTINEL;
       }
     }
-    slot_sh[j] = k;
+    sm.slot[j] = k;
     m = min(m, k);
   }
   for (int o = 16; o > 0; o >>= 1) m = min(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if ((tid & 31) == 0) red[tid >> 5] = m;
+  if ((tid & 31) == 0) sm.red[tid >> 5] = m;
   __syncthreads();
   if (tid < 32) {
-    int v = tid < (int)(blockDim.x >> 5) ? red[tid] : SR_SENTINEL;
+    int v = tid < SR_WARPS ? sm.red[tid] : SR_SENTINEL;
     for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
-    if (tid == 0) red[0] = v;
+    if (tid == 0) sm.red[0] = v;
   }
   __syncthreads();
-  const int base = red[0];
+  const int base = sm.red[0];
   if (base == SR_SENTINEL) {            // fully masked block
     if (tid == 0) p.abase[b] = -1;
     return;
@@ -184,16 +465,14 @@ __global__ void __launch_bounds__(1024) sr_partial_kernel(const SrParams p) {
   int ab = base >= 0 ? (base / 128) * 128 : -((-base + 127) / 128) * 128;
   ab = max(min(ab, p.gbase_max), 0);
   if (tid == 0) p.abase[b] = ab;
-  // 2. keys -> window slots (sentinel rows land far outside [0, W)), and
+  // 2. keys -> window slots (-1 outside [0, W), sentinel rows included), and
   //    the value words of the rows in the window staged in shared memory
   //    with coalesced loads (vals_sh[f * blk + j] for value column f)
-  for (int j = tid; j < p.blk; j += blockDim.x) {
-    const long long local = (long long)slot_sh[j] - ab;
+  for (int j = tid; j < p.blk; j += SR_THREADS) {
+    const long long local = (long long)sm.slot[j] - ab;
     const bool in = local >= 0 && local < p.W;
-    slot_sh[j] = in ? (int)local : -1;
+    sm.slot[j] = in ? (int)local : -1;
     if (in) {
-      atomicMin(&first_sh[local], j);   // integer atomics: order-free
-      atomicMax(&last_sh[local], j);
       for (int f = 0; f < p.nfields; ++f) {
         vals_sh[f * p.blk + j] =
             __ldg(static_cast<const int*>(p.fsrc[f]) + row0 + j);
@@ -202,47 +481,17 @@ __global__ void __launch_bounds__(1024) sr_partial_kernel(const SrParams p) {
   }
   __syncthreads();
 
-  // 3. thread s reduces the rows of window slot s in row order, over the
-  //    row range [first, last] where its slot occurs (its run when the
-  //    keys are sorted), one output slot at a time with a branch-free loop
-  const int s = tid;
-  const int lo = first_sh[s], hi = last_sh[s];
-  const long long at = (long long)b * p.W + s;
-  int cnt = 0;
-  for (int j = lo; j <= hi; ++j) cnt += slot_sh[j] == s;
-  static_cast<int*>(p.part[0])[at] = cnt;
-  for (int q = 1; q < p.nslots; ++q) {
-    const int* col = vals_sh + p.field[q] * p.blk;
-    const int kind = p.kind[q];
-    if (kind == SR_SUM_I32) {
-      long long a = 0;
-      for (int j = lo; j <= hi; ++j) {
-        if (slot_sh[j] == s) a += col[j];
-      }
-      static_cast<long long*>(p.part[q])[at] = a;
-    } else if (kind == SR_MIN_I32 || kind == SR_MAX_I32) {
-      const bool mx = kind == SR_MAX_I32;
-      int a = mx ? (int)0x80000000 : 0x7fffffff;
-      for (int j = lo; j <= hi; ++j) {
-        if (slot_sh[j] == s) a = mx ? max(a, col[j]) : min(a, col[j]);
-      }
-      static_cast<int*>(p.part[q])[at] = a;
-    } else if (kind == SR_SUM_F32) {
-      float a = 0.0f;
-      for (int j = lo; j <= hi; ++j) {
-        if (slot_sh[j] == s) a += __int_as_float(col[j]);
-      }
-      static_cast<float*>(p.part[q])[at] = a;
-    } else {
-      const bool mx = kind == SR_MAX_F32;
-      float a = __int_as_float(mx ? (int)0xff800000 : 0x7f800000);
-      for (int j = lo; j <= hi; ++j) {
-        if (slot_sh[j] == s) {
-          const float v = __int_as_float(col[j]);
-          a = mx ? sr_fmax(a, v) : sr_fmin(a, v);
-        }
-      }
-      static_cast<float*>(p.part[q])[at] = a;
+  // 3. one pass per output slot, the count first (it records the runs)
+  for (int q = 0; q < p.nslots; ++q) {
+    const int* col = q ? vals_sh + p.field[q] * p.blk : nullptr;
+    switch (p.kind[q]) {
+      case SR_COUNT: sr_slot_pass<SR_COUNT>(p, sm, col, q); break;
+      case SR_SUM_I32: sr_slot_pass<SR_SUM_I32>(p, sm, col, q); break;
+      case SR_SUM_F32: sr_slot_pass<SR_SUM_F32>(p, sm, col, q); break;
+      case SR_MIN_I32: sr_slot_pass<SR_MIN_I32>(p, sm, col, q); break;
+      case SR_MAX_I32: sr_slot_pass<SR_MAX_I32>(p, sm, col, q); break;
+      case SR_MIN_F32: sr_slot_pass<SR_MIN_F32>(p, sm, col, q); break;
+      default: sr_slot_pass<SR_MAX_F32>(p, sm, col, q); break;
     }
   }
 }
@@ -288,14 +537,16 @@ __global__ void sr_combine_kernel(const SrParams p) {
 
 template <bool kWords>
 static int sr_partial_launch(const SrParams* p, void* stream) {
-  if (p->blk > SR_MAX_BLK || p->W % 128 != 0 || p->W > SR_MAX_W
+  if (p->blk <= 0 || p->blk > SR_MAX_BLK || p->blk % (4 * SR_THREADS) != 0
+      || p->W <= 0 || p->W % 128 != 0 || p->W > SR_MAX_W
       || p->nslots < 1 || p->nslots > SR_MAX_SLOTS
       || p->nfields < 0 || p->nfields > SR_MAX_FIELDS
       || p->kind[0] != SR_COUNT) {
     return (int)cudaErrorInvalidValue;
   }
   for (int q = 1; q < p->nslots; ++q) {
-    if (p->field[q] < 0 || p->field[q] >= p->nfields) {
+    if (p->field[q] < 0 || p->field[q] >= p->nfields
+        || p->kind[q] < SR_SUM_I32 || p->kind[q] > SR_MAX_F32) {
       return (int)cudaErrorInvalidValue;
     }
   }
@@ -305,7 +556,7 @@ static int sr_partial_launch(const SrParams* p, void* stream) {
       sr_partial_kernel<kWords>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return (int)e;
-  sr_partial_kernel<kWords><<<p->nblk, p->W, smem,
+  sr_partial_kernel<kWords><<<p->nblk, SR_THREADS, smem,
                               static_cast<cudaStream_t>(stream)>>>(*p);
   return (int)cudaGetLastError();
 }

@@ -22,12 +22,15 @@ every block of BLK rows the window starts at the block's minimum key aligned
 down to 128 (clamped to [0, round_up(G,128)]) and spans W keys; rows outside
 it are dropped, masked rows never count. Long sums are exact int64, counts
 and min/max exact, float min/max propagate NaN. Float sums are summed in row
-order within a block and in (window base, block) order across blocks, so two
-runs give the same bits; they differ from the reference's tree order within
-the tolerance of float32 summation.
+order within each thread's chunk of a block, across chunks in a tree fixed by
+BLK and PARTIAL_THREADS, and in (window base, block) order across blocks, so
+two runs give the same bits; they differ from the reference's tree order
+within the tolerance of float32 summation.
 
-Bound on an H100: the kernel reads the key (4 B) and each value column
-(4 B) once per row, about 12 B/row for the headline groupBy, over 3.35 TB/s.
+Bound on an H100, as chip_smoke.py counts it: the bytes the function needs,
+each once, over 3.35 TB/s: the whole row mask (n B of bools here, n / 8 B
+of words for B2), the key and each value column (4 B a row) only in the
+32-row groups that hold a live row, and the [G] output grids.
 """
 from __future__ import annotations
 
@@ -54,6 +57,9 @@ _VALUE_OPS = ("sum_i32", "sum_f32", "min_i32", "max_i32", "min_f32",
               "max_f32")
 _MAX_SLOTS = 17                       # SR_MAX_SLOTS in the CUDA source
 _MAX_FIELDS = 8                       # SR_MAX_FIELDS in the CUDA source
+#: threads per block of the partial pass (SR_THREADS in the CUDA source):
+#: each folds BLK / PARTIAL_THREADS consecutive rows
+PARTIAL_THREADS = 256
 
 
 def _round_up(x: int, m: int) -> int:
@@ -266,11 +272,12 @@ def launch(arrays: Dict[str, torch.Tensor], key: torch.Tensor,
     r0 = torch.where(abase >= 0, abase.to(torch.int64) // LANE, rg)
     rows = (r0[:, None] + torch.arange(wr, device=dev)).clamp_(max=rg) \
         .reshape(-1)
-    order = torch.argsort(rows, stable=True)
+    srt, order = torch.sort(rows, stable=True)
     row_blocks = (order // wr).to(torch.int32)
-    row_off = torch.zeros(rg + 1, dtype=torch.int32, device=dev)
-    row_off[1:] = torch.cumsum(torch.bincount(rows, minlength=rg + 1)[:rg],
-                               0).to(torch.int32)
+    # row r's entries start where the sorted rows reach r (bincount would
+    # read its output size back to the host and stall every launch)
+    row_off = torch.searchsorted(srt, torch.arange(rg + 1, device=dev)) \
+        .to(torch.int32)
     p.row_off = row_off.data_ptr()
     p.row_blocks = row_blocks.data_ptr()
     rc = lib.sr_combine(ctypes.byref(p), stream)

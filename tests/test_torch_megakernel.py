@@ -35,7 +35,7 @@ from druid_tpu_torch.engine import megakernel as port_mk
 from druid_tpu_torch.engine import sorted_reduce as sr
 from druid_tpu_torch.query.filters import filter_from_json as port_filter_json
 from tests.test_torch_sorted_reduce import (_assert_parity, _kernel_pairs,
-                                            _sorted_projection)
+                                            _shaped, _sorted_projection)
 
 # One intra-op thread: these tensors are small, and an OpenMP pool in every
 # test worker would compete for cores with the suite's timing tests.
@@ -119,11 +119,18 @@ def _leaves(rng, n, k, p=0.7):
     # int32 sums past 2^31 per group, across the reference's limb flushes
     dict(seed=23, n=64_000, groups=6, lo=400_000, hi=460_000, num_total=8,
          chunk=4096, nodes=[OR_AND]),
+    # one key over five whole 2048-row blocks, masked rows and a NaN inside
+    # it, its sum past 2^31; n % 32 != 0
+    dict(seed=24, n=20_001, groups=300, lo=400_000, hi=460_000,
+         num_total=512, chunk=4096, nodes=[OR_AND], shape="head-run"),
 ])
 def test_b2_plain_matches_reference_kernel(case, monkeypatch):
     rng = np.random.default_rng(case["seed"])
     key, mask, vlong, vfloat, span = _sorted_projection(
         rng, case["n"], case["groups"], case["lo"], case["hi"])
+    if "shape" in case:
+        key, mask, vfloat, span = _shaped(case["shape"], rng, key, mask,
+                                          vfloat)
     nodes = [(s, _leaves(rng, case["n"], 3 if s is OR_AND else 2))
              for s in case["nodes"]]
     ref, port, eff = _run_b2(key, mask, vlong, vfloat, nodes,
@@ -132,7 +139,8 @@ def test_b2_plain_matches_reference_kernel(case, monkeypatch):
     if case["lo"] >= 200_000:
         assert port[1][1].max() > 2 ** 31
     assert 0 < int(port[0].sum()) < int(mask.sum())
-    _assert_parity(ref, port, key, eff, vfloat, case["num_total"])
+    _assert_parity(ref, port, key, eff, np.nan_to_num(vfloat),
+                   case["num_total"])
 
 
 def test_b2_plain_fully_masked_blocks_and_nan(monkeypatch):

@@ -9,6 +9,8 @@ included); float sums agree within 1e-5 * sum|v| per group, because the two
 sum in different orders. The CUDA leg of the same function is held against
 the plain version by chip_smoke.py on the card.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,7 @@ from druid_tpu.engine import kernels as ref_kernels
 from druid_tpu.engine import pallas_agg
 from druid_tpu.query import aggregators as RA
 
+from druid_tpu_torch import _build
 from druid_tpu_torch.data.segment import ValueType
 from druid_tpu_torch.engine import kernels as port_kernels
 from druid_tpu_torch.engine import sorted_reduce as sr
@@ -37,11 +40,41 @@ def _sorted_projection(rng, n, groups, lo, hi, keep=0.9):
     mask = rng.random(n) < keep
     vlong = rng.integers(lo, hi, size=n).astype(np.int32)
     vfloat = rng.normal(0.0, 100.0, size=n).astype(np.float32)
-    pad = (-n) % sr.SPAN_BLOCK
+    return key, mask, vlong, vfloat, _span(key)
+
+
+def _span(key):
+    """The widest key range of any SPAN_BLOCK rows (Projection.max_span)."""
+    pad = (-key.shape[0]) % sr.SPAN_BLOCK
     kp = np.concatenate([key, np.full(pad, key[-1], np.int32)]) if pad else key
     kb = kp.reshape(-1, sr.SPAN_BLOCK)
-    span = int((kb.max(axis=1) - kb.min(axis=1) + 1).max())
-    return key, mask, vlong, vfloat, span
+    return int((kb.max(axis=1) - kb.min(axis=1) + 1).max())
+
+
+LONG_RUN = (1500, 1500 + 6 * 2048 + 300)   # fills five 2048-row blocks
+
+
+def _shaped(shape, rng, key, mask, vfloat):
+    """The run shapes the CUDA partial pass joins across threads and warps:
+    "long-run", one key over LONG_RUN (starting and ending mid-block) with
+    the masked rows of the projection inside it; "head-run", the same with
+    a live NaN in its middle; "shuffled", every SPAN_BLOCK rows permuted
+    in place (the sorted plan, many runs per slot); "runs-31-32-33", runs
+    of 31, 32 and 33 rows in turn. Returns (key, mask, vfloat, span)."""
+    if shape in ("long-run", "head-run"):
+        lo, hi = LONG_RUN
+        key[lo:hi] = key[lo]                  # still sorted
+        if shape == "head-run":
+            mid = (lo + hi) // 2
+            vfloat[mid], mask[mid] = np.nan, True
+    elif shape == "shuffled":
+        key = np.stack([rng.permutation(b) for b in
+                        key.reshape(-1, sr.SPAN_BLOCK)]).reshape(-1)
+    elif shape == "runs-31-32-33":
+        lengths = np.resize([31, 32, 33], key.shape[0] // 31 + 1)
+        key = np.repeat(np.arange(lengths.shape[0], dtype=np.int32),
+                        lengths)[:key.shape[0]]
+    return key, mask, vfloat, _span(key)
 
 
 def _kernel_pairs(chunk_rows):
@@ -118,16 +151,34 @@ def _assert_parity(ref, port, key, mask, vfloat, num_total):
     # G not a multiple of 128
     dict(seed=3, n=9_000, groups=200, lo=-50, hi=50, num_total=200,
          chunk=1 << 20),
+    # whole-block runs of one key with masked rows inside, sums past int32
+    dict(seed=31, n=20_000, groups=300, lo=300_000, hi=360_000,
+         num_total=512, chunk=4096, shape="long-run"),
+    # a NaN inside a long run
+    dict(seed=32, n=20_000, groups=300, lo=-1000, hi=1000, num_total=512,
+         chunk=1 << 20, shape="head-run"),
+    # keys shuffled within each 1024-row span block
+    dict(seed=33, n=19_456, groups=400, lo=-100, hi=100, num_total=512,
+         chunk=1 << 20, shape="shuffled"),
+    # runs of 31, 32 and 33 rows
+    dict(seed=34, n=20_000, groups=1, lo=-50, hi=50, num_total=640,
+         chunk=1 << 20, shape="runs-31-32-33"),
 ])
 def test_plain_matches_reference_kernel(case, monkeypatch):
     rng = np.random.default_rng(case["seed"])
     key, mask, vlong, vfloat, span = _sorted_projection(
         rng, case["n"], case["groups"], case["lo"], case["hi"])
+    if "shape" in case:
+        key, mask, vfloat, span = _shaped(case["shape"], rng, key, mask,
+                                          vfloat)
     ref, port = _run_both(key, mask, vlong, vfloat, case["num_total"], span,
                           case["chunk"], monkeypatch)
     if case["lo"] >= 200_000:
         assert port[1][1].max() > 2 ** 31       # the sums overflow int32
-    _assert_parity(ref, port, key, mask, vfloat, case["num_total"])
+    if case.get("shape") == "head-run":
+        assert np.isnan(port[1][4]).any()       # the NaN reached float max
+    _assert_parity(ref, port, key, mask, np.nan_to_num(vfloat),
+                   case["num_total"])
 
 
 def test_plain_fully_masked_blocks_and_nan(monkeypatch):
@@ -166,6 +217,17 @@ def test_plain_wide_window_blk1024(monkeypatch):
     ref, port = _run_both(key, mask, vlong, vfloat, 8192, span, 1 << 20,
                           monkeypatch)
     _assert_parity(ref, port, key, mask, vfloat, 8192)
+
+
+def test_partial_threads_match_cuda_source():
+    """PARTIAL_THREADS is the CUDA block size of the partial pass, and every
+    planned BLK gives each thread a multiple of 4 rows (the launch refuses
+    anything else)."""
+    src = (_build.CSRC / "sorted_reduce.cu").read_text()
+    threads = int(re.search(r"#define SR_THREADS (\d+)", src).group(1))
+    assert sr.PARTIAL_THREADS == threads
+    for blk in (sr.BLK_SMALL_W, sr.BLK_WIDE_W):
+        assert blk % (4 * sr.PARTIAL_THREADS) == 0
 
 
 def test_usable_matches_reference_caps():
