@@ -20,21 +20,34 @@ Phases, each fatal on failure:
      floats included), and bit-identical across two runs; cases: two fused
      bitmap nodes plus a residual mask with n % 32 != 0, sums past 2^31,
      fully masked blocks with NaN, every row masked, B1's long-run case;
-  5. the main path at full size: the headline data (100M rows in 8 segments
-     of 12.5M, seed 1234) through QueryExecutor(device="cuda").run_json —
+  5. B1 and B2 with packed value fields (data/packed.py words, unpacked in
+     the kernel): w16 at the headline's metLong range, w16 with base -1024
+     (slot 1's top bit set), w8 base -128, w4 base -8, at BLK 2048 with
+     n % BLK != 0 and at BLK 1024; each against its plain version on the
+     dense view, and against the same kernel on the dense columns bit for
+     bit;
+  6. the main path at full size, packing on (the default):
+     the headline data (100M rows in 8 segments of 12.5M, seed 1234)
+     through QueryExecutor(device="cuda").run_json —
      the headline groupBy (through B1: +8 launches per run, B2 none), topN
      and an hourly timeseries, and a filtered groupBy (a dashboard panel:
      dimA in half its values, not dimB's most frequent value, a bound on
      metLong; through B2: +8 launches per run, B1 none), each checked
-     against an independent numpy result. The first B1 and B2 calls keep
-     their inputs;
-  6. B1 and B2 against their plain versions on the inputs the main path gave
+     against an independent numpy result; each query's staged block
+     (descriptor, resident and decoded bytes) is printed, and only the
+     columns B1/B2 read may be packed (topN and timeseries stage dense).
+     The first B1 and B2 calls keep their inputs, and must hold metLong as
+     w16 words, not decoded;
+  7. the same four queries on 2 of the 8 segments with packing off: the
+     rows equal the packed run's;
+  8. B1 and B2 against their plain versions on the inputs the main path gave
      them (the first segment's), then timed there with CUDA events beside
      their HBM bound, their plain version and a library yardstick
      (index_add_/scatter_reduce over the same keys, B2's with the word
      unpack, never used by the port), the host's enqueue time per launch
-     and torch.profiler's device time by kernel; and the warm p50 of each
-     query.
+     and torch.profiler's device time by kernel, with metLong as words
+     (the main path's inputs) and decoded, in turns; and the warm p50 of
+     each query.
 The line before the last is the kernels JSON line; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -209,55 +222,113 @@ def compare_states(name, arrays, mask, key, kernels, num_total, kernel_out,
     return err
 
 
-def check_b1(name, arrays, mask, key, kernels, num_total, span):
-    """Kernel (twice) vs its plain version on the same inputs; returns
-    (max_abs_err of the float sums, kernel states). Raises on any
-    disagreement."""
+def value_fields(arrays, kernels):
+    """The value columns the kernels read, sorted."""
+    from druid_tpu_torch.data.cascade import column_dtypes
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    return sr.value_fields(kernels, column_dtypes(arrays))
+
+
+def dense_view(arrays, kernels):
+    """{field: dense tensor} of the kernels' value columns (a packed field
+    decoded)."""
+    return {f: arrays[f] for f in value_fields(arrays, kernels)}
+
+
+def check_words_read(arrays, key, kernels, span, packed_cols):
+    """The packed fields the kernel will read as words; raises if none."""
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    got = sr.packed_fields(value_fields(arrays, kernels), packed_cols,
+                           sr.plan_window(span)[0], key.shape[0])
+    if not got:
+        raise AssertionError("no packed field reaches the kernel as words")
+    return got
+
+
+def check_b1(name, arrays, mask, key, kernels, num_total, span,
+             packed_cols=None):
+    """Kernel (twice) vs its plain version on the same inputs, and with
+    `packed_cols` also vs the same kernel on the dense columns (every output
+    bit-identical); returns (max_abs_err of the float sums, kernel states).
+    Raises on any disagreement."""
     from druid_tpu_torch.engine import sorted_reduce as sr
     saved = sr.LAUNCHES
-    out = sr.sorted_reduce_cuda(arrays, mask, key, kernels, num_total, span)
+    out = sr.sorted_reduce_cuda(arrays, mask, key, kernels, num_total, span,
+                                packed_cols=packed_cols)
     again = sr.sorted_reduce_cuda(arrays, mask, key, kernels, num_total,
-                                  span)
+                                  span, packed_cols=packed_cols)
+    dense = dense_view(arrays, kernels)
+    words = ""
+    if packed_cols:
+        pf = check_words_read(arrays, key, kernels, span, packed_cols)
+        words = ", words " + ", ".join(f"{f} w{pc.width} base {pc.base}"
+                                       for f, pc in pf.items())
+        d_out = sr.sorted_reduce_cuda(dense, mask, key, kernels, num_total,
+                                      span)
+        same_outputs(f"B1 {name}", kernels, out, d_out, "dense launch")
     sr.LAUNCHES = saved               # parity launches are not the path's
     # the plain version runs on CPU copies of the same inputs: its scatter
     # ops are sequential there, so NaN and order questions have one answer
-    pc, ps = sr.sorted_reduce_plain({f: v.cpu() for f, v in arrays.items()},
+    pc, ps = sr.sorted_reduce_plain({f: v.cpu() for f, v in dense.items()},
                                     mask.cpu(), key.cpu(), kernels,
                                     num_total, span)
     plain = (pc.to(key.device), [b.to(key.device) for b in ps])
-    err = compare_states(f"B1 {name}", arrays, mask, key, kernels, num_total,
+    err = compare_states(f"B1 {name}", dense, mask, key, kernels, num_total,
                          out, again, plain)
-    log(f"  B1 {name}: ok (n={key.shape[0]}, G={num_total}, span={span}, "
-        f"window={sr.plan_window(span)}, float-sum max_abs_err={err:.6g})")
+    log(f"  B1 {name}: ok{' (= dense launch bit for bit)' if words else ''} "
+        f"(n={key.shape[0]}, G={num_total}, span={span}, "
+        f"window={sr.plan_window(span)}{words}, float-sum "
+        f"max_abs_err={err:.6g})")
     return err, out[1]
 
 
-def check_b2(name, arrays, words, key, kernels, num_total, span):
-    """Kernel B2 (twice) vs its plain version, and vs kernel B1 given the
-    same mask as bools (every output bit-identical); returns (max_abs_err
-    of the float sums, B2's states). Raises on any disagreement."""
+def same_outputs(name, kernels, a, b, what):
+    """(counts, states) pairs equal bit for bit; raises otherwise."""
+    for k, x, y in zip(["counts"] + [k.name for k in kernels],
+                       [a[0]] + list(a[1]), [b[0]] + list(b[1])):
+        if not same_bits(x, y):
+            raise AssertionError(f"{name}/{k}: differs from the {what} in "
+                                 f"bits")
+
+
+def check_b2(name, arrays, words, key, kernels, num_total, span,
+             packed_cols=None):
+    """Kernel B2 (twice) vs its plain version, vs kernel B1 given the same
+    mask as bools, and with `packed_cols` vs B2 on the dense columns (every
+    output bit-identical); returns (max_abs_err of the float sums, B2's
+    states). Raises on any disagreement."""
     from druid_tpu_torch.engine import megakernel as mk
     from druid_tpu_torch.engine import sorted_reduce as sr
     from druid_tpu_torch.engine.filters import expand_mask_words
     saved = (sr.LAUNCHES, mk.LAUNCHES)
-    out = mk.mega_reduce_cuda(arrays, words, key, kernels, num_total, span)
-    again = mk.mega_reduce_cuda(arrays, words, key, kernels, num_total, span)
+    out = mk.mega_reduce_cuda(arrays, words, key, kernels, num_total, span,
+                              packed_cols=packed_cols)
+    again = mk.mega_reduce_cuda(arrays, words, key, kernels, num_total, span,
+                                packed_cols=packed_cols)
     mask = expand_mask_words(words, key.shape[0])
-    b1 = sr.sorted_reduce_cuda(arrays, mask, key, kernels, num_total, span)
+    b1 = sr.sorted_reduce_cuda(arrays, mask, key, kernels, num_total, span,
+                               packed_cols=packed_cols)
+    dense = dense_view(arrays, kernels)
+    tag = ""
+    if packed_cols:
+        pf = check_words_read(arrays, key, kernels, span, packed_cols)
+        tag = ", words " + ", ".join(f"{f} w{pc.width} base {pc.base}"
+                                     for f, pc in pf.items())
+        d_out = mk.mega_reduce_cuda(dense, words, key, kernels, num_total,
+                                    span)
+        same_outputs(f"B2 {name}", kernels, out, d_out, "dense launch")
     sr.LAUNCHES, mk.LAUNCHES = saved  # parity launches are not the path's
-    pc, ps = mk.mega_reduce_plain({f: v.cpu() for f, v in arrays.items()},
+    pc, ps = mk.mega_reduce_plain({f: v.cpu() for f, v in dense.items()},
                                   words.cpu(), key.cpu(), kernels, num_total,
                                   span)
     plain = (pc.to(key.device), [b.to(key.device) for b in ps])
-    err = compare_states(f"B2 {name}", arrays, mask, key, kernels, num_total,
+    err = compare_states(f"B2 {name}", dense, mask, key, kernels, num_total,
                          out, again, plain)
-    for k, a, b in zip(["counts"] + [k.name for k in kernels],
-                       [out[0]] + list(out[1]), [b1[0]] + list(b1[1])):
-        if not same_bits(a, b):
-            raise AssertionError(f"B2 {name}/{k}: B2 != B1 in bits")
-    log(f"  B2 {name}: ok, = B1 bit for bit (n={key.shape[0]}, "
-        f"G={num_total}, span={span}, window={sr.plan_window(span)}, live "
-        f"rows={int(mask.sum())}, float-sum max_abs_err={err:.6g})")
+    same_outputs(f"B2 {name}", kernels, out, b1, "B1 launch")
+    log(f"  B2 {name}: ok, = B1 bit for bit"
+        f"{' and = dense launch' if tag else ''} (n={key.shape[0]}, "
+        f"G={num_total}, span={span}, window={sr.plan_window(span)}{tag}, "
+        f"live rows={int(mask.sum())}, float-sum max_abs_err={err:.6g})")
     return err, out[1]
 
 
@@ -405,24 +476,84 @@ def phase_b2(dev, rows=12_500_000):
     return res
 
 
+#: packed-field cases: (name, n, groups, lo, hi, width, base, G); n is a
+#: multiple of 1024 (the padded row count of a staged column) and, at BLK
+#: 2048, not of BLK: the ragged last block
+PACKED_CASES = [
+    ("w16 metLong-range", 12_493_824, 100_000, 0, 10_001, 16, 0, 131072),
+    ("w16 base -1024, slot-1 top bit", 1_999_872, 60_000, -1024, 64_512, 16,
+     -1024, 65536),
+    ("w8 base -128", 1_999_872, 60_000, -128, 128, 8, -128, 65536),
+    ("w4 base -8", 1_999_872, 60_000, -8, 8, 4, -8, 65536),
+    ("w4 base -8, blk1024", 200_704, 120_000, -8, 8, 4, -8, 1 << 17),
+]
+
+
+def pack_on_card(v, width, base):
+    """A PackedColumn of int32 tensor v (data/packed.py's layout), its
+    words on v's device."""
+    import torch
+    from druid_tpu_torch.data import packed
+    words = packed.pack_padded(v.cpu().numpy(), width, base)
+    return packed.PackedColumn(torch.from_numpy(words).to(v.device), width,
+                               base, v.shape[0])
+
+
+def phase_packed(dev):
+    """B1 and B2 with vlong as packed words (PACKED_CASES)."""
+    import torch
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    from druid_tpu_torch.engine.filters import pack_mask_words
+    res = {"max_abs_err": 0.0}
+    ks = _kernels()
+    for i, (name, n, groups, lo, hi, width, base, G) in \
+            enumerate(PACKED_CASES):
+        a, m, k, s = make_projection(n, groups, lo, hi, 0.9, 40 + i, dev)
+        want_blk = sr.BLK_WIDE_W if "blk1024" in name else sr.BLK_SMALL_W
+        if sr.plan_window(s)[0] != want_blk or (
+                want_blk == sr.BLK_SMALL_W and n % want_blk == 0):
+            raise AssertionError(f"{name}: planned {sr.plan_window(s)}")
+        pc = pack_on_card(a["vlong"], width, base)
+        if width == 16 and base < 0 and not bool((pc.words < 0).any()):
+            raise AssertionError(f"{name}: no word has its top bit set")
+        from druid_tpu_torch.data.cascade import split_resident
+        packed_cols, view = split_resident({"vlong": pc,
+                                            "vfloat": a["vfloat"]})
+        e1, _ = check_b1(f"packed {name}", view, m, k, ks, G, s,
+                         packed_cols)
+        g = torch.Generator(device=dev)
+        g.manual_seed(60 + i)
+        words = pack_mask_words(m & (torch.rand(n, generator=g, device=dev)
+                                     < 0.5))
+        e2, _ = check_b2(f"packed {name}", view, words, k, ks, G, s,
+                         packed_cols)
+        res["max_abs_err"] = max(res["max_abs_err"], e1, e2)
+        del a, m, k, pc, packed_cols, view, words
+    return res
+
+
 class Capture:
     """Wraps a kernel's entry (`module.attr`) while the main path runs:
-    every call's span is kept, and the first call's inputs, so that the
-    kernel can be held against its plain version and timed at the shapes
-    the main path gives it. The wrapped function runs unchanged (and counts
-    its launches)."""
+    every call's span is kept, and the first call's inputs (with the packed
+    columns and the columns its dense view had decoded by then), so that
+    the kernel can be held against its plain version and timed at the
+    shapes the main path gives it. The wrapped function runs unchanged (and
+    counts its launches)."""
 
     def __init__(self, module, attr):
         self.module, self.attr = module, attr
         self.orig = getattr(module, attr)
-        self.spans, self.first = [], None
+        self.spans, self.first, self.decoded = [], None, None
 
-    def __call__(self, arrays, mask, key, kernels, num_total, span):
+    def __call__(self, arrays, mask, key, kernels, num_total, span,
+                 packed_cols=None):
         self.spans.append(span)
         if self.first is None:
-            self.first = (dict(arrays), mask, key, list(kernels), num_total,
-                          span)
-        return self.orig(arrays, mask, key, kernels, num_total, span)
+            self.first = (arrays, mask, key, list(kernels), num_total, span,
+                          dict(packed_cols or {}))
+            self.decoded = tuple(getattr(arrays, "decoded", tuple)())
+        return self.orig(arrays, mask, key, kernels, num_total, span,
+                         packed_cols=packed_cols)
 
     def __enter__(self):
         setattr(self.module, self.attr, self)
@@ -434,6 +565,41 @@ class Capture:
     def windows(self):
         from druid_tpu_torch.engine.sorted_reduce import plan_window
         return sorted({plan_window(s) for s in self.spans})
+
+
+class BlockLog:
+    """Records every block `Segment.device_block` returns while it is
+    active (the staged encodings of each query)."""
+
+    def __enter__(self):
+        from druid_tpu_torch.data.segment import Segment
+        self.cls, self.orig, self.blocks = Segment, Segment.device_block, []
+        orig, blocks = self.orig, self.blocks
+
+        def device_block(seg, *a, **k):
+            b = orig(seg, *a, **k)
+            blocks.append(b)
+            return b
+        Segment.device_block = device_block
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.device_block = self.orig
+
+    def summary(self):
+        """{encodings of the first block, resident and decoded MB per
+        segment (min, max)}."""
+        if not self.blocks:
+            return {}
+        res = [b.resident_nbytes / 1e6 for b in self.blocks]
+        dec = [b.logical_nbytes / 1e6 for b in self.blocks]
+        return {"encodings": self.blocks[0].encodings(),
+                "packs": sorted({tuple(e) for b in self.blocks
+                                 for e in b.packs}),
+                "resident_mb": [min(res), max(res)],
+                "decoded_mb": [min(dec), max(dec)],
+                "bytes_per_row": self.blocks[0].resident_nbytes
+                / self.blocks[0].padded_rows}
 
 
 def run_shape(mask, key, blk):
@@ -455,23 +621,42 @@ def run_shape(mask, key, blk):
                                           .mean())
 
 
-def time_kernel(which, dev, inputs):
+def launcher(which, inputs, packed=True):
+    """(a function launching B1 or B2 once on the main path's inputs, the
+    fields it reads as words, the dense value columns). `packed` passes the
+    packed columns as the main path does; otherwise every value column goes
+    in decoded."""
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    view, m_in, key, ks, G, span, packed_cols = inputs
+    arrays = dense_view(view, ks)
+    words_in = sr.packed_fields(sorted(arrays), packed_cols,
+                                sr.plan_window(span)[0], key.shape[0]) \
+        if packed else {}
+    k_arrays = view if packed else arrays
+    fn = sr.sorted_reduce_cuda if which == "B1" else mk.mega_reduce_cuda
+
+    def kernel():
+        return fn(k_arrays, m_in, key, ks, G, span, packed_cols=words_in)
+    return kernel, words_in, arrays
+
+
+def time_kernel(which, dev, inputs, packed=True):
     """Kernel B1 or B2 on the main path's inputs (the row mask as bools for
-    B1, as words for B2): ms per launch, its plain version's ms, a library
-    yardstick (index_add_/scatter_reduce over the same keys, B2's with the
-    word unpack), the bound from the bytes, and torch.profiler's split by
-    kernel name."""
+    B1, as words for B2), with the packed columns as words (`packed`, as
+    the main path calls it) or decoded: ms per launch, its plain version's
+    ms, a library yardstick (index_add_/scatter_reduce over the same keys,
+    B2's with the word unpack), the bound from the bytes, and
+    torch.profiler's split by kernel name."""
     import torch
     from druid_tpu_torch.engine import megakernel as mk
     from druid_tpu_torch.engine import sorted_reduce as sr
     from druid_tpu_torch.engine.filters import (expand_mask_words,
                                                 pack_mask_words)
-    arrays, m_in, key, ks, G, span = inputs
+    _, m_in, key, ks, G, span, _ = inputs
     n = key.shape[0]
+    kernel, words_in, arrays = launcher(which, inputs, packed)
     if which == "B1":
-        def kernel():
-            return sr.sorted_reduce_cuda(arrays, m_in, key, ks, G, span)
-
         def plain():
             return sr.sorted_reduce_plain(arrays, m_in, key, ks, G, span)
 
@@ -479,9 +664,6 @@ def time_kernel(which, dev, inputs):
             return m_in
         mask_bytes = n                          # bool rows
     else:
-        def kernel():
-            return mk.mega_reduce_cuda(arrays, m_in, key, ks, G, span)
-
         def plain():
             return mk.mega_reduce_plain(arrays, m_in, key, ks, G, span)
 
@@ -499,9 +681,8 @@ def time_kernel(which, dev, inputs):
         kernel()
     enqueue_ms = (time.perf_counter() - t) / 20 * 1e3
     torch.cuda.synchronize()
-    col_dtypes = {c: str(a.dtype).replace("torch.", "")
-                  for c, a in arrays.items()}
-    ops = [k.pallas_op(col_dtypes) for k in ks]
+    from druid_tpu_torch.data.cascade import column_dtypes
+    ops = [k.pallas_op(column_dtypes(arrays)) for k in ks]
     slots = sr._slot_plan(ops)
     fields = sr.op_fields(ops)
     k64 = key.long()
@@ -523,16 +704,18 @@ def time_kernel(which, dev, inputs):
                     "amin" if kind.startswith("min") else "amax")
     library_ms = cuda_ms(library, 10)
     # the bytes this run's data needs, each read or written once: the whole
-    # mask; the key and each value column (4 B a row) only in the 32-row
-    # groups that hold a live row (a group is one 128-B line of each; a
-    # group with no live row needs none of them); each output grid
+    # mask; the key (4 B a row) and each value column (4 B a row dense,
+    # width / 8 B packed) only in the 32-row groups that hold a live row (a
+    # group is one line of each; a group with no live row needs none of
+    # them); each output grid
     out_bytes = sum(torch.empty((), dtype=sr._slot_dtype(k)).element_size()
                     for k, _ in slots)
     mask = row_mask()
     words = pack_mask_words(mask)
     live_words = int(torch.count_nonzero(words))
-    nbytes = mask_bytes + live_words * 32 * (4 + 4 * len(fields)) \
-        + G * out_bytes
+    row_bytes = 4 + sum(words_in[f].width / 8 if f in words_in else 4
+                        for f in fields)
+    nbytes = mask_bytes + live_words * 32 * row_bytes + G * out_bytes
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     run_median, run_long_share = run_shape(mask, key,
                                            sr.plan_window(span)[0])
@@ -562,13 +745,21 @@ def time_kernel(which, dev, inputs):
             "live_rows": int(mask.sum()),
             "live_word_share": live_words / words.shape[0],
             "ops": [k for k, _ in slots], "span": span,
+            "packed_fields": {f: pc.width for f, pc in words_in.items()},
             "longest_run_median": run_median,
             "blocks_with_half_block_run": run_long_share,
             "window": list(sr.plan_window(span))}
 
 
+def ab_ms(fn_a, fn_b, reps=20):
+    """ms per call of two functions timed in turns (a, b, b, a); returns
+    ([a1, a2], [b1, b2])."""
+    a1, b1, b2, a2 = (cuda_ms(f, reps) for f in (fn_a, fn_b, fn_b, fn_a))
+    return [a1, a2], [b1, b2]
+
+
 # ---------------------------------------------------------------------------
-# phase 5: the main path at full size
+# phase 6: the main path at full size
 # ---------------------------------------------------------------------------
 
 def headline_segments():
@@ -765,6 +956,9 @@ def phase_main(dev):
     t = time.perf_counter()
     ref = numpy_reference(segments)
     log(f"  numpy reference: {time.perf_counter() - t:.1f} s")
+    from druid_tpu_torch.data import packed
+    if not packed.enabled():
+        raise AssertionError("packing must be on (the default)")
     qs = queries(segments)
     ex = QueryExecutor(segments, device=dev)
     checks = {"groupby": check_groupby, "topn": check_topn,
@@ -772,7 +966,7 @@ def phase_main(dev):
               "groupby_filtered": check_filtered}
     # (B1, B2) launches per run of each query
     wants = {"groupby": (SEGMENTS, 0), "groupby_filtered": (0, SEGMENTS)}
-    out = {"gen_s": gen_s}
+    out = {"gen_s": gen_s, "segments": segments, "queries": qs}
 
     def launches():
         return (sr.LAUNCHES, mk.LAUNCHES)
@@ -781,18 +975,39 @@ def phase_main(dev):
         t = time.perf_counter()
         before = launches()
         with Capture(sr, "sorted_reduce") as cap1, \
-                Capture(mk, "mega_reduce_cuda") as cap2:
+                Capture(mk, "mega_reduce_cuda") as cap2, BlockLog() as blog:
             rows = ex.run_json(q)
             torch.cuda.synchronize()
         cold = time.perf_counter() - t
+        blocks = blog.summary()
+        log(f"  {name}: staged block {blocks['encodings']}; resident "
+            f"{blocks['resident_mb'][0]:.3f}-{blocks['resident_mb'][1]:.3f} "
+            f"MB/segment ({blocks['bytes_per_row']:.3f} B/row), decoded "
+            f"{blocks['decoded_mb'][0]:.3f} MB")
         delta = tuple(a - b for a, b in zip(launches(), before))
         checks[name](rows, ref)
+        # only what B1/B2 read is packed: metLong where they run
+        if blocks["packs"] != ([("metLong", 16, 0)] if any(want) else []):
+            raise AssertionError(f"{name}: staged packs {blocks['packs']}")
         if delta != want or (len(cap1.spans), len(cap2.spans)) != want:
             raise AssertionError(
                 f"{name}: (B1, B2) launched {delta} times ({len(cap1.spans)},"
                 f" {len(cap2.spans)} calls), expected {want}")
         for tag, cap in (("b1", cap1), ("b2", cap2)):
             if cap.first is not None:
+                view, key, ks, span, pcs = (cap.first[0], cap.first[2],
+                                            cap.first[3], cap.first[5],
+                                            cap.first[6])
+                read = sr.packed_fields(value_fields(view, ks), pcs,
+                                        sr.plan_window(span)[0],
+                                        key.shape[0])
+                if getattr(read.get("metLong"), "width", 0) != 16:
+                    raise AssertionError(f"{name}: {tag} does not read "
+                                         f"metLong as w16 words: {read}")
+                log(f"  {name}: {tag.upper()} reads "
+                    f"{ {f: repr(pc) for f, pc in read.items()} } as words; "
+                    f"its dense view had decoded {list(cap.decoded)} for "
+                    f"the query's other consumers")
                 out[f"{tag}_inputs"] = cap.first
                 out[f"{tag}_windows"] = [list(w) for w in cap.windows()]
                 out[f"{tag}_spans"] = cap.spans
@@ -813,7 +1028,8 @@ def phase_main(dev):
         out[name] = {"cold_s": cold, "warm_ms": warm, "p50_ms": p50,
                      "rows_per_s": ROWS / (p50 / 1e3), "result_rows": len(rows),
                      "b1_launches_per_run": delta[0],
-                     "b2_launches_per_run": delta[1], **split}
+                     "b2_launches_per_run": delta[1], "block": blocks,
+                     **split}
         planned = "".join(
             f", {tag} spans {cap.spans} -> (BLK, W) {cap.windows()}"
             for tag, cap in (("B1", cap1), ("B2", cap2)) if cap.spans)
@@ -821,6 +1037,63 @@ def phase_main(dev):
             f"({ROWS / (p50 / 1e3):.3e} rows/s), (B1, B2) launches/run "
             f"{delta}{planned}; partials {split['partials_ms']:.1f} ms, "
             f"merge+finish {split['finish_ms']:.1f} ms")
+    return out
+
+
+FLOAT_SUMS = ("dsum",)
+
+
+def same_rows(a, b):
+    """Rows equal; a float sum (the mixed strategy's atomics add in no fixed
+    order) within 1e-9 of its magnitude."""
+    def split(rows):
+        exact, sums = [], []
+        for r in rows:
+            r = json.loads(json.dumps(r))
+            for v in ([r["event"]] if "event" in r else
+                      r["result"] if isinstance(r["result"], list)
+                      else [r["result"]]):
+                for k in FLOAT_SUMS:
+                    if k in v:
+                        sums.append(v.pop(k))
+            exact.append(r)
+        return exact, np.asarray(sums, dtype=np.float64)
+    (ea, sa), (eb, sb) = split(a), split(b)
+    return ea == eb and sa.shape == sb.shape \
+        and bool(np.all(np.abs(sa - sb) <= 1e-9 * np.abs(sa)))
+
+
+def phase_packing_off(dev, segments, qs, n_seg=2):
+    """The four queries on the first `n_seg` segments with packing on (the
+    blocks the main path staged) and off (decoded blocks): the same
+    rows."""
+    import torch
+    from druid_tpu_torch.data import packed
+    from druid_tpu_torch.engine import QueryExecutor
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    sub = segments[:n_seg]
+    saved = (sr.LAUNCHES, mk.LAUNCHES)
+    out = {}
+    for name, q in qs.items():
+        on = QueryExecutor(sub, device=dev).run_json(q)
+        prev = packed.set_enabled(False)
+        try:
+            with BlockLog() as blog:
+                off = QueryExecutor(sub, device=dev).run_json(q)
+                torch.cuda.synchronize()
+        finally:
+            packed.set_enabled(prev)
+        b = blog.summary()
+        if not same_rows(on, off) or not on:
+            raise AssertionError(f"{name}: packing off changes the rows")
+        if b["packs"]:
+            raise AssertionError(f"{name}: packing off staged {b}")
+        out[name] = {"rows": len(on), "block_off": b}
+        log(f"  {name}: {len(on)} rows, packing on = off; off: resident "
+            f"{b['resident_mb'][0]:.3f} MB/segment "
+            f"({b['bytes_per_row']:.3f} B/row)")
+    sr.LAUNCHES, mk.LAUNCHES = saved  # these runs are a check, not the path
     return out
 
 
@@ -860,13 +1133,21 @@ def main():
     b2 = phase_b2(dev)
     report["b2_parity"] = b2
 
-    log("phase main path")
+    log("phase packed value fields, synthetic")
+    report["packed_parity"] = phase_packed(dev)
+
+    log("phase main path (packing on)")
     sr.LAUNCHES = mk.LAUNCHES = 0
     main_out = phase_main(dev)
     launches = {"B1": sr.LAUNCHES, "B2": mk.LAUNCHES}
     inputs = {"B1": main_out.pop("b1_inputs"),
               "B2": main_out.pop("b2_inputs")}
+    segments, qs = main_out.pop("segments"), main_out.pop("queries")
     report["main"] = main_out
+
+    log("phase packing off, 2 segments")
+    report["packing_off"] = phase_packing_off(dev, segments, qs)
+    del segments
 
     entries = []
     for which, parity, check, name, source, replaces in (
@@ -877,33 +1158,53 @@ def main():
              "druid_tpu_torch/csrc/sorted_reduce.cu (sr_partial_words)",
              "druid_tpu/engine/megakernel.py:742")):
         log(f"phase {which} on the main path's inputs (first segment)")
-        arrays, m_in, key, ks, G, span = inputs[which]
-        err, _ = check("main-path", arrays, m_in, key, ks, G, span)
+        view, m_in, key, ks, G, span, pcs = inputs[which]
+        err, _ = check("main-path", view, m_in, key, ks, G, span, pcs)
         parity["main_path_max_abs_err"] = err
-        tb = time_kernel(which, dev, inputs[which])
+        tb = time_kernel(which, dev, inputs[which], packed=True)
+        td = time_kernel(which, dev, inputs[which], packed=False)
+        saved = (sr.LAUNCHES, mk.LAUNCHES)
+        ms_packed, ms_dense = ab_ms(launcher(which, inputs[which])[0],
+                                    launcher(which, inputs[which], False)[0])
+        sr.LAUNCHES, mk.LAUNCHES = saved
+        tb["ab_ms_packed"], tb["ab_ms_dense"] = ms_packed, ms_dense
         report[f"{which.lower()}_times"] = tb
-        log(f"  {which} {tb['ms']:.3f} ms/launch (n={tb['n']}, "
-            f"live rows={tb['live_rows']}, G={G}, span={span}, "
-            f"window={tb['window']}, ops={tb['ops']}), bound "
-            f"{tb['bound_ms']:.4f} ms ({tb['bytes']} B; 32-row groups "
+        report[f"{which.lower()}_times_dense"] = td
+        partial = [sum(v for k, v in t["device_ms_by_kernel"].items()
+                       if "sr_partial_kernel" in k) for t in (tb, td)]
+        log(f"  {which} {tb['ms']:.3f} ms/launch with "
+            f"{tb['packed_fields']} as words, {td['ms']:.3f} decoded; in "
+            f"turns packed {ms_packed[0]:.3f}/{ms_packed[1]:.3f}, decoded "
+            f"{ms_dense[0]:.3f}/{ms_dense[1]:.3f} ms; partial pass "
+            f"{partial[0]:.4f} (words) / {partial[1]:.4f} (decoded) ms "
+            f"(n={tb['n']}, live rows={tb['live_rows']}, G={G}, "
+            f"span={span}, window={tb['window']}, ops={tb['ops']}); bound "
+            f"{tb['bound_ms']:.4f} ms ({tb['bytes']} B; decoded "
+            f"{td['bound_ms']:.4f} ms, {td['bytes']} B; 32-row groups "
             f"with a live row: {tb['live_word_share']:.4f}), plain "
             f"{tb['plain_ms']:.3f} ms, library {tb['library_ms']:.3f} ms; "
             f"longest run of one key per block: median "
             f"{tb['longest_run_median']:.0f} rows, "
             f"{tb['blocks_with_half_block_run']:.4f} of blocks >= half a "
             f"block")
-        log(f"    host enqueue {tb['enqueue_ms']:.4f} ms/launch, device "
-            f"{tb['device_ms']:.4f} ms/launch in all (torch.profiler):")
-        for kname, kms in sorted(tb["device_ms_by_kernel"].items(),
-                                 key=lambda kv: -kv[1]):
-            log(f"    device {kms:.4f} ms/launch  {kname[:100]}")
+        for tag, t in (("words", tb), ("decoded", td)):
+            log(f"    [{tag}] host enqueue {t['enqueue_ms']:.4f} ms/launch, "
+                f"device {t['device_ms']:.4f} ms/launch in all "
+                f"(torch.profiler):")
+            for kname, kms in sorted(t["device_ms_by_kernel"].items(),
+                                     key=lambda kv: -kv[1]):
+                log(f"    [{tag}] device {kms:.4f} ms/launch  {kname[:100]}")
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[which],
-            "max_abs_err": max(err, parity["max_abs_err"]),
+            "max_abs_err": max(err, parity["max_abs_err"],
+                               report["packed_parity"]["max_abs_err"]),
             "ms": tb["ms"], "plain_ms": tb["plain_ms"],
             "bound_ms": tb["bound_ms"], "bound_by": "bytes",
-            "library_ms": tb["library_ms"]})
+            "library_ms": tb["library_ms"],
+            "variant": "packed words: " + ", ".join(
+                f"{f} w{w}" for f, w in sorted(tb["packed_fields"].items())),
+            "dense_ms": td["ms"], "dense_bound_ms": td["bound_ms"]})
     kernels_line = {"kernels": entries}
     report["kernels"] = entries
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)

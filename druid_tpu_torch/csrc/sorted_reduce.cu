@@ -1,6 +1,6 @@
 // Grouped reduction over a sorted, key-compacted projection, for Hopper.
 //
-// Two TPU kernels, for dense int32/float32 value columns:
+// Two TPU kernels, for int32/float32 value columns, dense or bit-packed:
 //   B1 (sr_partial): druid_tpu/engine/pallas_agg.py::pallas_reduce
 //      (pl.pallas_call at pallas_agg.py:400); masked rows arrive as the key
 //      sentinel.
@@ -46,6 +46,17 @@
 //   2. sr_combine_kernel: one thread per group. It folds the partial rows of
 //      the blocks whose window covers the group, in an order fixed by the
 //      caller (window base, then block index), from a CSR list.
+// A value column is dense (fwidth 0: one int32/float32 word a row) or packed
+// int32 words (data/packed.py): width w in {4, 8, 16}, vpw = 32 / w values a
+// word, stored as value - fbase, in the reference's tile-planar layout (word
+// q * 128 + l holds rows (q * vpw + s) * 128 + l at bit slot s). Step 2
+// unpacks a packed row into the same shared-memory word a dense row would
+// fill: an unsigned shift and mask, then + fbase. Nothing after that load
+// knows the difference, so packed and dense inputs give the same bits, in B1
+// and B2 alike. A block of blk rows is a whole number of 128 * vpw row tiles
+// (the wrapper's plan rule), so its words are contiguous and 32 consecutive
+// rows of a warp read 32 consecutive words.
+//
 // Float min/max propagate NaN the way jnp.min/jnp.max do (fminf/fmaxf would
 // drop it). Fully masked blocks are marked with base -1 and contribute
 // nothing; a ragged last block reads rows past n as the sentinel.
@@ -61,8 +72,9 @@
 // bytes of bool mask plus the sentinel-folded key copy the wrapper makes.
 //
 // Bound. Bytes, over 3.35 TB/s on an H100 SXM: the whole row mask (B1's
-// bools, B2's words), the key and each value column (4 B a row) only in the
-// 32-row groups that hold a live row, and the [G] grids, each once. The
+// bools, B2's words), the key (4 B a row) and each value column (4 B a row
+// dense, w / 8 B packed) only in the 32-row groups that hold a live row, and
+// the [G] grids, each once. The
 // operations per row (a compare and an add or min/max per output slot) are
 // far below the card's integer and float rates. Above the bound, this
 // design writes the [nblk, W] partial rows of every output slot (16 B per
@@ -108,11 +120,29 @@ struct SrParams {
   int nfields;             // distinct value columns
   int kind[SR_MAX_SLOTS];
   int field[SR_MAX_SLOTS];         // value column of each slot (slot 0: -)
-  const void* fsrc[SR_MAX_FIELDS]; // [n] int32/float32 value columns
+  const void* fsrc[SR_MAX_FIELDS]; // [n] int32/float32 value columns, or
+                                   // [n / vpw] packed words
   void* part[SR_MAX_SLOTS];        // [nblk, W] partial rows per slot
   void* out[SR_MAX_SLOTS];         // [G] result per slot
   const int* mask_words;           // B2: [ceil(n/32)] row mask bits
+  int fwidth[SR_MAX_FIELDS];       // bits a packed value (4/8/16), 0: dense
+  int fbase[SR_MAX_FIELDS];        // packed: value = stored + fbase
 };
+
+// The int32 word of row `row` of value column f: the dense word, or the
+// packed value unpacked (unsigned shift and mask, then + fbase).
+__device__ __forceinline__ int sr_value_word(const SrParams& p, int f,
+                                             long long row) {
+  const int* src = static_cast<const int*>(p.fsrc[f]);
+  const int w = p.fwidth[f];
+  if (w == 0) return __ldg(src + row);
+  const int lvpw = 6 - __ffs(w);                   // log2(32 / w)
+  const long long tile = row >> 7;                  // 128-row tile
+  const unsigned word =
+      (unsigned)__ldg(src + ((tile >> lvpw) << 7) + (row & 127));
+  const unsigned slot = (unsigned)(tile & ((1 << lvpw) - 1));
+  return (int)((word >> (slot * w)) & ((1u << w) - 1u)) + p.fbase[f];
+}
 
 __device__ __forceinline__ float sr_fmax(float a, float v) {
   return (v > a || v != v) ? v : a;   // NaN in either stays NaN
@@ -474,8 +504,7 @@ __global__ void __launch_bounds__(SR_THREADS) sr_partial_kernel(
     sm.slot[j] = in ? (int)local : -1;
     if (in) {
       for (int f = 0; f < p.nfields; ++f) {
-        vals_sh[f * p.blk + j] =
-            __ldg(static_cast<const int*>(p.fsrc[f]) + row0 + j);
+        vals_sh[f * p.blk + j] = sr_value_word(p, f, row0 + j);
       }
     }
   }
@@ -547,6 +576,13 @@ static int sr_partial_launch(const SrParams* p, void* stream) {
   for (int q = 1; q < p->nslots; ++q) {
     if (p->field[q] < 0 || p->field[q] >= p->nfields
         || p->kind[q] < SR_SUM_I32 || p->kind[q] > SR_MAX_F32) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  for (int f = 0; f < p->nfields; ++f) {      // packed: whole word tiles
+    const int w = p->fwidth[f];
+    if (w != 0 && ((w != 4 && w != 8 && w != 16)
+                   || p->blk % (128 * (32 / w)) != 0)) {
       return (int)cudaErrorInvalidValue;
     }
   }

@@ -4,11 +4,16 @@ The port's counterpart of the reference package's `data/segment.py`. The host
 side is the same: int32 dictionary ids for string dimensions, int64/float32/
 float64 numeric columns, and an int64 `__time` column sorted ascending.
 
-`device_block` stages a column subset as DECODED torch tensors, padded to a
-multiple of DEFAULT_ROW_ALIGN rows, plus `__time_offset` (int32 millis from
-the interval start) and `__valid` (False on padding rows). Staged blocks are
-cached per segment in a plain dict keyed like the reference's pool entries;
-there is no byte budget, no bit-packing and no cascade encoding here.
+`device_block` stages a column subset, padded to a multiple of
+DEFAULT_ROW_ALIGN rows, plus `__time_offset` (int32 millis from the interval
+start) and `__valid` (False on padding rows). A column that kernels B1/B2
+read as words (the caller's `words`) stages as bit-packed words
+(data/packed.py) where `cascade.plan_pair` packs it; every other column
+stages as a decoded tensor, since a consumer that reads it decoded would
+unpack it on every query. A permuted layout (the sorted projection) packs
+after the permutation. Staged blocks are cached per segment in a plain dict
+keyed by the columns, device, permutation and pack descriptor; there is no
+byte budget.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from druid_tpu_torch.data import cascade, packed
 from druid_tpu_torch.data.dictionary import Dictionary
 from druid_tpu_torch.utils.intervals import Interval
 
@@ -81,14 +87,33 @@ class NumericColumn:
 
 @dataclass
 class DeviceBlock:
-    """A segment staged on a device as padded tensors (all `padded_rows` long):
-    "__time_offset" int32, "__valid" bool, dimension ids int32, metrics in
-    their staged dtype."""
+    """A segment staged on a device, every column `padded_rows` long once
+    decoded: "__time_offset" int32, "__valid" bool, dimension ids int32,
+    metrics in their staged dtype. An entry is a tensor or a
+    packed.PackedColumn; `packs` is the descriptor it was staged under."""
     segment_id: SegmentId
     n_rows: int
     padded_rows: int
     time0: int
-    arrays: Dict[str, torch.Tensor]
+    arrays: Dict[str, object]
+    packs: Tuple = ()
+
+    @property
+    def resident_nbytes(self) -> int:
+        """Bytes the block holds on its device."""
+        return sum(int(v.nbytes) for v in self.arrays.values())
+
+    @property
+    def logical_nbytes(self) -> int:
+        """Bytes the block would hold with every column decoded."""
+        return sum(int(getattr(v, "logical_nbytes", v.nbytes))
+                   for v in self.arrays.values())
+
+    def encodings(self) -> Dict[str, str]:
+        """{column: its staged representation}, for reports."""
+        return {k: repr(v) if not torch.is_tensor(v)
+                else f"dense {str(v.dtype).replace('torch.', '')}"
+                for k, v in sorted(self.arrays.items())}
 
 
 class Segment:
@@ -113,26 +138,47 @@ class Segment:
     def interval(self) -> Interval:
         return self.id.interval
 
+    @property
+    def time_ordered(self) -> bool:
+        """Whether the rows are ascending in time, computed once from the
+        data (the reference's Segment takes it from its caller)."""
+        return self.aux_cached(("time_ordered",), lambda: bool(
+            np.all(self.time_ms[1:] >= self.time_ms[:-1])))
+
     def padded_rows(self, row_align: int = DEFAULT_ROW_ALIGN) -> int:
         return max(row_align, -(-self.n_rows // row_align) * row_align)
 
     # ---- device staging ------------------------------------------------
     def device_block(self, columns: Sequence[str], device: torch.device,
-                     perm: Optional[np.ndarray] = None,
-                     perm_key=None) -> DeviceBlock:
+                     perm: Optional[np.ndarray] = None, perm_key=None,
+                     words: Sequence[str] = ()) -> DeviceBlock:
         """Stage `columns` (plus `__time_offset` and `__valid`) on `device`.
 
         `perm` applies a row permutation on the host before staging (the
         sorted-projection path); it needs a stable hashable `perm_key` so the
-        cache tells layouts apart. Cached per (columns, device, perm_key)."""
+        cache tells layouts apart. `words` names the value columns kernels
+        B1/B2 will read as words: each stages packed where
+        `cascade.plan_pair` packs it (a cascade rung claims a column first,
+        and it then stages dense). Cached per (columns, device, perm_key,
+        pack descriptor): flipping packing never serves a block staged the
+        other way."""
         if perm is not None and perm_key is None:
             raise ValueError("device_block(perm=...) requires perm_key")
-        key = ("block", tuple(sorted(set(columns))), str(device), perm_key)
+        packs = ()
+        if words:
+            _, packs = cascade.plan_pair(self, columns,
+                                         permuted=perm is not None)
+            want = set(words)
+            packs = tuple(p for p in packs if p[0] in want)
+        key = ("block", tuple(sorted(set(columns))), str(device), perm_key,
+               packs)
         return self.device_cached(
-            key, lambda: self._stage_block(columns, device, perm))
+            key, lambda: self._stage_block(columns, device, perm, packs))
 
     def _stage_block(self, columns: Sequence[str], device: torch.device,
-                     perm: Optional[np.ndarray]) -> DeviceBlock:
+                     perm: Optional[np.ndarray],
+                     packs: Tuple = ()) -> DeviceBlock:
+        pack_for = {name: (w, base) for name, w, base in packs}
         pad_n = self.padded_rows()
         time0 = self.interval.start
         off = self.time_ms - time0
@@ -141,29 +187,41 @@ class Segment:
                 f"segment rows outside int32 ms-offset range of interval "
                 f"{self.interval}")
 
-        def _pad(a: np.ndarray, fill=0) -> torch.Tensor:
+        def _pad(a: np.ndarray, fill=0) -> np.ndarray:
             if perm is not None:
                 a = a[perm]
             out = np.full((pad_n,), fill, dtype=a.dtype)
             out[: a.shape[0]] = a
-            return torch.from_numpy(out).to(device)
+            return out
 
-        arrays: Dict[str, torch.Tensor] = {
-            "__time_offset": _pad(off.astype(np.int32)),
-            "__valid": _pad(np.ones(self.n_rows, dtype=bool), False),
+        def put(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        def _stage(name: str, padded: np.ndarray):
+            p = pack_for.get(name)
+            if p is None:
+                return put(padded)
+            return packed.PackedColumn(
+                put(packed.pack_padded(padded, *p)), p[0], p[1],
+                padded.shape[0], str(padded.dtype))
+
+        arrays: Dict[str, object] = {
+            "__time_offset": put(_pad(off.astype(np.int32))),
+            "__valid": put(_pad(np.ones(self.n_rows, dtype=bool), False)),
         }
         for name in columns:
             if name in self.dims:
-                arrays[name] = _pad(self.dims[name].ids)
+                arrays[name] = _stage(name, _pad(self.dims[name].ids))
             elif name in self.metrics:
                 dt = self.staged_dtype(name)
                 vals = self.metrics[name].values
-                arrays[name] = _pad(vals if vals.dtype == dt
-                                    else vals.astype(dt))
+                arrays[name] = _stage(name, _pad(vals if vals.dtype == dt
+                                                 else vals.astype(dt)))
             elif name not in ("__time", "__time_offset", "__valid"):
                 raise KeyError(f"no such column {name!r} in segment {self.id}")
         return DeviceBlock(segment_id=self.id, n_rows=self.n_rows,
-                           padded_rows=pad_n, time0=time0, arrays=arrays)
+                           padded_rows=pad_n, time0=time0, arrays=arrays,
+                           packs=packs)
 
     def device_cached(self, key: Tuple, fn):
         """Memoize a device tensor (or block) built by `fn` under `key`."""

@@ -24,3 +24,14 @@ MAX_PALLAS_FIELDS = 8
 #: max output slots in the reference's layout (1 counts grid + at most 2
 #: slots per op), kept so both packages accept the same plans
 MAX_PALLAS_SLOTS = 1 + 2 * MAX_PALLAS_FIELDS
+
+#: bits per packed storage word (data/packed.py): int32 words
+PACK_WORD_BITS = 32
+
+#: supported pack widths, each dividing PACK_WORD_BITS so no value crosses a
+#: word boundary, and values per word (32 // width) dividing the 128-row
+#: tiles of every kernel block (BLK // LANE is 8 or 16)
+PACK_WIDTHS = (4, 8, 16)
+
+#: cap on the pow2-padded run count of an RLE column (data/cascade.py)
+CASCADE_MAX_RUNS = 1 << 16

@@ -21,6 +21,14 @@ Reduction strategies (`select_strategy`):
     goes to kernel B2 as words.
   * "mixed" — torch scatter (`index_add_` / `scatter_reduce`) everywhere else.
 A CUDA tensor goes through the kernel or the call raises; nothing falls back.
+
+On the projection and megakernel strategies the value columns B1/B2 read
+stage as packed words where they fit (data/packed.py); every other column
+stages dense. The program top splits the block (`cascade.split_resident`):
+B1 and B2 read the packed columns as words, and every other consumer reads
+a `DecodedView`, which decodes a column the first time it is read in the
+query (a filter's residual on a packed metric). A column that only the
+kernels read is never decoded.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from druid_tpu_torch.data import cascade as cascade_mod
 from druid_tpu_torch.data.segment import Segment
 from druid_tpu_torch.engine import megakernel
 from druid_tpu_torch.engine import sorted_reduce as sorted_reduce_mod
@@ -262,10 +271,13 @@ def fuse_filter_update(arrays: Dict[str, torch.Tensor], mask: torch.Tensor,
                        key: torch.Tensor, dims: Sequence[KeyDim],
                        filter_node: Optional[FilterNode],
                        kernels: Sequence[AggKernel], num_total: int,
-                       strategy: str = "mixed", span: int = 0):
+                       strategy: str = "mixed", span: int = 0,
+                       packed_cols: Optional[Dict] = None):
     """Fuse dimension ids into the key, apply the filter mask, and run every
-    kernel's reduction by the strategy. Returns (counts, per-kernel states)
-    as device tensors."""
+    kernel's reduction by the strategy. `arrays` is the dense view (a dict
+    or a cascade.DecodedView); `packed_cols` are the packed columns that
+    kernels B1/B2 read as words. Returns (counts, per-kernel states) as
+    device tensors."""
     key = key.to(torch.int64)
     for d in dims:
         if d.column is not None:
@@ -278,14 +290,16 @@ def fuse_filter_update(arrays: Dict[str, torch.Tensor], mask: torch.Tensor,
             mask = mask & residual.build(arrays)
         key = key.clamp(0, num_total - 1).to(torch.int32)
         return megakernel.mega_reduce(arrays, mask, key, mega_nodes, kernels,
-                                      num_total, span)
+                                      num_total, span,
+                                      packed_cols=packed_cols)
     if filter_node is not None:
         mask = mask & filter_node.build(arrays)
     key = key.clamp(0, num_total - 1)
 
     if strategy == "projection":
         return sorted_reduce_mod.sorted_reduce(
-            arrays, mask, key.to(torch.int32), kernels, num_total, span)
+            arrays, mask, key.to(torch.int32), kernels, num_total, span,
+            packed_cols=packed_cols)
     counts = torch.zeros(num_total, dtype=torch.int64, device=key.device) \
         .index_add_(0, key, mask.to(torch.int64))
     return counts, tuple(k.update(arrays, mask, key, num_total)
@@ -338,7 +352,7 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
     col_dtypes = {c: segment.staged_dtype(c) for c in needed}
     spec.strategy = select_strategy(spec, kernels, col_dtypes, padded_rows)
 
-    perm, perm_key = None, None
+    perm, perm_key, words = None, None, ()
     if spec.strategy == "projection":
         proj = build_projection(segment, intervals, granularity, spec)
         spec.key_mode = "host"
@@ -355,6 +369,8 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
         if sorted_reduce_mod.usable(kernels, col_dtypes, proj.max_span,
                                     spec.num_total):
             spec.window = proj.max_span
+            # B1 (or B2) reads these as words where they pack
+            words = sorted_reduce_mod.value_fields(kernels, col_dtypes)
         else:
             spec.strategy = "mixed"
 
@@ -367,8 +383,10 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
         megakernel.record_disabled_fallback(filter_node)
 
     block = segment.device_block(sorted(needed), device, perm=perm,
-                                 perm_key=perm_key)
-    arrays = dict(block.arrays)
+                                 perm_key=perm_key, words=words)
+    # packed value columns go to B1/B2 as words; everything else reads the
+    # dense view, which decodes a column on its first read
+    packed_cols, arrays = cascade_mod.split_resident(block.arrays)
     # staged combined words and fused leaf words, in the projection's row
     # order on that path
     arrays.update(stage_device_bitmaps(segment, filter_node,
@@ -404,7 +422,8 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
 
     counts, states = fuse_filter_update(
         arrays, mask, key, key_dims, filter_node, kernels, spec.num_total,
-        strategy=spec.strategy, span=spec.window)
+        strategy=spec.strategy, span=spec.window,
+        packed_cols=packed_cols or None)
     host_states = {k.name: k.host_post(st) for k, st in zip(kernels, states)}
     return SegmentPartial(segment=segment, spec=spec,
                           counts=counts.cpu().numpy().astype(np.int64),

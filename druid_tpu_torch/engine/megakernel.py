@@ -245,26 +245,30 @@ def mega_reduce_plain(arrays: Dict[str, torch.Tensor], words: torch.Tensor,
 
 def mega_reduce_cuda(arrays: Dict[str, torch.Tensor], words: torch.Tensor,
                      key: torch.Tensor, kernels: Sequence, num_total: int,
-                     span: int):
-    """Launch kernel B2 on CUDA tensors (raw keys, int32 mask words);
-    raises on anything else."""
+                     span: int, packed_cols: Optional[Dict] = None):
+    """Launch kernel B2 on CUDA tensors (raw keys, int32 mask words, packed
+    value columns as words); raises on anything else."""
     global LAUNCHES
     out = sorted_reduce_mod.launch(arrays, key, kernels, num_total, span,
-                                   mask_words=words)
+                                   mask_words=words, packed_cols=packed_cols)
     LAUNCHES += 1
     return out
 
 
 def mega_reduce(arrays: Dict[str, torch.Tensor], mask: torch.Tensor,
                 key: torch.Tensor, mega_nodes: Sequence[MegaBitmapNode],
-                kernels: Sequence, num_total: int, span: int):
+                kernels: Sequence, num_total: int, span: int,
+                packed_cols: Optional[Dict] = None):
     """(counts int32 [num_total], per-kernel states) over the rows whose
     base mask bit and every mega node's bit are set; `key` is the raw
-    compact key (masked rows read as the sentinel inside the kernel)."""
+    compact key (masked rows read as the sentinel inside the kernel). The
+    plain version reads the dense view, the kernel `packed_cols` as
+    words."""
     global PLAIN_CALLS
     words = fused_mask_words(arrays, mask, mega_nodes)
     if key.device.type == "cpu":
         PLAIN_CALLS += 1
         return mega_reduce_plain(arrays, words, key, kernels, num_total,
                                  span)
-    return mega_reduce_cuda(arrays, words, key, kernels, num_total, span)
+    return mega_reduce_cuda(arrays, words, key, kernels, num_total, span,
+                            packed_cols=packed_cols)

@@ -3,8 +3,10 @@
 The port's counterpart of the reference package's `engine/pallas_agg.py`:
 it replaces the TPU kernel `pallas_agg.pallas_reduce` (pl.pallas_call at
 pallas_agg.py:400) with the hand-written CUDA kernel
-`druid_tpu_torch/csrc/sorted_reduce.cu`, for dense int32/float32 value
-columns (the reference's bit-packed word inputs are not ported yet).
+`druid_tpu_torch/csrc/sorted_reduce.cu`. A value column is a dense
+int32/float32 tensor or, where it staged packed (data/packed.py), its
+tile-planar int32 words, which the kernel unpacks per row; packed and dense
+give the same bits.
 
 * `sorted_reduce` is the entry point: CPU tensors go to the plain PyTorch
   version, CUDA tensors to the kernel (or the call raises).
@@ -29,8 +31,9 @@ within the tolerance of float32 summation.
 
 Bound on an H100, as chip_smoke.py counts it: the bytes the function needs,
 each once, over 3.35 TB/s: the whole row mask (n B of bools here, n / 8 B
-of words for B2), the key and each value column (4 B a row) only in the
-32-row groups that hold a live row, and the [G] output grids.
+of words for B2), the key (4 B a row) and each value column (4 B a row
+dense, width / 8 B packed) only in the 32-row groups that hold a live row,
+and the [G] output grids.
 """
 from __future__ import annotations
 
@@ -39,11 +42,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from druid_tpu_torch.data import cascade as cascade_mod
 from druid_tpu_torch.engine.contracts import (BLK_SMALL_W, BLK_WIDE_W, LANE,
                                               MAX_PALLAS_FIELDS,
                                               MAX_PALLAS_GROUPS,
                                               MAX_PALLAS_SLOTS, MAX_W,
-                                              SPAN_BLOCK)
+                                              PACK_WIDTHS, SPAN_BLOCK)
 
 #: launches of the CUDA kernel in this process (the chip smoke resets it)
 LAUNCHES = 0
@@ -79,6 +83,11 @@ def plan_window(span: int) -> Tuple[int, int]:
 def op_fields(ops: Sequence) -> list:
     """Distinct value columns the kernel reads, sorted."""
     return sorted({op[1] for op in ops if op[0] in _VALUE_OPS})
+
+
+def value_fields(kernels: Sequence, col_dtypes: Dict) -> list:
+    """Distinct value columns the kernels' ops read, sorted."""
+    return op_fields([k.pallas_op(col_dtypes) for k in kernels])
 
 
 def op_slots(ops: Sequence) -> int:
@@ -118,8 +127,7 @@ def _identity(kind: str):
 
 
 def _plan(arrays: Dict, kernels, num_total, span):
-    col_dtypes = {c: str(a.dtype).replace("torch.", "")
-                  for c, a in arrays.items()}
+    col_dtypes = cascade_mod.column_dtypes(arrays)
     if not usable(kernels, col_dtypes, span, num_total):
         raise ValueError("plan is outside the sorted-projection kernel's "
                          "caps (usable() is False)")
@@ -147,7 +155,8 @@ def sorted_reduce_plain(arrays: Dict[str, torch.Tensor], mask: torch.Tensor,
                         key: torch.Tensor, kernels: Sequence,
                         num_total: int, span: int):
     """Plain PyTorch version of the kernel: same inputs, same results (float
-    sums up to summation order)."""
+    sums up to summation order). It reads every value column from the dense
+    view `arrays`."""
     ops, blk, w = _plan(arrays, kernels, num_total, span)
     n = key.shape[0]
     g2 = _round_up(num_total, LANE) + w
@@ -191,7 +200,9 @@ class _Params(ctypes.Structure):
                 ("fsrc", ctypes.c_void_p * _MAX_FIELDS),
                 ("part", ctypes.c_void_p * _MAX_SLOTS),
                 ("out", ctypes.c_void_p * _MAX_SLOTS),
-                ("mask_words", ctypes.c_void_p)]
+                ("mask_words", ctypes.c_void_p),
+                ("fwidth", ctypes.c_int * _MAX_FIELDS),
+                ("fbase", ctypes.c_int * _MAX_FIELDS)]
 
 
 def _lib():
@@ -205,7 +216,21 @@ def _lib():
     return lib
 
 
-def _check_cuda(arrays: Dict, key, fields, mask_words) -> None:
+def packed_fields(fields: Sequence[str], packed_cols: Optional[Dict],
+                  blk: int, n: int) -> Dict:
+    """{field: PackedColumn} of the value fields the kernel reads as words:
+    the reference's rule (pallas_agg.py:227), a block's 128-row tiles a
+    whole number of word rows and the words covering the same rows as the
+    key. Every other field reads the dense view."""
+    out = {}
+    for f in fields:
+        pc = (packed_cols or {}).get(f)
+        if pc is not None and (blk // LANE) % pc.vpw == 0 and pc.rows == n:
+            out[f] = pc
+    return out
+
+
+def _check_cuda(arrays: Dict, key, fields, mask_words, words: Dict) -> None:
     if key.device.type != "cuda":
         raise ValueError(f"the sorted-projection kernels need CUDA tensors, "
                          f"got {key.device}")
@@ -213,6 +238,17 @@ def _check_cuda(arrays: Dict, key, fields, mask_words) -> None:
     if key.dim() != 1 or key.dtype != torch.int32 or not key.is_contiguous():
         raise ValueError("key must be a contiguous 1-D int32 tensor")
     for f in fields:
+        if f in words:
+            pc = words[f]
+            w = pc.words
+            if pc.width not in PACK_WIDTHS or pc.dtype_str != "int32" \
+                    or not torch.is_tensor(w) or w.dim() != 1 \
+                    or w.dtype != torch.int32 or w.device != key.device \
+                    or not w.is_contiguous() or w.shape[0] < n // pc.vpw:
+                raise ValueError(f"packed column {f!r} must be contiguous "
+                                 f"int32 words (at least {n // pc.vpw}) on "
+                                 f"{key.device}, width in {PACK_WIDTHS}")
+            continue
         a = arrays[f]
         if a.shape != (n,) or a.device != key.device \
                 or a.dtype not in (torch.int32, torch.float32) \
@@ -230,17 +266,21 @@ def _check_cuda(arrays: Dict, key, fields, mask_words) -> None:
 
 def launch(arrays: Dict[str, torch.Tensor], key: torch.Tensor,
            kernels: Sequence, num_total: int, span: int,
-           mask_words: Optional[torch.Tensor] = None):
+           mask_words: Optional[torch.Tensor] = None,
+           packed_cols: Optional[Dict] = None):
     """Both passes on CUDA tensors; raises on anything else. Without
     `mask_words` (B1) masked rows must already carry SENTINEL in `key`;
     with them (B2) `key` is raw and row r counts iff bit r % 32 of word
-    r // 32 is set. Counts no launch: each kernel's wrapper does."""
+    r // 32 is set. A value field in `packed_cols` (see `packed_fields`) is
+    read as words and never decoded. Counts no launch: each kernel's
+    wrapper does."""
     ops, blk, w = _plan(arrays, kernels, num_total, span)
     slots = _slot_plan(ops)
     fields = op_fields(ops)
-    _check_cuda(arrays, key, fields, mask_words)
     dev = key.device
     n = key.shape[0]
+    words = packed_fields(fields, packed_cols, blk, n)
+    _check_cuda(arrays, key, fields, mask_words, words)
     nblk = max(1, -(-n // blk))
     abase = torch.empty(nblk, dtype=torch.int32, device=dev)
     parts = [torch.empty(nblk * w, dtype=_slot_dtype(k), device=dev)
@@ -253,7 +293,13 @@ def launch(arrays: Dict[str, torch.Tensor], key: torch.Tensor,
                 mask_words=None if mask_words is None
                 else mask_words.data_ptr())
     for f, field in enumerate(fields):
-        p.fsrc[f] = arrays[field].data_ptr()
+        pc = words.get(field)
+        if pc is None:
+            p.fsrc[f] = arrays[field].data_ptr()
+        else:
+            p.fsrc[f] = pc.words.data_ptr()
+            p.fwidth[f] = pc.width
+            p.fbase[f] = pc.base
     for q, (kind, field) in enumerate(slots):
         p.kind[q] = _KINDS[kind]
         p.field[q] = fields.index(field) if field is not None else -1
@@ -288,7 +334,7 @@ def launch(arrays: Dict[str, torch.Tensor], key: torch.Tensor,
 
 def sorted_reduce_cuda(arrays: Dict[str, torch.Tensor], mask: torch.Tensor,
                        key: torch.Tensor, kernels: Sequence, num_total: int,
-                       span: int):
+                       span: int, packed_cols: Optional[Dict] = None):
     """Launch kernel B1 on CUDA tensors; raises on anything else."""
     global LAUNCHES
     if mask.shape != key.shape or mask.dtype != torch.bool \
@@ -296,19 +342,22 @@ def sorted_reduce_cuda(arrays: Dict[str, torch.Tensor], mask: torch.Tensor,
         raise ValueError("mask must be a bool tensor shaped like key")
     keyx = torch.where(mask, key, torch.full((), SENTINEL, dtype=key.dtype,
                                              device=key.device))
-    out = launch(arrays, keyx, kernels, num_total, span)
+    out = launch(arrays, keyx, kernels, num_total, span,
+                 packed_cols=packed_cols)
     LAUNCHES += 1
     return out
 
 
 def sorted_reduce(arrays: Dict[str, torch.Tensor], mask: torch.Tensor,
                   key: torch.Tensor, kernels: Sequence, num_total: int,
-                  span: int):
+                  span: int, packed_cols: Optional[Dict] = None):
     """(counts int32 [num_total], per-kernel states): the plain version for
-    CPU tensors, the CUDA kernel for CUDA tensors."""
+    CPU tensors (on the dense view), the CUDA kernel for CUDA tensors (with
+    `packed_cols` as word inputs)."""
     global PLAIN_CALLS
     if key.device.type == "cpu":
         PLAIN_CALLS += 1
         return sorted_reduce_plain(arrays, mask, key, kernels, num_total,
                                    span)
-    return sorted_reduce_cuda(arrays, mask, key, kernels, num_total, span)
+    return sorted_reduce_cuda(arrays, mask, key, kernels, num_total, span,
+                              packed_cols=packed_cols)

@@ -26,7 +26,8 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def test_import_pulls_in_neither_jax_nor_druid_tpu():
     code = ("import sys, druid_tpu_torch, druid_tpu_torch.engine, "
-            "druid_tpu_torch.data.generator, druid_tpu_torch.data.convert; "
+            "druid_tpu_torch.data.generator, druid_tpu_torch.data.convert, "
+            "druid_tpu_torch.data.packed, druid_tpu_torch.data.cascade; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'druid_tpu' "
             "or m.startswith('druid_tpu.')); print(bad)")
@@ -117,8 +118,9 @@ def test_build_targets_sm90a_from_repo_sources():
 
 def test_params_struct_matches_cuda_layout():
     """The ctypes mirror of SrParams: 4 pointers, an int64, seven ints, two
-    arrays of 17 ints, 8 field pointers, two arrays of 17 pointers and the
-    mask-words pointer (natural alignment)."""
+    arrays of 17 ints, 8 field pointers, two arrays of 17 pointers, the
+    mask-words pointer, and the packed fields' widths and bases (8 ints
+    each) at the end (natural alignment)."""
     off = {name: getattr(sr._Params, name).offset
            for name, _ in sr._Params._fields_}
     assert off["n"] == 32 and off["kind"] == 68
@@ -126,7 +128,9 @@ def test_params_struct_matches_cuda_layout():
     assert off["fsrc"] == 136 + 17 * 4 + 4
     assert off["part"] == off["fsrc"] + 8 * 8
     assert off["mask_words"] == off["out"] + 17 * 8
-    assert ctypes.sizeof(sr._Params) == off["mask_words"] + 8
+    assert off["fwidth"] == off["mask_words"] + 8
+    assert off["fbase"] == off["fwidth"] + 8 * 4
+    assert ctypes.sizeof(sr._Params) == off["fbase"] + 8 * 4
 
 
 def test_params_struct_fields_in_source_order():

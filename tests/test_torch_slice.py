@@ -249,3 +249,139 @@ def test_generator_copy_matches_reference():
         for n in r.metrics:
             np.testing.assert_array_equal(r.metrics[n].values,
                                           p.metrics[n].values)
+
+
+# ---------------------------------------------------------------------------
+# the headline queries over packed staging
+# ---------------------------------------------------------------------------
+
+HEAD_IV = "2026-01-01T00:00/2026-01-01T00:04"
+HEAD_SCHEMA = (       # chip_smoke.py's headline schema
+    ColumnSpec("dimA", "string", cardinality=100),
+    ColumnSpec("dimB", "string", cardinality=1000, distribution="zipf"),
+    ColumnSpec("metLong", "long", low=0, high=10_000),
+    ColumnSpec("metFloat", "float", distribution="normal", mean=100.0,
+               std=25.0),
+)
+
+
+@pytest.fixture(scope="module")
+def head_segs():
+    """Two time-ordered segments of 20,000 rows over two minutes each (the
+    largest gap between rows fits 8 bits, as at the headline's full size,
+    so the reference plans `__time_offset` as deltas off the projection)."""
+    ref = DataGenerator(HEAD_SCHEMA, seed=1234).segments(
+        2, 20_000, Interval.parse(HEAD_IV), datasource="bench")
+    for s in ref:
+        s.metrics["absFloat"] = NumericColumn(
+            np.abs(s.metrics["metFloat"].values), ValueType.FLOAT)
+    return ref
+
+
+def _head_queries(seg):
+    """chip_smoke.py's four main-path queries (the timeseries by minute, to
+    have buckets in four minutes), with |metFloat| sums beside the float
+    sums for the tolerance."""
+    dim_a = list(seg.dims["dimA"].dictionary.values)
+    head = seg.dims["dimB"].dictionary.values[
+        int(np.bincount(seg.dims["dimB"].ids).argmax())]
+    bound = {"type": "bound", "dimension": "metLong", "lower": "100",
+             "upper": "9900", "ordering": "numeric"}
+    base = {"dataSource": "bench", "intervals": [HEAD_IV],
+            "granularity": "all"}
+    groupby = dict(base, queryType="groupBy", dimensions=["dimA", "dimB"],
+                   aggregations=[
+                       {"type": "count", "name": "rows"},
+                       {"type": "longSum", "name": "lsum",
+                        "fieldName": "metLong"},
+                       {"type": "floatMax", "name": "fmax",
+                        "fieldName": "metFloat"}], filter=bound)
+    return {
+        "groupby": groupby,
+        "topn": dict(base, queryType="topN", dimension="dimB", metric="lsum",
+                     threshold=100, aggregations=[
+                         {"type": "count", "name": "rows"},
+                         {"type": "longSum", "name": "lsum",
+                          "fieldName": "metLong"}],
+                     filter={"type": "in", "dimension": "dimA",
+                             "values": dim_a[0:100:2]}),
+        "timeseries": dict(base, queryType="timeseries", granularity="minute",
+                           aggregations=[
+                               {"type": "count", "name": "rows"},
+                               {"type": "longSum", "name": "lsum",
+                                "fieldName": "metLong"},
+                               {"type": "floatMax", "name": "fmax",
+                                "fieldName": "metFloat"},
+                               {"type": "doubleSum", "name": "dsum",
+                                "fieldName": "metFloat"},
+                               {"type": "floatSum", "name": "fabs",
+                                "fieldName": "absFloat"}]),
+        "groupby_filtered": dict(groupby, filter={"type": "and", "fields": [
+            {"type": "in", "dimension": "dimA", "values": dim_a[0:100:2]},
+            {"type": "not", "field": {"type": "selector",
+                                      "dimension": "dimB", "value": head}},
+            bound]}),
+    }
+
+
+def _blocks(seg):
+    return [v for k, v in seg._device_cache.items() if k[0] == "block"]
+
+
+@pytest.mark.parametrize("name", ["groupby", "topn", "timeseries",
+                                  "groupby_filtered"])
+def test_headline_queries_packed_and_cascaded_match_reference(
+        head_segs, name, monkeypatch):
+    """Packing and cascading on in both packages (their defaults): the
+    port's rows are the reference's. On the projection (B1, B2) metLong
+    stages as w16 words; off it (topN, timeseries: no kernel reads words)
+    every column stages dense."""
+    from druid_tpu_torch.data import packed
+    monkeypatch.setattr(ref_grouping, "PROJECTION_MIN_ROWS", 0)
+    monkeypatch.setattr(port_grouping, "PROJECTION_MIN_ROWS", 0)
+    monkeypatch.setattr(pallas_agg, "_FORCE_INTERPRET", True)
+    assert packed.enabled()
+    port = [_carry(s) for s in head_segs]
+    q = _head_queries(head_segs[0])[name]
+    before = (sorted_reduce.PLAIN_CALLS, megakernel.PLAIN_CALLS)
+    _compare(RefExecutor(head_segs).run_json(q),
+             PortExecutor(port, device="cpu").run_json(q))
+    calls = (sorted_reduce.PLAIN_CALLS - before[0],
+             megakernel.PLAIN_CALLS - before[1])
+    assert calls == {"groupby": (2, 0), "groupby_filtered": (0, 2)} \
+        .get(name, (0, 0))
+    for seg in port:
+        (block,) = _blocks(seg)
+        met = block.arrays["metLong"]
+        if name.startswith("groupby"):
+            assert block.packs == (("metLong", 16, 0),)
+            assert isinstance(met, packed.PackedColumn)
+            assert block.resident_nbytes < block.logical_nbytes
+        else:
+            assert block.packs == ()
+            assert block.resident_nbytes == block.logical_nbytes
+        assert all(torch.is_tensor(v) for k, v in block.arrays.items()
+                   if k != "metLong")
+
+
+@pytest.mark.parametrize("name", ["groupby", "topn", "timeseries",
+                                  "groupby_filtered"])
+def test_headline_queries_same_rows_packing_on_and_off(head_segs, name,
+                                                       monkeypatch):
+    """The port alone, packing on against off: identical rows, floats
+    included (every decode is exact)."""
+    from druid_tpu_torch.data import packed
+    monkeypatch.setattr(port_grouping, "PROJECTION_MIN_ROWS", 0)
+    q = _head_queries(head_segs[0])[name]
+    on = PortExecutor([_carry(s) for s in head_segs],
+                      device="cpu").run_json(q)
+    prev = packed.set_enabled(False)
+    try:
+        port = [_carry(s) for s in head_segs]
+        off = PortExecutor(port, device="cpu").run_json(q)
+    finally:
+        packed.set_enabled(prev)
+    assert all(torch.is_tensor(v) for seg in port
+               for b in _blocks(seg) for v in b.arrays.values())
+    assert on and on == off
+
