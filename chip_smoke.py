@@ -37,10 +37,28 @@ Phases, each fatal on failure:
      (descriptor, resident and decoded bytes) is printed, and only the
      columns B1/B2 read may be packed (topN and timeseries stage dense).
      The first B1 and B2 calls keep their inputs, and must hold metLong as
-     w16 words, not decoded;
+     w16 words, not decoded. Each query's reduction strategy per segment
+     is printed and must be: groupBy projection (B1), filtered groupBy
+     megakernel (B2), topN mm (the one-hot matmul), timeseries mixed with
+     count, longSum and floatMax blocked and the doubleSum scattered;
   7. the same four queries on 2 of the 8 segments with packing off: the
      rows equal the packed run's;
-  8. B1 and B2 against their plain versions on the inputs the main path gave
+  8. strategies: on the 8 headline segments, every strategy forced in turn
+     (grouping.FORCE_STRATEGY) on the topN (mm, blocked, mixed, projection)
+     and the timeseries (mm and blocked are ineligible there and fall
+     through to mixed, which is printed), each against numpy and the
+     others, with its partials time; the timeseries' pure-scatter form
+     (the parent's: mixed with the blocked hybrid off) beside the hybrid,
+     and each op's device time on segment 0 in both forms; mm and blocked
+     twice on the topN with a floatSum added (the same float bits both
+     times); mm on segment 0's topN inputs split into the one-hot build and
+     the int8 product, and timed at smaller one-hot budgets;
+  9. sorted: the headline schema in the rollup sort order (2 segments of
+     12.5M rows, cut from 8 for time): the headline groupBy must select
+     windowed (W printed), rows against numpy, cold and warm p50; windowed
+     twice with a floatSum (the same float bits); forced projection (B1)
+     gives the same rows;
+ 10. B1 and B2 against their plain versions on the inputs the main path gave
      them (the first segment's), then timed there with CUDA events beside
      their HBM bound, their plain version and a library yardstick
      (index_add_/scatter_reduce over the same keys, B2's with the word
@@ -602,6 +620,55 @@ class BlockLog:
                 / self.blocks[0].padded_rows}
 
 
+class StrategyLog:
+    """Records, while active, the strategy and window of every segment's
+    reduction (`grouping.fuse_filter_update`), the kernels each blocked
+    reduction took (`grouping._blocked_reduce`), and the first fuse and mm
+    calls' inputs (segment 0's, for the per-op timings). Every wrapped
+    function runs unchanged."""
+
+    NAMES = ("fuse_filter_update", "_blocked_reduce", "mm_reduce")
+
+    def __enter__(self):
+        from druid_tpu_torch.engine import grouping as gr
+        self.gr, self.orig = gr, {n: getattr(gr, n) for n in self.NAMES}
+        self.strategies, self.blocked = [], []
+        self.first_fuse = self.first_mm = None
+        orig = self.orig
+
+        def fuse(arrays, mask, key, dims, filter_node, kernels, num_total,
+                 strategy="mixed", span=0, packed_cols=None):
+            self.strategies.append((strategy, span))
+            if self.first_fuse is None:
+                self.first_fuse = (arrays, mask, key, dims, filter_node,
+                                   list(kernels), num_total)
+            return orig["fuse_filter_update"](
+                arrays, mask, key, dims, filter_node, kernels, num_total,
+                strategy=strategy, span=span, packed_cols=packed_cols)
+
+        def blocked(arrays, mask, key, kernels, num_total):
+            self.blocked.append(tuple(k.name for k in kernels))
+            return orig["_blocked_reduce"](arrays, mask, key, kernels,
+                                           num_total)
+
+        def mm(arrays, mask, key, kernels, plans, num_total):
+            if self.first_mm is None:
+                self.first_mm = (arrays, mask, key, list(kernels),
+                                 list(plans), num_total)
+            return orig["mm_reduce"](arrays, mask, key, kernels, plans,
+                                     num_total)
+        for n, f in zip(self.NAMES, (fuse, blocked, mm)):
+            setattr(gr, n, f)
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.orig.items():
+            setattr(self.gr, n, f)
+
+    def names(self):
+        return [s for s, _ in self.strategies]
+
+
 def run_shape(mask, key, blk):
     """Longest run of one live key inside each blk-row block: the rows the
     partial pass joins across threads and warps. Returns (median
@@ -762,7 +829,9 @@ def ab_ms(fn_a, fn_b, reps=20):
 # phase 6: the main path at full size
 # ---------------------------------------------------------------------------
 
-def headline_segments():
+def headline_segments(n_seg=SEGMENTS, sort_by_dims=False):
+    """The headline data: n_seg segments of ROWS // SEGMENTS rows each (in
+    the rollup sort order with `sort_by_dims`)."""
     from druid_tpu_torch.data.generator import ColumnSpec, DataGenerator
     from druid_tpu_torch.utils.intervals import Interval
     schema = (
@@ -773,8 +842,8 @@ def headline_segments():
                    std=25.0),
     )
     gen = DataGenerator(schema, seed=SEED)
-    return gen.segments(SEGMENTS, ROWS // SEGMENTS, Interval.of(*DAY),
-                        datasource="bench")
+    return gen.segments(n_seg, ROWS // SEGMENTS, Interval.of(*DAY),
+                        datasource="bench", sort_by_dims=sort_by_dims)
 
 
 def dimb_head(segments):
@@ -833,8 +902,12 @@ def numpy_reference(segments):
     f_cnt = np.zeros(G, np.int64)
     f_lsum = np.zeros(G, np.float64)
     f_fmax = np.full(G, -np.inf, np.float32)
+    g_fsum = np.zeros(G, np.float64)
+    g_abs = np.zeros(G, np.float64)
     tb_cnt = np.zeros(1000, np.int64)
     tb_lsum = np.zeros(1000, np.float64)
+    tb_fsum = np.zeros(1000, np.float64)
+    tb_abs = np.zeros(1000, np.float64)
     h_cnt = np.zeros(24, np.int64)
     h_lsum = np.zeros(24, np.float64)
     h_fmax = np.full(24, -np.inf, np.float32)
@@ -851,6 +924,10 @@ def numpy_reference(segments):
         lsum += np.bincount(key, weights=ml[keep].astype(np.float64),
                             minlength=G)
         np.maximum.at(fmax, key, mf[keep])
+        g_fsum += np.bincount(key, weights=mf[keep].astype(np.float64),
+                              minlength=G)
+        g_abs += np.bincount(key, weights=np.abs(mf[keep].astype(
+            np.float64)), minlength=G)
         even = (a % 2) == 0
         fk = keep & even & (b != head)
         key = a[fk] * 1000 + b[fk]
@@ -861,6 +938,10 @@ def numpy_reference(segments):
         tb_cnt += np.bincount(b[even], minlength=1000)
         tb_lsum += np.bincount(b[even], weights=ml[even].astype(np.float64),
                                minlength=1000)
+        tb_fsum += np.bincount(b[even], weights=mf[even].astype(np.float64),
+                               minlength=1000)
+        tb_abs += np.bincount(b[even], weights=np.abs(
+            mf[even].astype(np.float64)), minlength=1000)
         h = (s.time_ms - t0) // 3_600_000
         h_cnt += np.bincount(h, minlength=24)
         h_lsum += np.bincount(h, weights=ml.astype(np.float64), minlength=24)
@@ -870,6 +951,7 @@ def numpy_reference(segments):
                              minlength=24)
     return dict(cnt=cnt, lsum=lsum.astype(np.int64), fmax=fmax,
                 f_cnt=f_cnt, f_lsum=f_lsum.astype(np.int64), f_fmax=f_fmax,
+                g_fsum=g_fsum, g_abs=g_abs, tb_fsum=tb_fsum, tb_abs=tb_abs,
                 tb_cnt=tb_cnt, tb_lsum=tb_lsum.astype(np.int64),
                 h_cnt=h_cnt, h_lsum=h_lsum.astype(np.int64), h_fmax=h_fmax,
                 h_dsum=h_dsum, h_abs=h_abs, t0=t0)
@@ -884,7 +966,9 @@ def check_groupby(rows, ref, pre=""):
         e = r["event"]
         g = int(e["dimA"][1:]) * 1000 + int(e["dimB"][1:])
         if (e["rows"], e["lsum"]) != (int(cnt[g]), int(lsum[g])) \
-                or np.float32(e["fmax"]) != fmax[g]:
+                or np.float32(e["fmax"]) != fmax[g] \
+                or ("fsum" in e and abs(e["fsum"] - ref["g_fsum"][g])
+                    > 1e-5 * ref["g_abs"][g]):
             raise AssertionError(f"groupBy row {e} != numpy group {g}")
 
 
@@ -901,6 +985,11 @@ def check_topn(rows, ref):
             for b in order]
     if got != want:
         raise AssertionError("topN rows differ from numpy")
+    for x in rows[0]["result"]:
+        b = int(x["dimB"][1:])
+        if "fsum" in x and abs(x["fsum"] - ref["tb_fsum"][b]) \
+                > 1e-5 * ref["tb_abs"][b]:
+            raise AssertionError(f"topN fsum of {b}: {x['fsum']}")
 
 
 def check_timeseries(rows, ref):
@@ -966,7 +1055,7 @@ def phase_main(dev):
               "groupby_filtered": check_filtered}
     # (B1, B2) launches per run of each query
     wants = {"groupby": (SEGMENTS, 0), "groupby_filtered": (0, SEGMENTS)}
-    out = {"gen_s": gen_s, "segments": segments, "queries": qs}
+    out = {"gen_s": gen_s, "segments": segments, "queries": qs, "ref": ref}
 
     def launches():
         return (sr.LAUNCHES, mk.LAUNCHES)
@@ -975,10 +1064,16 @@ def phase_main(dev):
         t = time.perf_counter()
         before = launches()
         with Capture(sr, "sorted_reduce") as cap1, \
-                Capture(mk, "mega_reduce_cuda") as cap2, BlockLog() as blog:
+                Capture(mk, "mega_reduce_cuda") as cap2, BlockLog() as blog, \
+                StrategyLog() as slog:
             rows = ex.run_json(q)
             torch.cuda.synchronize()
         cold = time.perf_counter() - t
+        check_strategies(name, slog)
+        if name == "topn":
+            out["mm_inputs"] = slog.first_mm
+        if name == "timeseries":
+            out["ts_inputs"] = slog.first_fuse
         blocks = blog.summary()
         log(f"  {name}: staged block {blocks['encodings']}; resident "
             f"{blocks['resident_mb'][0]:.3f}-{blocks['resident_mb'][1]:.3f} "
@@ -1026,6 +1121,8 @@ def phase_main(dev):
         split = split_times(q, segments, dev)
         p50 = float(np.median(warm))
         out[name] = {"cold_s": cold, "warm_ms": warm, "p50_ms": p50,
+                     "strategies": slog.strategies,
+                     "blocked_kernels": slog.blocked,
                      "rows_per_s": ROWS / (p50 / 1e3), "result_rows": len(rows),
                      "b1_launches_per_run": delta[0],
                      "b2_launches_per_run": delta[1], "block": blocks,
@@ -1038,6 +1135,29 @@ def phase_main(dev):
             f"{delta}{planned}; partials {split['partials_ms']:.1f} ms, "
             f"merge+finish {split['finish_ms']:.1f} ms")
     return out
+
+
+#: the strategy each main-path query must run on every segment, and the
+#: aggregators its blocked reductions must take (the timeseries' mixed
+#: hybrid: all but the doubleSum, which scatters)
+MAIN_STRATEGIES = {"groupby": ("projection", ()),
+                   "groupby_filtered": ("megakernel", ()),
+                   "topn": ("mm", ()),
+                   "timeseries": ("mixed", ("rows", "lsum", "fmax"))}
+
+
+def check_strategies(name, slog, segments=SEGMENTS):
+    """The query ran MAIN_STRATEGIES[name] on each of `segments` segments;
+    prints the strategy (and window) per segment."""
+    want, blocked = MAIN_STRATEGIES[name]
+    log(f"  {name}: strategy per segment {slog.strategies}; blocked "
+        f"reductions took {sorted(set(slog.blocked))}")
+    if slog.names() != [want] * segments:
+        raise AssertionError(f"{name}: strategies {slog.strategies}, "
+                             f"expected {want} on {segments} segments")
+    if slog.blocked != ([blocked] * segments if blocked else []):
+        raise AssertionError(f"{name}: blocked reductions {slog.blocked}, "
+                             f"expected {blocked} on each segment")
 
 
 FLOAT_SUMS = ("dsum",)
@@ -1097,6 +1217,308 @@ def phase_packing_off(dev, segments, qs, n_seg=2):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 8 and 9: the reduction strategies on the headline data
+# ---------------------------------------------------------------------------
+
+#: forced strategy -> the strategy each query must then run. A force the
+#: reference's rules find ineligible falls through to the normal selection
+#: (the timeseries' doubleSum has no mm plan and no blocked step); the
+#: topN's projection takes its fused `in` filter into kernel B2.
+FORCES = {"topn": {"mm": "mm", "blocked": "blocked", "mixed": "mixed",
+                   "projection": "megakernel"},
+          "timeseries": {"mm": "mixed", "blocked": "mixed",
+                         "mixed": "mixed"}}
+
+
+def run_forced(ex, q, force, segments=SEGMENTS):
+    """One cold run of `q` under grouping.FORCE_STRATEGY = force: (rows,
+    StrategyLog, seconds)."""
+    import torch
+    from druid_tpu_torch.engine import grouping as gr
+    gr.FORCE_STRATEGY = force
+    try:
+        t = time.perf_counter()
+        with StrategyLog() as slog:
+            rows = ex.run_json(q)
+            torch.cuda.synchronize()
+        return rows, slog, time.perf_counter() - t
+    finally:
+        gr.FORCE_STRATEGY = None
+
+
+def timed_split(q, segments, dev, force):
+    from druid_tpu_torch.engine import grouping as gr
+    gr.FORCE_STRATEGY = force
+    try:
+        return split_times(q, segments, dev)
+    finally:
+        gr.FORCE_STRATEGY = None
+
+
+def with_fsum(q):
+    """`q` with a floatSum of metFloat beside its aggregators."""
+    return dict(q, aggregations=q["aggregations"] + [
+        {"type": "floatSum", "name": "fsum", "fieldName": "metFloat"}])
+
+
+def same_bits_twice(ex, q, force, check, ref, segments=SEGMENTS):
+    """Two runs of `q` under `force` give the same rows, float bits
+    included (every float printed exactly); both hold against numpy."""
+    a, slog, _ = run_forced(ex, q, force, segments)
+    b, _, _ = run_forced(ex, q, force, segments)
+    check(a, ref)
+    if json.dumps(a) != json.dumps(b):
+        raise AssertionError(f"{force}: two runs differ in float bits")
+    return slog.strategies
+
+
+def op_times(fns, reps=5):
+    """{name: ms per call} of each function, CUDA events."""
+    return {name: cuda_ms(fn, reps) for name, fn in fns.items()}
+
+
+def device_split(fn, reps=3, top=8):
+    """torch.profiler's device ms per call of `fn`, by kernel name (the
+    `top` largest)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0)
+        if us and ev.key and not ev.key.startswith(("aten::", "cuda")) \
+                and "Memcpy" not in ev.key:
+            by[ev.key[:90]] = us / 1e3 / reps
+    return dict(sorted(by.items(), key=lambda kv: -kv[1])[:top])
+
+
+def timeseries_op_split(ts_inputs):
+    """Device ms of each op of the timeseries' reduction on segment 0's
+    inputs: the pure-scatter form (the parent's) and the mixed hybrid; the
+    blocked reduction at smaller steps, and split by kernel."""
+    import torch
+    from druid_tpu_torch.engine import grouping as gr
+    arrays, mask, key, _, _, ks, G = ts_inputs
+    key = key.to(torch.int64).clamp(0, G - 1)
+    scatter = {"counts index_add_ int64": lambda: torch.zeros(
+        G, dtype=torch.int64, device=key.device).index_add_(
+            0, key, mask.to(torch.int64))}
+    for k in ks:
+        scatter[f"{k.name} {type(k).__name__}.update"] = \
+            lambda k=k: k.update(arrays, mask, key, G)
+    blocked = [k for k in ks if k.name != "dsum"]
+
+    def run_blocked():
+        return gr._blocked_reduce(arrays, mask, key, blocked, G)
+    hybrid = {f"_blocked_reduce {tuple(k.name for k in blocked)} + counts":
+              run_blocked,
+              "dsum SumKernel.update": scatter["dsum SumKernel.update"]}
+    out = {"pure_scatter": op_times(scatter), "hybrid": op_times(hybrid)}
+    saved = gr.STEP_CELLS
+    try:
+        for cells in (1 << 26, 1 << 23):
+            gr.STEP_CELLS = cells
+            out["hybrid"][f"_blocked_reduce at {cells // G} rows/step"] = \
+                cuda_ms(run_blocked, 3)
+    finally:
+        gr.STEP_CELLS = saved
+    out["blocked_by_kernel"] = device_split(run_blocked)
+    return out
+
+
+def mm_split(mm_inputs):
+    """The mm reduction on segment 0's topN inputs: its time, one step's
+    one-hot build and int8 product (block-diagonal, as mm_reduce runs it,
+    and the plain [G, rows] x [rows, 8] one) times, and its time at smaller
+    one-hot budgets (an L2-resident step trades HBM bytes for launches)."""
+    import torch
+    from druid_tpu_torch.engine import mmagg
+    arrays, mask, key, ks, plans, G = mm_inputs
+    step = mmagg.step_rows(G)
+    steps = -(-mask.shape[0] // step)
+    groups = max(G, 32)
+    r8 = 8
+    nsl = mmagg.slices(r8)
+    kb, mb = key[:step], mask[:step]
+    oh = mmagg.onehot(kb, mb, groups)
+    lhs = torch.ones(nsl, r8, kb.shape[0] // nsl, dtype=torch.int8,
+                     device=key.device)
+    flat = torch.ones(r8, kb.shape[0], dtype=torch.int8, device=key.device)
+    res = {"G": G, "rows": int(mask.shape[0]), "step_rows": step,
+           "steps": steps, "slices": nsl,
+           "mm_reduce_ms": cuda_ms(lambda: mmagg.mm_reduce(
+               arrays, mask, key, ks, plans, G), 5),
+           "onehot_ms_per_step": cuda_ms(
+               lambda: mmagg.onehot(kb, mb, groups), 5),
+           "product_ms_per_step": cuda_ms(
+               lambda: mmagg.int8_product(oh, lhs), 5),
+           "plain_product_ms_per_step": cuda_ms(
+               lambda: torch._int_mm(oh, flat.t()), 5)}
+    del oh
+    saved = mmagg.MM_ONEHOT_BYTES
+    try:
+        for budget in (1 << 26, 1 << 24):
+            mmagg.MM_ONEHOT_BYTES = budget
+            res[f"mm_reduce_ms_budget_{budget >> 20}MiB"] = cuda_ms(
+                lambda: mmagg.mm_reduce(arrays, mask, key, ks, plans, G), 3)
+    finally:
+        mmagg.MM_ONEHOT_BYTES = saved
+    return res
+
+
+def phase_strategies(dev, segments, qs, ref, main_out):
+    """Every eligible strategy forced on the topN and the timeseries over
+    the 8 headline segments: each against numpy and the others, its
+    partials time; mm and blocked twice with a float sum (same bits); the
+    timeseries' pure-scatter form (the parent's) beside the hybrid, split
+    by op on segment 0; mm split into one-hot and product."""
+    from druid_tpu_torch.engine import grouping as gr
+    from druid_tpu_torch.engine import QueryExecutor
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine import mmagg
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    saved = (sr.LAUNCHES, mk.LAUNCHES)
+    checks = {"topn": check_topn, "timeseries": check_timeseries}
+    ex = QueryExecutor(segments, device=dev)
+    out = {}
+    for name, forces in FORCES.items():
+        q, first = qs[name], None
+        for force, want in forces.items():
+            rows, slog, cold = run_forced(ex, q, force)
+            checks[name](rows, ref)
+            if slog.names() != [want] * SEGMENTS:
+                raise AssertionError(f"{name} forced {force}: ran "
+                                     f"{slog.strategies}, expected {want}")
+            if first is None:
+                first = rows
+            elif not same_rows(rows, first):
+                raise AssertionError(f"{name} forced {force}: rows differ "
+                                     f"from forced {list(forces)[0]}")
+            split = timed_split(q, segments, dev, force)
+            out[f"{name}/{force}"] = {"ran": want, "cold_s": cold,
+                                      "blocked": sorted(set(slog.blocked)),
+                                      **split}
+            fell = "" if want == force else f" (ran {want})"
+            log(f"  {name} forced {force}{fell}: ok, partials "
+                f"{split['partials_ms']:.1f} ms, merge+finish "
+                f"{split['finish_ms']:.1f} ms, first run {cold:.2f} s; "
+                f"blocked took {sorted(set(slog.blocked))}")
+    # the parent's pure-scatter timeseries: mixed with the hybrid off
+    limit = gr.BLOCKED_GROUP_LIMIT
+    gr.BLOCKED_GROUP_LIMIT = 0
+    try:
+        rows, slog, cold = run_forced(ex, qs["timeseries"], "mixed")
+        check_timeseries(rows, ref)
+        if slog.blocked:
+            raise AssertionError("pure scatter ran a blocked reduction")
+        split = timed_split(qs["timeseries"], segments, dev, "mixed")
+    finally:
+        gr.BLOCKED_GROUP_LIMIT = limit
+    out["timeseries/pure_scatter"] = split
+    log(f"  timeseries pure scatter (the parent's form): partials "
+        f"{split['partials_ms']:.1f} ms, merge+finish "
+        f"{split['finish_ms']:.1f} ms")
+    ops = timeseries_op_split(main_out["ts_inputs"])
+    out["timeseries_ops_segment0"] = ops
+    for form, t in ops.items():
+        log(f"  timeseries segment 0, {form}: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in t.items()))
+    out["mm_by_kernel"] = device_split(
+        lambda: mmagg.mm_reduce(*main_out["mm_inputs"]))
+    log("  mm on segment 0, device ms by kernel: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in out["mm_by_kernel"].items()))
+    # float bits twice: a floatSum beside the topN's aggregators
+    topn_f = with_fsum(qs["topn"])
+    for force in ("mm", "blocked"):
+        st = same_bits_twice(ex, topn_f, force, check_topn, ref)
+        if [s for s, _ in st] != [force] * SEGMENTS:
+            raise AssertionError(f"topN+fsum forced {force} ran {st}")
+        log(f"  topN + floatSum forced {force}: two runs, same float bits; "
+            f"fsum within 1e-5*sum|v| of numpy")
+    mm = mm_split(main_out["mm_inputs"])
+    out["mm_split_segment0"] = mm
+    log(f"  mm on segment 0's topN inputs (G={mm['G']}, {mm['rows']} rows, "
+        f"{mm['steps']} steps of up to {mm['step_rows']} rows): "
+        f"{mm['mm_reduce_ms']:.3f} ms; one-hot "
+        f"{mm['onehot_ms_per_step']:.3f} ms/step, int8 product "
+        f"{mm['product_ms_per_step']:.3f} ms/step block-diagonal "
+        f"({mm['slices']} slices), {mm['plain_product_ms_per_step']:.3f} "
+        f"ms/step plain (N = 8); at a 64 MiB one-hot "
+        f"{mm['mm_reduce_ms_budget_64MiB']:.3f} ms, 16 MiB "
+        f"{mm['mm_reduce_ms_budget_16MiB']:.3f} ms")
+    sr.LAUNCHES, mk.LAUNCHES = saved  # forced runs are not the main path
+    return out
+
+
+SORTED_SEGMENTS = 2                  # cut from 8 for time (reduced)
+
+
+def phase_sorted(dev):
+    """The headline schema in the rollup sort order (2 segments of 12.5M
+    rows): the headline groupBy must select windowed; rows against numpy;
+    cold and warm p50; windowed twice with a float sum (same bits); forced
+    projection (B1) as a cross-check."""
+    import torch
+    from druid_tpu_torch.engine import QueryExecutor
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    saved = (sr.LAUNCHES, mk.LAUNCHES)
+    t = time.perf_counter()
+    segments = headline_segments(SORTED_SEGMENTS, sort_by_dims=True)
+    gen_s = time.perf_counter() - t
+    ref = numpy_reference(segments)
+    q = queries(segments)["groupby"]
+    ex = QueryExecutor(segments, device=dev)
+    rows, slog, cold = run_forced(ex, q, None)
+    check_groupby(rows, ref)
+    log(f"  generated {SORTED_SEGMENTS} sorted segments of "
+        f"{ROWS // SEGMENTS} rows in {gen_s:.1f} s; groupBy strategy per "
+        f"segment {slog.strategies}")
+    if slog.names() != ["windowed"] * SORTED_SEGMENTS:
+        raise AssertionError(f"sorted groupBy ran {slog.strategies}, "
+                             f"expected windowed")
+    warm = []
+    for _ in range(5):
+        t = time.perf_counter()
+        again = ex.run_json(q)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t) * 1e3)
+    check_groupby(again, ref)
+    split = split_times(q, segments, dev)
+    st = same_bits_twice(ex, with_fsum(q), None, check_groupby, ref,
+                         SORTED_SEGMENTS)
+    if [s for s, _ in st] != ["windowed"] * SORTED_SEGMENTS:
+        raise AssertionError(f"sorted groupBy + fsum ran {st}")
+    proj, pslog, pcold = run_forced(ex, q, "projection", SORTED_SEGMENTS)
+    if pslog.names() != ["projection"] * SORTED_SEGMENTS:
+        raise AssertionError(f"forced projection ran {pslog.strategies}")
+    if json.dumps(proj) != json.dumps(rows):
+        raise AssertionError("sorted groupBy: projection rows differ from "
+                             "windowed rows")
+    psplit = timed_split(q, segments, dev, "projection")
+    sr.LAUNCHES, mk.LAUNCHES = saved  # not the main path
+    p50 = float(np.median(warm))
+    log(f"  sorted groupBy: windowed, W {sorted({w for _, w in slog.strategies})}"
+        f", ok; cold {cold:.2f} s, warm p50 {p50:.1f} ms, partials "
+        f"{split['partials_ms']:.1f} ms, merge+finish "
+        f"{split['finish_ms']:.1f} ms; windowed + floatSum twice: same "
+        f"float bits; forced projection (B1): same rows, first run "
+        f"{pcold:.2f} s, partials {psplit['partials_ms']:.1f} ms")
+    return {"rows": ROWS // SEGMENTS * SORTED_SEGMENTS, "gen_s": gen_s,
+            "strategies": slog.strategies, "cold_s": cold, "warm_ms": warm,
+            "p50_ms": p50, **split, "projection_cold_s": pcold,
+            "projection": psplit, "result_rows": len(rows)}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1143,11 +1565,19 @@ def main():
     inputs = {"B1": main_out.pop("b1_inputs"),
               "B2": main_out.pop("b2_inputs")}
     segments, qs = main_out.pop("segments"), main_out.pop("queries")
+    ref = main_out.pop("ref")
+    captured = {k: main_out.pop(k) for k in ("mm_inputs", "ts_inputs")}
     report["main"] = main_out
 
     log("phase packing off, 2 segments")
     report["packing_off"] = phase_packing_off(dev, segments, qs)
-    del segments
+
+    log("phase strategies, the 8 headline segments")
+    report["strategies"] = phase_strategies(dev, segments, qs, ref, captured)
+    del segments, captured, ref
+
+    log(f"phase sorted, {SORTED_SEGMENTS} segments in the rollup order")
+    report["sorted"] = phase_sorted(dev)
 
     entries = []
     for which, parity, check, name, source, replaces in (

@@ -246,6 +246,17 @@ class Segment:
             return (v.min().item(), v.max().item())
         return self.aux_cached(("minmax", name), _compute)
 
+    def column_finite(self, name: str) -> bool:
+        """Cached: True when a float column contains no NaN/Inf. Gates the
+        one-hot-matmul float path, where a single non-finite value would
+        poison every group (NaN·0 = NaN in the one-hot contraction)."""
+        def _compute():
+            m = self.metrics.get(name)
+            if m is None or not np.issubdtype(m.values.dtype, np.floating):
+                return True
+            return bool(np.isfinite(m.values).all())
+        return self.aux_cached(("finite", name), _compute)
+
     def staged_dtype(self, name: str):
         """Dtype a column stages as. LONG columns whose values fit int32
         stage narrow, as in the reference; the kernels restore exact 64-bit

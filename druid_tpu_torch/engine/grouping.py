@@ -10,17 +10,36 @@ mask = valid AND time in the query intervals AND filter; key = fused
 eagerly, so there is no program cache: each call runs the tensor ops on the
 segment's staged block.
 
-Reduction strategies (`select_strategy`):
+Reduction strategies (`select_strategy`, the reference's order and
+thresholds; `FORCE_STRATEGY` forces an eligible one):
+  * "blocked"  — G <= 64 (or <= BLOCKED_GROUP_LIMIT when mm is not
+    eligible), every aggregator blocked-eligible: a masked broadcast-reduce
+    over [G, rows] per step (`_blocked_reduce`).
+  * "mm"       — G <= 2048 (<= MM_GROUP_LIMIT after blocked), every
+    aggregator sum-decomposable: the one-hot matmul (engine/mmagg.py).
+  * "windowed" — a dense group space above BLOCKED_GROUP_LIMIT over a
+    segment whose 1024-row blocks each span fewer than W keys (the rollup
+    sort order; `windowed_window`, a host span check cached per segment):
+    each block reduces into a local [W] grid, and the grids combine into the
+    full grid (`_windowed_reduce`).
   * "projection" — under the reference's own conditions (a group space above
     MM_GROUP_LIMIT over a segment of at least PROJECTION_MIN_ROWS rows, every
-    aggregator blocked-eligible, the sorted-projection caps met): the segment
-    is sorted by compacted key once (`build_projection`, cached) and reduced
-    by kernel B1 (engine/sorted_reduce.py).
+    aggregator blocked-eligible): the segment is sorted by compacted key once
+    (`build_projection`, cached) and reduced by kernel B1
+    (engine/sorted_reduce.py) when its caps hold, else by "windowed" over
+    the sorted layout when the span allows, else by "mixed"
+    (`_projection_strategy`).
   * "megakernel" — "projection" when the filter's root or top-level AND
     conjuncts are fused bitmap nodes (engine/megakernel.py): the row mask
     goes to kernel B2 as words.
-  * "mixed" — torch scatter (`index_add_` / `scatter_reduce`) everywhere else.
+  * "mixed"    — everything else: with G <= BLOCKED_GROUP_LIMIT the
+    blocked-eligible aggregators (and the row counts) go through
+    `_blocked_reduce`, the rest through torch scatter (`index_add_` /
+    `scatter_reduce`); above it, all scatter.
 A CUDA tensor goes through the kernel or the call raises; nothing falls back.
+Every strategy gives the same counts, long sums and min/max bit for bit;
+float sums differ by summation order only. Only "mixed" uses float atomics
+(its scatters), so every other strategy repeats its float bits run to run.
 
 On the projection and megakernel strategies the value columns B1/B2 read
 stage as packed words where they fit (data/packed.py); every other column
@@ -34,7 +53,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -48,15 +67,27 @@ from druid_tpu_torch.engine.filters import (ConstNode, FilterNode,
                                             plan_filter, stage_device_bitmaps,
                                             time_mask)
 from druid_tpu_torch.engine.kernels import AggKernel, make_kernel
+from druid_tpu_torch.engine.mmagg import MM_GROUP_LIMIT, mm_reduce
 from druid_tpu_torch.utils.granularity import Granularity
 from druid_tpu_torch.utils.intervals import Interval
 
 DENSE_GROUP_LIMIT = 1 << 21  # max dense key space per (bucket x groups) grid
-MM_GROUP_LIMIT = 4096        # the reference's one-hot-matmul group cap
-WINDOW_BLOCK = 1024          # rows per block Projection.max_span measures
 #: below this many padded rows the one-time sort outweighs the kernel's win
 PROJECTION_MIN_ROWS = 1 << 20
-#: test override: "projection" (when every aggregator is eligible) or "mixed"
+BLOCKED_GROUP_LIMIT = 2048   # largest group space of the blocked reduction
+BLOCK_ROWS = 2048            # a blocked step's rows are a multiple of this
+WINDOW_BLOCK = 1024          # rows per local-window block (and per block
+                             # Projection.max_span measures)
+WINDOW_CHOICES = (128, 256, 512)
+#: elements of one step's [groups, rows] broadcast in the blocked and
+#: windowed reductions: the step's bool mask is this many bytes (1 GiB), its
+#: largest temporary (a masked int32/float32 copy of a value column) four
+#: times that. A 12.5M-row segment takes one step at G = 32, 12 at G = 1024
+#: and 7 windowed at W = 512.
+STEP_CELLS = 1 << 30
+#: measurement override: force an ELIGIBLE strategy ("mm", "blocked",
+#: "windowed", "projection" or "mixed"), as the reference's FORCE_STRATEGY
+#: does; an ineligible force falls through to normal selection
 FORCE_STRATEGY: Optional[str] = None
 
 
@@ -130,6 +161,23 @@ def _fused_raw_keys(segment: Segment, spec: GroupSpec) -> np.ndarray:
     return np.where(valid, key, -1)
 
 
+def _max_block_span(keys: np.ndarray, live: np.ndarray) -> int:
+    """The widest key range (hi - lo + 1) over the live rows of any
+    WINDOW_BLOCK-row block; 1 when no row is live."""
+    keys = keys.astype(np.int64, copy=False)
+    n = keys.shape[0]
+    big, small = np.iinfo(np.int64).max, np.iinfo(np.int64).min
+    npad = max(-(-n // WINDOW_BLOCK), 1) * WINDOW_BLOCK
+    lo = np.full(npad, big, dtype=np.int64)
+    hi = np.full(npad, small, dtype=np.int64)
+    lo[:n] = np.where(live, keys, big)
+    hi[:n] = np.where(live, keys, small)
+    lo = lo.reshape(-1, WINDOW_BLOCK).min(axis=1)
+    hi = hi.reshape(-1, WINDOW_BLOCK).max(axis=1)
+    some = lo <= hi
+    return int((hi[some] - lo[some] + 1).max()) if some.any() else 1
+
+
 @dataclass
 class Projection:
     """A sorted, key-compacted view of one segment for one key structure:
@@ -163,17 +211,9 @@ def build_projection(segment: Segment, intervals: Sequence[Interval],
             keys[n_invalid:] = np.cumsum(newgrp) - 1
         else:
             unique = np.zeros(0, dtype=np.int64)
-        big = np.iinfo(np.int32).max
-        npad = max(-(-n // WINDOW_BLOCK), 1) * WINDOW_BLOCK
-        kp = np.full(npad, big, dtype=np.int64)
-        kp[:n] = np.where(keys >= 0, keys.astype(np.int64), big)
-        lo = kp.reshape(-1, WINDOW_BLOCK).min(axis=1)
-        hi = np.where(kp == big, np.iinfo(np.int64).min, kp) \
-            .reshape(-1, WINDOW_BLOCK).max(axis=1)
-        span = np.maximum(hi - lo + 1, 1)
-        span = int(span[hi >= 0].max()) if (hi >= 0).any() else 1
         return Projection(order=order.astype(np.int32), keys=keys,
-                          unique=unique, max_span=span)
+                          unique=unique,
+                          max_span=_max_block_span(keys, keys >= 0))
 
     return segment.aux_cached(cache_key, _compute)
 
@@ -253,18 +293,230 @@ def make_group_spec(segment: Segment, intervals: Sequence[Interval],
     return spec
 
 
+def windowed_window(segment: Segment, intervals: Sequence[Interval],
+                    granularity: Granularity, spec: GroupSpec) -> int:
+    """Host-side eligibility for the windowed strategy: the smallest W in
+    WINDOW_CHOICES covering every WINDOW_BLOCK-row block's fused-key span, or
+    0. Spans are measured over all interval-valid rows; a query filter only
+    shrinks the row set, so it never widens a block's span. Cached per
+    (segment, key structure)."""
+    key = ("windowed_span", str(granularity),
+           tuple((iv.start, iv.end) for iv in intervals),
+           _dims_key(spec.dims))
+
+    def _compute():
+        n = segment.n_rows
+        if n == 0:
+            return 1
+        if spec.bucket_mode == "all":
+            b = np.zeros(n, dtype=np.int64)
+            ok = np.ones(n, dtype=bool)
+        elif spec.bucket_mode == "uniform":
+            b = (segment.time_ms - int(spec.bucket_starts[0])) \
+                // spec.uniform_period
+            ok = (b >= 0) & (b < spec.num_buckets)
+        else:
+            b = spec.host_bucket_ids[:n].astype(np.int64)
+            ok = b >= 0
+        k = b
+        for d in spec.dims:
+            if d.column is not None:
+                k = k * d.cardinality + segment.dims[d.column].ids
+        return _max_block_span(k, ok)
+
+    span = segment.aux_cached(key, _compute)
+    for w in WINDOW_CHOICES:
+        if span <= w:
+            return w
+    return 0
+
+
 def select_strategy(spec: GroupSpec, kernels: Sequence[AggKernel],
-                    col_dtypes: Dict, padded_rows: int) -> str:
-    """"projection" under the reference's conditions for it, else "mixed"."""
+                    col_dtypes: Dict, padded_rows: int,
+                    windowed_w: Union[int, Callable[[], int]]
+                    ) -> Tuple[str, int]:
+    """The reference's choice of reduction strategy for one (segment, query)
+    plan: (strategy, window). `col_dtypes` are the staged dtypes (never read
+    off tensors); `windowed_w` is W or 0, or a callable run only when the
+    windowed strategy is a candidate (the host span check)."""
+    num = spec.num_total
+    mm_ok = all(k.mm_plan(col_dtypes, padded_rows) is not None
+                for k in kernels)
     blocked_ok = all(k.blocked_supported(col_dtypes) for k in kernels)
-    if FORCE_STRATEGY == "mixed":
-        return "mixed"
-    if FORCE_STRATEGY == "projection" and blocked_ok:
-        return "projection"
-    if blocked_ok and spec.num_total > MM_GROUP_LIMIT \
+
+    def window() -> int:
+        return windowed_w() if callable(windowed_w) else windowed_w
+
+    f = FORCE_STRATEGY
+    if f == "mixed":
+        return "mixed", 0
+    if f == "mm" and mm_ok and num <= MM_GROUP_LIMIT:
+        return "mm", 0
+    if f == "blocked" and blocked_ok and num <= BLOCKED_GROUP_LIMIT:
+        return "blocked", 0
+    if f == "windowed" and blocked_ok:
+        w = window()
+        if w:
+            return "windowed", w
+    if f == "projection" and blocked_ok:
+        return "projection", 0
+    if blocked_ok and num <= 64:
+        return "blocked", 0      # near-streaming
+    if mm_ok and num <= 2048:
+        return "mm", 0
+    if num > BLOCKED_GROUP_LIMIT and blocked_ok and spec.key_mode == "dense":
+        w = window()
+        if w:
+            return "windowed", w
+    if blocked_ok and num <= BLOCKED_GROUP_LIMIT:
+        return "blocked", 0
+    if mm_ok and num <= MM_GROUP_LIMIT:
+        return "mm", 0
+    if blocked_ok and num > MM_GROUP_LIMIT \
             and padded_rows >= PROJECTION_MIN_ROWS:
-        return "projection"
-    return "mixed"
+        return "projection", 0
+    return "mixed", 0
+
+
+def _projection_strategy(proj: Projection, kernels: Sequence[AggKernel],
+                         col_dtypes: Dict, num_total: int) -> Tuple[str, int]:
+    """The reduction over the sorted compacted layout: kernel B1 when its
+    caps hold, else the windowed reduction when the span fits a window, else
+    scatter."""
+    span = proj.max_span
+    if sorted_reduce_mod.usable(kernels, col_dtypes, span, num_total):
+        return "projection", span
+    for w in WINDOW_CHOICES:
+        if span <= w:
+            return "windowed", w
+    return "mixed", 0
+
+
+def _step_rows(width: int, unit: int) -> int:
+    """Rows per step of a [width, rows] broadcast: the most whole `unit`s
+    within STEP_CELLS."""
+    return max(unit, STEP_CELLS // max(width, 1) // unit * unit)
+
+
+def _value_columns(arrays: Dict, kernels: Sequence[AggKernel]) -> Dict:
+    """The columns the kernels' blocked steps read (decoded)."""
+    fields = sorted({k.spec.field for k in kernels
+                     if getattr(k.spec, "field", None) in arrays})
+    return {f: arrays[f] for f in fields}
+
+
+def _blocked_reduce(arrays: Dict, mask: torch.Tensor, key: torch.Tensor,
+                    kernels: Sequence[AggKernel], num_total: int):
+    """Masked broadcast-reduce over steps of rows: per step the bool
+    [num_total, rows] matrix of (key == group AND mask), reduced over rows by
+    each kernel's blocked step. Returns (counts int64 [num_total], per-kernel
+    states) shaped like the scatter path's. No atomics: the bits repeat."""
+    cols = _value_columns(arrays, kernels)
+    dev = key.device
+    iota = torch.arange(num_total, dtype=key.dtype, device=dev)
+    counts = torch.zeros(num_total, dtype=torch.int64, device=dev)
+    states = [k.blocked_init(num_total, cols, dev) for k in kernels]
+    step = _step_rows(num_total, BLOCK_ROWS)
+    for s in range(0, mask.shape[0], step):
+        valid = (iota[:, None] == key[None, s:s + step]) \
+            & mask[None, s:s + step]
+        counts += torch.count_nonzero(valid, dim=-1)
+        cb = {f: c[s:s + step] for f, c in cols.items()}
+        states = [k.blocked_step(st, cb, valid, num_total)
+                  for k, st in zip(kernels, states)]
+    return counts, tuple(k.blocked_finish(st)
+                         for k, st in zip(kernels, states))
+
+
+def _combine_grids(flat: torch.Tensor, flat_keys: torch.Tensor,
+                   num_total: int, kind: str, ident, runs) -> torch.Tensor:
+    """Reduce per-block grid slots into the [num_total] grid. Integers go
+    through integer scatters (order-free, so exact and repeatable); floats
+    through a segmented reduction over `runs` = (the slots' stable sort
+    order by key, each run's key, its length), so in block order with no
+    float atomics, with NaN carried explicitly for min/max."""
+    if not flat.dtype.is_floating_point:
+        if kind == "sum":
+            return torch.zeros(num_total, dtype=flat.dtype,
+                               device=flat.device) \
+                .index_add_(0, flat_keys, flat)
+        out = torch.full((num_total,), ident, dtype=flat.dtype,
+                         device=flat.device)
+        return out.scatter_reduce_(0, flat_keys, flat,
+                                   "amax" if kind == "max" else "amin")
+    order, uniq, lengths = runs
+    v = flat[order]
+    if kind == "sum":
+        red = torch.segment_reduce(v, "sum", lengths=lengths)
+    else:
+        nan = torch.isnan(v)
+        red = torch.segment_reduce(torch.where(nan, ident, v), kind,
+                                   lengths=lengths)
+        has_nan = torch.segment_reduce(nan.to(v.dtype), "max",
+                                       lengths=lengths) > 0
+        red = torch.where(has_nan, float("nan"), red)
+    out = torch.full((num_total,), 0.0 if kind == "sum" else ident,
+                     dtype=flat.dtype, device=flat.device)
+    out[uniq] = red
+    return out
+
+
+def _windowed_reduce(arrays: Dict, mask: torch.Tensor, key: torch.Tensor,
+                     kernels: Sequence[AggKernel], num_total: int, W: int):
+    """Big-G reduction for segments whose rows are clustered by key: each
+    WINDOW_BLOCK-row block's live keys span fewer than W, so the block
+    reduces into a local [W] grid based at its least live key (L1, the
+    kernels' blocked steps over [blocks, W, WINDOW_BLOCK]), and the
+    #blocks x W grid slots combine into the [num_total] grid (L2,
+    `_combine_grids`). Returns (counts int64, per-kernel states)."""
+    cols = _value_columns(arrays, kernels)
+    n = mask.shape[0]
+    dev = key.device
+    nb = max(1, -(-n // WINDOW_BLOCK))
+    pad = nb * WINDOW_BLOCK - n
+
+    def blocks(t: torch.Tensor) -> torch.Tensor:
+        if pad:
+            t = torch.nn.functional.pad(t, (0, pad))
+        return t.view(nb, WINDOW_BLOCK)
+
+    keyb, maskb = blocks(key), blocks(mask)
+    colsb = {f: blocks(c) for f, c in cols.items()}
+    iota = torch.arange(W, dtype=key.dtype, device=dev)
+    big = torch.iinfo(key.dtype).max
+    inits = [k.blocked_init(W, cols, dev) for k in kernels]
+    bases, cnts, grids = [], [], [[] for _ in kernels]
+    step = _step_rows(W, WINDOW_BLOCK) // WINDOW_BLOCK
+    for b in range(0, nb, step):
+        kb, mb = keyb[b:b + step], maskb[b:b + step]
+        base = torch.where(mb, kb, big).amin(1)
+        base = torch.where(base == big, 0, base)     # fully masked block
+        valid = (iota[None, :, None] == (kb - base[:, None])[:, None, :]) \
+            & mb[:, None, :]                           # [blocks, W, rows]
+        bases.append(base)
+        cnts.append(torch.count_nonzero(valid, dim=-1))
+        cb = {f: c[b:b + step] for f, c in colsb.items()}
+        for i, (k, i0) in enumerate(zip(kernels, inits)):
+            g = k.blocked_step(i0, cb, valid, W)
+            grids[i].append(g.expand(kb.shape[0], W))
+    # slots past num_total hold identities (keys were clamped), so clamping
+    # their targets cannot touch a real group
+    flat_keys = (torch.cat(bases)[:, None] + iota[None, :]) \
+        .clamp(0, num_total - 1).reshape(-1)
+    flats = [torch.cat(g).reshape(-1) for g in grids]
+    runs = None
+    if any(f.dtype.is_floating_point for f in flats):
+        order = torch.argsort(flat_keys, stable=True)
+        runs = (order,) + tuple(torch.unique_consecutive(
+            flat_keys[order], return_counts=True))
+    counts = _combine_grids(torch.cat(cnts).reshape(-1), flat_keys,
+                            num_total, "sum", 0, runs)
+    states = []
+    for k, flat in zip(kernels, flats):
+        ident = 0 if k.reduce_kind == "sum" else k.ident_for(flat.dtype)
+        states.append(k.blocked_finish(_combine_grids(
+            flat, flat_keys, num_total, k.reduce_kind, ident, runs)))
+    return counts, tuple(states)
 
 
 def fuse_filter_update(arrays: Dict[str, torch.Tensor], mask: torch.Tensor,
@@ -274,10 +526,11 @@ def fuse_filter_update(arrays: Dict[str, torch.Tensor], mask: torch.Tensor,
                        strategy: str = "mixed", span: int = 0,
                        packed_cols: Optional[Dict] = None):
     """Fuse dimension ids into the key, apply the filter mask, and run every
-    kernel's reduction by the strategy. `arrays` is the dense view (a dict
-    or a cascade.DecodedView); `packed_cols` are the packed columns that
-    kernels B1/B2 read as words. Returns (counts, per-kernel states) as
-    device tensors."""
+    kernel's reduction by the strategy (`span` is B1/B2's projection span or
+    the windowed strategy's W). `arrays` is the dense view (a dict or a
+    cascade.DecodedView); `packed_cols` are the packed columns that kernels
+    B1/B2 read as words. Returns (counts, per-kernel states) as device
+    tensors."""
     key = key.to(torch.int64)
     for d in dims:
         if d.column is not None:
@@ -300,10 +553,36 @@ def fuse_filter_update(arrays: Dict[str, torch.Tensor], mask: torch.Tensor,
         return sorted_reduce_mod.sorted_reduce(
             arrays, mask, key.to(torch.int32), kernels, num_total, span,
             packed_cols=packed_cols)
-    counts = torch.zeros(num_total, dtype=torch.int64, device=key.device) \
-        .index_add_(0, key, mask.to(torch.int64))
-    return counts, tuple(k.update(arrays, mask, key, num_total)
-                         for k in kernels)
+    if strategy == "mm":
+        col_dtypes = cascade_mod.column_dtypes(arrays)
+        plans = [k.mm_plan(col_dtypes, mask.shape[0]) for k in kernels]
+        missing = [k.name for k, p in zip(kernels, plans) if p is None]
+        if missing:
+            raise RuntimeError(f"mm strategy selected but {missing} have no "
+                               f"mm plan at run time")
+        return mm_reduce(arrays, mask, key, kernels, plans, num_total)
+    if strategy == "windowed":
+        return _windowed_reduce(arrays, mask, key, kernels, num_total, span)
+
+    # blocked, and the reference's mixed hybrid: blocked-eligible kernels
+    # (and the row counts) through the blocked reduction, the rest scatter
+    blocked_idx = []
+    if strategy in ("blocked", "mixed") and num_total <= BLOCKED_GROUP_LIMIT:
+        col_dtypes = cascade_mod.column_dtypes(arrays)
+        blocked_idx = [i for i, k in enumerate(kernels)
+                       if k.blocked_supported(col_dtypes)]
+    blocked_states = {}
+    if blocked_idx:
+        counts, bstates = _blocked_reduce(
+            arrays, mask, key, [kernels[i] for i in blocked_idx], num_total)
+        blocked_states = dict(zip(blocked_idx, bstates))
+    else:
+        counts = torch.zeros(num_total, dtype=torch.int64,
+                             device=key.device) \
+            .index_add_(0, key, mask.to(torch.int64))
+    return counts, tuple(blocked_states[i] if i in blocked_states
+                         else k.update(arrays, mask, key, num_total)
+                         for i, k in enumerate(kernels))
 
 
 def _pad_device(segment: Segment, cache_key: Tuple, arr: np.ndarray,
@@ -315,6 +594,22 @@ def _pad_device(segment: Segment, cache_key: Tuple, arr: np.ndarray,
         return torch.from_numpy(out).to(device)
     return segment.device_cached(("devpad", cache_key, padded, fill,
                                   str(device)), _build)
+
+
+def staged_col_dtypes(segment: Segment, spec: GroupSpec,
+                      needed) -> Dict[str, np.dtype]:
+    """{column: dtype} of what a block for `needed` stages, and of the
+    derived key columns, as the reference's planner lists them: read from
+    the segment (`staged_dtype`), never off a tensor, which would decode a
+    packed column."""
+    col_dtypes = {"__time_offset": np.dtype(np.int32),
+                  "__valid": np.dtype(bool)}
+    col_dtypes.update({c: segment.staged_dtype(c) for c in needed})
+    if spec.key_mode == "host":
+        col_dtypes["__key"] = np.dtype(np.int32)
+    elif spec.bucket_mode == "host":
+        col_dtypes["__bucket"] = np.dtype(np.int32)
+    return col_dtypes
 
 
 def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
@@ -349,8 +644,10 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
         needed |= {d.column for d in spec.dims if d.column is not None}
 
     padded_rows = segment.padded_rows()
-    col_dtypes = {c: segment.staged_dtype(c) for c in needed}
-    spec.strategy = select_strategy(spec, kernels, col_dtypes, padded_rows)
+    col_dtypes = staged_col_dtypes(segment, spec, needed)
+    spec.strategy, spec.window = select_strategy(
+        spec, kernels, col_dtypes, padded_rows,
+        lambda: windowed_window(segment, intervals, granularity, spec))
 
     perm, perm_key, words = None, None, ()
     if spec.strategy == "projection":
@@ -365,14 +662,12 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
                     _dims_key(spec.dims))
         spec.host_keys_cache = perm_key
         needed = base_needed  # key prefused: dim columns stay on the host
-        col_dtypes = {c: segment.staged_dtype(c) for c in needed}
-        if sorted_reduce_mod.usable(kernels, col_dtypes, proj.max_span,
-                                    spec.num_total):
-            spec.window = proj.max_span
+        col_dtypes = staged_col_dtypes(segment, spec, needed)
+        spec.strategy, spec.window = _projection_strategy(
+            proj, kernels, col_dtypes, spec.num_total)
+        if spec.strategy == "projection":
             # B1 (or B2) reads these as words where they pack
             words = sorted_reduce_mod.value_fields(kernels, col_dtypes)
-        else:
-            spec.strategy = "mixed"
 
     # bitmap subtrees whose combined words are not cached fuse into the
     # aggregation (engine/megakernel.py); cached ones keep the bit test

@@ -8,9 +8,9 @@ device bitmaps and the megakernel on (both packages' defaults):
     takes its "megakernel" strategy and the port runs kernel B2's plain
     version; rows agree under the B1 rule (counts, long sums, min/max exact,
     float sums within 1e-5 * sum|v| per group);
-  * a dozen random filter trees on a timeseries (mixed strategy, the mega
-    nodes expand to bools): rows agree exactly, and the count equals the
-    reference's numpy host-mask count.
+  * a dozen random filter trees on a timeseries (the blocked strategy in
+    both packages, the mega nodes expand to bools): rows agree exactly, and
+    the count equals the reference's numpy host-mask count.
 The port against itself: the fused path, the staged path (megakernel off)
 and the row path (device bitmaps off) give the same rows, floats included.
 """
@@ -194,7 +194,7 @@ def test_filter_only_dimension_is_not_staged(proj_segs):
 
 
 # ---------------------------------------------------------------------------
-# random filter trees on a timeseries (mixed strategy)
+# random filter trees on a timeseries (blocked strategy)
 # ---------------------------------------------------------------------------
 
 TREE_SCHEMA = (        # tests/test_megakernel.py
