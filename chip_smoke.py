@@ -58,7 +58,20 @@ Phases, each fatal on failure:
      windowed (W printed), rows against numpy, cold and warm p50; windowed
      twice with a floatSum (the same float bits); forced projection (B1)
      gives the same rows;
- 10. B1 and B2 against their plain versions on the inputs the main path gave
+ 10. run domain: the headline schema in the rollup order (8 segments of
+     12.5M rows) with a constant LONG `cnt`, and 2 of them re-ordered by
+     (hour, dimA, dimB): a timeseries (all, `in` dimA), a topN on dimA, an
+     hourly groupBy on dimA over the hour-ordered segments, all served in
+     run space (code-domain aggregation, engine/rundomain.py) on every
+     segment with B1/B2 launched 0 times, and the count-only groupBy on
+     dimA x dimB, whose joint run count (printed, against numpy) decides
+     its path; each against numpy and against the row program
+     (`cascade.set_run_domain_enabled(False)`), which must not stage `cnt`,
+     with cold, warm p50 and split times and the bytes each path staged;
+     the filtered groupBy's bitmap leaves from run tables (staged fill and
+     fused) equal the row-built words on the card, and its rows equal
+     numpy with the megakernel on and off;
+ 11. B1 and B2 against their plain versions on the inputs the main path gave
      them (the first segment's), then timed there with CUDA events beside
      their HBM bound, their plain version and a library yardstick
      (index_add_/scatter_reduce over the same keys, B2's with the word
@@ -1519,6 +1532,324 @@ def phase_sorted(dev):
             "projection": psplit, "result_rows": len(rows)}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: code-domain aggregation over run tables
+# ---------------------------------------------------------------------------
+
+RUN_SEGMENTS = 8
+HOUR_SEGMENTS = 2                    # the hour-ordered shape: 2 of the 8
+
+
+class PartialLog:
+    """Records, while active, each segment partial's strategy
+    (`engines.run_grouped_aggregate`): "runDomain" for a segment served in
+    run space, which never reaches `fuse_filter_update`; and, for those,
+    the segment and the run partition its tables are cached under."""
+
+    def __enter__(self):
+        from druid_tpu_torch.engine import engines
+        self.mod, self.orig = engines, engines.run_grouped_aggregate
+        self.strategies, self.run_tables = [], []
+        orig = self.orig
+
+        def run(*a, **k):
+            p = orig(*a, **k)
+            self.strategies.append(p.spec.strategy)
+            plan = (p.spec._cascade_run_plan or (None,))[0]
+            if plan is not None:
+                self.run_tables.append((p.segment, (plan[2], plan[3])))
+            return p
+        engines.run_grouped_aggregate = run
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.run_grouped_aggregate = self.orig
+
+
+def rundomain_segments():
+    """The headline schema in the rollup order (RUN_SEGMENTS segments of
+    ROWS // SEGMENTS rows, seed SEED) with a LONG column `cnt` of ones (a
+    count metric before rollup), and HOUR_SEGMENTS of them re-ordered by
+    (hour bucket, dimA, dimB), the order rollup at queryGranularity hour
+    writes."""
+    from druid_tpu_torch.data.segment import (NumericColumn, Segment,
+                                              StringDimColumn, ValueType)
+    segs = headline_segments(RUN_SEGMENTS, sort_by_dims=True)
+    for s in segs:
+        s.metrics["cnt"] = NumericColumn(np.ones(s.n_rows, dtype=np.int64),
+                                         ValueType.LONG)
+    t0 = segs[0].interval.start
+    hourly = []
+    for s in segs[:HOUR_SEGMENTS]:
+        o = np.lexsort((s.dims["dimB"].ids, s.dims["dimA"].ids,
+                        (s.time_ms - t0) // 3_600_000))
+        hourly.append(Segment(
+            s.id, s.time_ms[o],
+            {n: StringDimColumn(c.ids[o], c.dictionary)
+             for n, c in s.dims.items()},
+            {n: NumericColumn(m.values[o], m.type)
+             for n, m in s.metrics.items()}))
+    return segs, hourly
+
+
+def rundomain_queries(segments):
+    iv = f"{DAY[0]}/{DAY[1]}"
+    dim_a = list(segments[0].dims["dimA"].dictionary.values)
+    aggs = [{"type": "count", "name": "rows"},
+            {"type": "longSum", "name": "c", "fieldName": "cnt"}]
+    return {
+        "timeseries_all": {
+            "queryType": "timeseries", "dataSource": "bench",
+            "intervals": [iv], "granularity": "all", "aggregations": aggs,
+            "filter": {"type": "in", "dimension": "dimA",
+                       "values": dim_a[0:100:2]}},
+        "topn_dima": {
+            "queryType": "topN", "dataSource": "bench", "intervals": [iv],
+            "granularity": "all", "dimension": "dimA", "metric": "rows",
+            "threshold": 10, "aggregations": aggs},
+        "groupby_hourly": {
+            "queryType": "groupBy", "dataSource": "bench", "intervals": [iv],
+            "granularity": "hour", "dimensions": ["dimA"],
+            "aggregations": aggs},
+        "groupby_ab_count": {
+            "queryType": "groupBy", "dataSource": "bench", "intervals": [iv],
+            "granularity": "all", "dimensions": ["dimA", "dimB"],
+            "aggregations": aggs[:1]}}
+
+
+def rundomain_reference(segments, hourly):
+    """numpy: rows per dimA, per (dimA, dimB), and per (hour, dimA) over the
+    hour-ordered segments."""
+    t0 = segments[0].interval.start
+    a_cnt = np.zeros(100, np.int64)
+    ab = np.zeros(100 * 1000, np.int64)
+    for s in segments:
+        a = s.dims["dimA"].ids.astype(np.int64)
+        a_cnt += np.bincount(a, minlength=100)
+        ab += np.bincount(a * 1000 + s.dims["dimB"].ids, minlength=100_000)
+    ha = np.zeros(24 * 100, np.int64)
+    for s in hourly:
+        h = (s.time_ms - t0) // 3_600_000
+        ha += np.bincount(h * 100 + s.dims["dimA"].ids, minlength=2400)
+    return {"a_cnt": a_cnt, "ab": ab, "ha": ha, "t0": t0}
+
+
+def check_rundomain(name, rows, ref):
+    if name == "timeseries_all":
+        want = int(ref["a_cnt"][0::2].sum())
+        if len(rows) != 1 or (rows[0]["result"]["rows"],
+                              rows[0]["result"]["c"]) != (want, want):
+            raise AssertionError(f"{name}: {rows} != {want}")
+    elif name == "topn_dima":
+        order = np.argsort(-ref["a_cnt"], kind="stable")[:10]
+        got = [(int(x["dimA"][1:]), x["rows"], x["c"])
+               for x in rows[0]["result"]]
+        want = [(int(a), int(ref["a_cnt"][a]), int(ref["a_cnt"][a]))
+                for a in order]
+        if got != want:
+            raise AssertionError(f"{name}: {got} != numpy {want}")
+    elif name == "groupby_hourly":
+        live = np.flatnonzero(ref["ha"])
+        got = sorted(((r["timestamp"] - ref["t0"]) // 3_600_000 * 100
+                      + int(r["event"]["dimA"][1:]), r["event"]["rows"],
+                      r["event"]["c"]) for r in rows)
+        want = [(int(g), int(ref["ha"][g]), int(ref["ha"][g]))
+                for g in live]
+        if got != want:
+            raise AssertionError(f"{name}: rows differ from numpy")
+    else:
+        live = np.flatnonzero(ref["ab"])
+        got = sorted((int(r["event"]["dimA"][1:]) * 1000
+                      + int(r["event"]["dimB"][1:]), r["event"]["rows"])
+                     for r in rows)
+        if got != [(int(g), int(ref["ab"][g])) for g in live]:
+            raise AssertionError(f"{name}: rows differ from numpy")
+
+
+def joint_runs(seg, cols):
+    """numpy: the run count of the joint partition over `cols`."""
+    change = np.zeros(seg.n_rows - 1, dtype=bool)
+    for c in cols:
+        v = seg.dims[c].ids
+        change |= v[1:] != v[:-1]
+    return 1 + int(np.count_nonzero(change))
+
+
+def run_table_mb(run_tables):
+    """MB (min, max) over segments of the run tables a query read: the
+    entries cached under its run partition."""
+    mb = [sum(int(v.nbytes) for k, v in seg._device_cache.items()
+              if k[0] == "rundom" and k[1] == part) / 1e6
+          for seg, part in run_tables]
+    return [min(mb), max(mb)] if mb else None
+
+
+def run_query_path(ex, name, q, segments, dev, ref):
+    """One query's cold run, 5 warm runs and split_times on the current
+    path: rows checked against numpy each time; strategies per segment,
+    code-domain hits, blocks staged and B1/B2 launches recorded."""
+    import torch
+    from druid_tpu_torch.data import cascade
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    stats = cascade.code_domain_stats()
+    h0, l0 = stats.snapshot()["hits"], (sr.LAUNCHES, mk.LAUNCHES)
+    t = time.perf_counter()
+    with PartialLog() as plog, BlockLog() as blog:
+        rows = ex.run_json(q)
+        torch.cuda.synchronize()
+    cold = time.perf_counter() - t
+    hits = stats.snapshot()["hits"] - h0
+    launches = (sr.LAUNCHES - l0[0], mk.LAUNCHES - l0[1])
+    check_rundomain(name, rows, ref)
+    warm = []
+    for _ in range(5):
+        t = time.perf_counter()
+        rows = ex.run_json(q)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t) * 1e3)
+    check_rundomain(name, rows, ref)
+    blocks = blog.summary()
+    return {"strategies": plog.strategies, "code_domain_hits": hits,
+            "run_table_mb": run_table_mb(plog.run_tables),
+            "b1_b2_launches": launches, "cold_s": cold, "warm_ms": warm,
+            "p50_ms": float(np.median(warm)),
+            "block_mb": blocks.get("resident_mb"),
+            "block": blocks.get("encodings"),
+            "rows": json.dumps(rows), **split_times(q, segments, dev)}
+
+
+def check_run_leaves(segments, q, dev):
+    """The filtered groupBy's bitmap leaves on the card, per segment: the
+    staged fill's run-table words and the run-built mega leaves equal the
+    row-built words bit for bit, and so do the combined words."""
+    import torch
+    from druid_tpu_torch.engine import filters as F
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.query.filters import filter_from_json
+    out = []
+    for seg in segments:
+        padded = seg.padded_rows()
+        kinds = []
+        for node in F.collect_bitmap_nodes(F.plan_filter(
+                filter_from_json(q["filter"]), seg, device_bitmap=True)):
+            for dim, lut in node.leaves:
+                row = F.leaf_words(seg, dim, lut, padded, dev)
+                payload = F._run_leaf_payload(seg, dim, lut, padded)
+                if payload is not None:
+                    staged = F.runs_leaf_words(
+                        torch.from_numpy(payload).to(dev), padded)
+                    if not torch.equal(staged, row):
+                        raise AssertionError(f"{dim}: run-leaf words differ")
+                mega = mk.mega_leaf_words(seg, dim, lut, padded, dev)
+                if not torch.equal(mega, row):
+                    raise AssertionError(f"{dim}: mega leaf words differ")
+                kinds.append((dim, "runs" if payload is not None else "rows",
+                              mega is not row))
+            filled = F._fill_single(seg, node, padded, dev)
+            rows_built = F.structure_words(node.structure, [
+                F.leaf_words(seg, d, lut, padded, dev)
+                for d, lut in node.leaves].__getitem__)
+            if not torch.equal(filled, rows_built):
+                raise AssertionError("combined words differ")
+        if not any(k == "runs" for _, k, _ in kinds):
+            raise AssertionError(f"no leaf staged from run tables: {kinds}")
+        out.append(kinds)
+    return out
+
+
+def phase_rundomain(dev):
+    """Code-domain aggregation at full width: the queries over run tables
+    where the rule holds, against numpy and against the row program; the
+    run-table filter leaves against the row-built words."""
+    import torch
+    from druid_tpu_torch.data import cascade
+    from druid_tpu_torch.engine import QueryExecutor
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine import rundomain
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    saved = (sr.LAUNCHES, mk.LAUNCHES)
+    t = time.perf_counter()
+    segments, hourly = rundomain_segments()
+    gen_s = time.perf_counter() - t
+    ref = rundomain_reference(segments, hourly)
+    qs = rundomain_queries(segments)
+    ab_runs = [joint_runs(s, ("dimA", "dimB")) for s in segments]
+    log(f"  generated {RUN_SEGMENTS} rollup-order segments of "
+        f"{ROWS // SEGMENTS} rows (+ {HOUR_SEGMENTS} hour-ordered) in "
+        f"{gen_s:.1f} s; joint (dimA, dimB) runs per segment {ab_runs}")
+    out = {"gen_s": gen_s, "ab_joint_runs": ab_runs}
+    for name, q in qs.items():
+        segs = hourly if name == "groupby_hourly" else segments
+        if name == "groupby_ab_count":
+            expect = ["runDomain" if nr <= rundomain.CASCADE_MAX_RUNS and
+                      nr * cascade.RUN_DOMAIN_MIN_ROWS_PER_RUN <= s.n_rows
+                      else None for nr, s in zip(ab_runs, segs)]
+        else:
+            expect = ["runDomain"] * len(segs)
+        ex = QueryExecutor(segs, device=dev)
+        on = run_query_path(ex, name, q, segs, dev, ref)
+        if name == "groupby_ab_count":
+            planned = [rundomain.joint_partition(s, ("dimA", "dimB"))[2]
+                       for s in segs]
+            if planned != ab_runs:
+                raise AssertionError(f"{name}: the planner's joint runs "
+                                     f"{planned} != numpy {ab_runs}")
+        got = [st if st == "runDomain" else None for st in on["strategies"]]
+        if got != expect or on["code_domain_hits"] != expect.count(
+                "runDomain"):
+            raise AssertionError(f"{name}: paths {on['strategies']} "
+                                 f"({on['code_domain_hits']} hits), "
+                                 f"expected {expect}")
+        if "runDomain" in expect and on["b1_b2_launches"] != (0, 0):
+            raise AssertionError(f"{name}: run domain launched (B1, B2) "
+                                 f"{on['b1_b2_launches']}")
+        prev = cascade.set_run_domain_enabled(False)
+        try:
+            off = run_query_path(ex, name, q, segs, dev, ref)
+        finally:
+            cascade.set_run_domain_enabled(prev)
+        if "runDomain" in off["strategies"] or off["code_domain_hits"]:
+            raise AssertionError(f"{name}: run domain off still ran it")
+        if off["rows"] != on["rows"]:
+            raise AssertionError(f"{name}: row program rows differ")
+        if "cnt" in (off["block"] or {}):
+            raise AssertionError(f"{name}: the constant cnt was staged")
+        del on["rows"], off["rows"]
+        out[name] = {"run_domain": on, "row_program": off}
+        log(f"  {name}: on {len(segs)} segments, paths {on['strategies']}; "
+            f"run tables {on['run_table_mb']} MB/segment, block "
+            f"{on['block_mb']} MB/segment; cold "
+            f"{on['cold_s']:.3f} s, warm p50 {on['p50_ms']:.2f} ms, "
+            f"partials {on['partials_ms']:.2f} ms, merge+finish "
+            f"{on['finish_ms']:.2f} ms. Row program: "
+            f"{sorted(set(off['strategies']))}, block "
+            f"{off['block_mb']} MB/segment {off['block']}; cold "
+            f"{off['cold_s']:.3f} s, warm p50 {off['p50_ms']:.2f} ms, "
+            f"partials {off['partials_ms']:.2f} ms, merge+finish "
+            f"{off['finish_ms']:.2f} ms; same rows")
+    # the filtered groupBy's bitmap leaves from run tables: words equal on
+    # the card, and the query through them (staged fill, then fused) holds
+    # against numpy
+    sub = segments[:SORTED_SEGMENTS]
+    fq = queries(sub)["groupby_filtered"]
+    leaves = check_run_leaves(sub, fq, dev)
+    fref = numpy_reference(sub)
+    for mega in (True, False):    # fused first: staged words would be kept
+        prev = mk.set_enabled(mega)
+        try:
+            check_filtered(QueryExecutor(sub, device=dev).run_json(fq), fref)
+        finally:
+            mk.set_enabled(prev)
+    out["filter_leaves"] = leaves
+    log(f"  filtered groupBy leaves on {len(sub)} segments (dim, staged "
+        f"form, mega leaf run-built): {leaves[0]}; run-table and run-built "
+        f"words = row-built words; rows = numpy with megakernel off and on")
+    sr.LAUNCHES, mk.LAUNCHES = saved  # not the B1/B2 main path
+    torch.cuda.synchronize()
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1578,6 +1909,9 @@ def main():
 
     log(f"phase sorted, {SORTED_SEGMENTS} segments in the rollup order")
     report["sorted"] = phase_sorted(dev)
+
+    log(f"phase run domain, {RUN_SEGMENTS} segments in the rollup order")
+    report["run_domain"] = phase_rundomain(dev)
 
     entries = []
     for which, parity, check, name, source, replaces in (

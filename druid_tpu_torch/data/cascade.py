@@ -19,8 +19,14 @@ only the value columns kernels B1/B2 read as words.
 it, so a column only B1/B2 read is never decoded. `decode_stats` counts the
 decodes that ran (one per column per query).
 
+The host run tables (`rle_encode`, `column_run_info`, cached on the
+segment) feed code-domain aggregation (engine/rundomain.py) and the run-table
+filter leaves (engine/filters.py, engine/megakernel.py); `code_domain_stats`
+counts the segments served in run space. `set_run_domain_enabled(False)`
+pins the row program.
+
 Not here yet: the LZ4 rung (`_plan_lz4` plans nothing, so float columns
-stage decoded) and the code-domain (run-space) aggregation.
+stage decoded).
 """
 from __future__ import annotations
 
@@ -39,6 +45,26 @@ from druid_tpu_torch.engine.contracts import CASCADE_MAX_RUNS
 RLE_MIN_WIN = 2
 #: widest FOR or delta encoding of `__time_offset`
 TIME_MAX_WIDTH = 8
+#: code-domain aggregation needs at least this many rows per joint run on
+#: average: below it the row program is already cheap
+RUN_DOMAIN_MIN_ROWS_PER_RUN = 16
+
+_RUN_DOMAIN = True
+_STATE_LOCK = threading.Lock()
+
+
+def set_run_domain_enabled(on: bool) -> bool:
+    """Turn code-domain aggregation on or off for the process (on by
+    default); returns the previous value. Off pins the row program."""
+    global _RUN_DOMAIN
+    with _STATE_LOCK:
+        prev = _RUN_DOMAIN
+        _RUN_DOMAIN = bool(on)
+        return prev
+
+
+def run_domain_enabled() -> bool:
+    return _RUN_DOMAIN
 
 
 def pad_pow2(n: int, floor: int = 8) -> int:
@@ -90,6 +116,44 @@ def column_run_count(segment, name: str) -> int:
             return 0
         return 1 + int(np.count_nonzero(v[1:] != v[:-1]))
     return segment.aux_cached(("cascade_runs", name), _compute)
+
+
+def rle_encode(values: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(run values as int32, exclusive run ends as int32: the start of the
+    next run, the last one the row count) of a raw 1-D column."""
+    v = np.asarray(values)
+    if v.shape[0] == 0:
+        return np.zeros(0, dtype=np.int32), np.zeros(0, dtype=np.int32)
+    b = np.empty(v.shape[0], dtype=bool)
+    b[0] = True
+    np.not_equal(v[1:], v[:-1], out=b[1:])
+    starts = np.flatnonzero(b)
+    ends = np.concatenate([starts[1:], [v.shape[0]]]).astype(np.int32)
+    return v[starts].astype(np.int32), ends
+
+
+def _rle_encoded(segment, name: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Cached `rle_encode` of a column's raw values."""
+    return segment.aux_cached(("cascade_rleenc", name),
+                              lambda: rle_encode(_raw(segment, name)))
+
+
+def column_run_info(segment, name: str, max_runs: Optional[int] = None
+                    ) -> Optional[Tuple[np.ndarray, np.ndarray, int]]:
+    """(run values, exclusive run ends, run count) of a dimension or metric
+    whose run count is within `max_runs` (by default n_rows // 8), never
+    above CASCADE_MAX_RUNS; else None."""
+    if name not in segment.dims and name not in segment.metrics:
+        return None
+    nr = column_run_count(segment, name)
+    if nr == 0:
+        return None
+    limit = min(max(segment.n_rows // 8, 1) if max_runs is None
+                else max_runs, CASCADE_MAX_RUNS)
+    if nr > limit:
+        return None
+    values, ends = _rle_encoded(segment, name)
+    return values, ends, nr
 
 
 def _time_stats(segment) -> Tuple[int, int, int]:
@@ -260,3 +324,33 @@ def split_resident(arrays: Dict) -> Tuple[Dict, DecodedView]:
     packed_cols = {k: v for k, v in arrays.items()
                    if isinstance(v, packed_mod.PackedColumn)}
     return packed_cols, DecodedView(arrays)
+
+
+# ---------------------------------------------------------------------------
+# Code-domain counters
+# ---------------------------------------------------------------------------
+
+class CodeDomainStats:
+    """hits = segment executions served in run space; rows = the rows those
+    executions covered."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.rows = 0
+
+    def record(self, rows: int) -> None:
+        with self._lock:
+            self.hits += 1
+            self.rows += int(rows)
+
+    def snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return {"hits": self.hits, "rows": self.rows}
+
+
+_CODE_STATS = CodeDomainStats()
+
+
+def code_domain_stats() -> CodeDomainStats:
+    return _CODE_STATS

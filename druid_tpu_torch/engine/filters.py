@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from druid_tpu_torch.data import cascade
 from druid_tpu_torch.data.dictionary import Dictionary
 from druid_tpu_torch.data.segment import Segment, ValueType
 from druid_tpu_torch.query import filters as F
@@ -295,7 +296,7 @@ def bitmap_pool_key(node: DeviceBitmapNode, padded_rows: int,
             perm_dig, str(device))
 
 
-def _leaf_digest(lut: np.ndarray) -> str:
+def leaf_digest(lut: np.ndarray) -> str:
     return hashlib.sha1(lut.tobytes()).hexdigest()[:16]
 
 
@@ -631,19 +632,70 @@ def leaf_words(segment: Segment, dim: str, lut: np.ndarray, padded_rows: int,
     """A leaf's row bitmap as int32 words [padded_rows / 32] on `device`,
     cached on the segment per (dim, LUT, rows, permutation, device). The
     one staging of leaf bits: the staged fill and the fused path
-    (megakernel.stage_mega_leaves) both read it."""
-    key = ("leafwords", dim, _leaf_digest(lut), padded_rows,
+    (megakernel.stage_mega_leaves) read it where they do not build the
+    leaf from run tables."""
+    key = ("leafwords", dim, leaf_digest(lut), padded_rows,
            perm_digest(perm_key), str(device))
     return segment.device_cached(key, lambda: torch.from_numpy(host_words(
         leaf_bits(segment, dim, lut, padded_rows, perm))).to(device))
+
+
+#: a run leaf's end past every row: the sentinel run that covers padding
+RUN_END_SENTINEL = 2**31 - 1
+
+
+def _run_leaf_payload(segment: Segment, dim: str, lut: np.ndarray,
+                      padded_rows: int) -> Optional[np.ndarray]:
+    """A leaf as a run table, int32 [pad_pow2(runs + 1), 2] of (exclusive
+    run end, the run's match), when `dim` has at most padded_rows / 256
+    runs (well under the padded_rows / 32 words of the row-built leaf);
+    else None. The match is decided once per run; a sentinel run (end
+    2^31 - 1, match 0) covers the padding rows."""
+    info = cascade.column_run_info(segment, dim, max_runs=padded_rows // 256)
+    if info is None:
+        return None
+    values, ends, nr = info
+    payload = np.zeros((cascade.pad_pow2(nr + 1), 2), dtype=np.int32)
+    payload[:, 0] = RUN_END_SENTINEL
+    payload[:nr, 0] = ends
+    payload[:nr, 1] = lut[values]
+    return payload
+
+
+def runs_leaf_words(payload: torch.Tensor, padded_rows: int) -> torch.Tensor:
+    """A run table's rows as int32 words [padded_rows / 32], on its device:
+    each row finds its run among the exclusive ends and takes its match."""
+    ends = payload[:, 0].contiguous()
+    rows = torch.arange(padded_rows, dtype=torch.int32, device=ends.device)
+    idx = torch.searchsorted(ends, rows, right=True) \
+        .clamp_(0, ends.shape[0] - 1)
+    return pack_mask_words(payload[:, 1][idx] > 0)
+
+
+def _fill_leaf_words(segment: Segment, dim: str, lut: np.ndarray,
+                     padded_rows: int, device: torch.device,
+                     perm: Optional[np.ndarray], perm_key) -> torch.Tensor:
+    """One leaf's words for the staged fill: expanded on the card from its
+    run table (cached on the segment under its own key) where the rows keep
+    their order and `dim` has few enough runs, else the row-built words."""
+    payload = None if perm is not None \
+        else _run_leaf_payload(segment, dim, lut, padded_rows)
+    if payload is None:
+        return leaf_words(segment, dim, lut, padded_rows, device, perm,
+                          perm_key)
+    key = ("fbmpleaf", dim, leaf_digest(lut), padded_rows, "runs",
+           payload.shape[0], str(device))
+    table = segment.device_cached(
+        key, lambda: torch.from_numpy(payload).to(device))
+    return runs_leaf_words(table, padded_rows)
 
 
 def _fill_single(segment: Segment, node: DeviceBitmapNode, padded_rows: int,
                  device: torch.device, perm: Optional[np.ndarray] = None,
                  perm_key=None) -> torch.Tensor:
     """One (segment, filter) fill: the node's combined words."""
-    words = [leaf_words(segment, dim, lut, padded_rows, device, perm,
-                        perm_key) for dim, lut in node.leaves]
+    words = [_fill_leaf_words(segment, dim, lut, padded_rows, device, perm,
+                              perm_key) for dim, lut in node.leaves]
     return structure_words(node.structure, words.__getitem__)
 
 

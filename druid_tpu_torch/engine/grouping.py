@@ -10,6 +10,11 @@ mask = valid AND time in the query intervals AND filter; key = fused
 eagerly, so there is no program cache: each call runs the tensor ops on the
 segment's staged block.
 
+Before any of these, `rundomain.try_run_domain` (the reference's code-domain
+path) takes a segment whose referenced columns are constant within one shared
+run partition: the aggregate runs over run tables, no row block stages, and
+the partial's strategy is "runDomain".
+
 Reduction strategies (`select_strategy`, the reference's order and
 thresholds; `FORCE_STRATEGY` forces an eligible one):
   * "blocked"  — G <= 64 (or <= BLOCKED_GROUP_LIMIT when mm is not
@@ -60,7 +65,7 @@ import torch
 
 from druid_tpu_torch.data import cascade as cascade_mod
 from druid_tpu_torch.data.segment import Segment
-from druid_tpu_torch.engine import megakernel
+from druid_tpu_torch.engine import megakernel, rundomain
 from druid_tpu_torch.engine import sorted_reduce as sorted_reduce_mod
 from druid_tpu_torch.engine.filters import (ConstNode, FilterNode,
                                             interval_offsets, perm_digest,
@@ -121,6 +126,8 @@ class GroupSpec:
     window: int = 0                    # projection span (B1/B2 strategies)
     host_keys_cache: Optional[Tuple] = None
     host_bucket_cache: Optional[Tuple] = None
+    #: rundomain._plan_run_domain's memo: (plan or None,)
+    _cascade_run_plan: Optional[Tuple] = None
 
     @property
     def num_buckets(self) -> int:
@@ -630,13 +637,31 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
             states={k.name: k.empty_state(spec.num_total) for k in kernels},
             kernels=kernels)
 
+    # code-domain aggregation (engine/rundomain.py): when every column the
+    # query reads is constant within one shared run partition, the
+    # aggregate runs over run tables; no row-width column stages
+    rd = rundomain.try_run_domain(segment, intervals, granularity, spec,
+                                  kernels, flt, device)
+    if rd is not None:
+        counts, states = rd
+        spec.strategy = "runDomain"
+        return SegmentPartial(
+            segment=segment, spec=spec,
+            counts=counts.cpu().numpy().astype(np.int64),
+            states={k.name: k.host_post(st)
+                    for k, st in zip(kernels, states)},
+            kernels=kernels)
+
     base_needed = set()
     if filter_node is not None:
         # the PLANNED tree's columns: a bitmap node reads words, not its
         # dimensions
         base_needed |= filter_node.required_device_columns()
-    for a in aggs:
-        base_needed |= a.required_columns()
+    for a, k in zip(aggs, kernels):
+        # the planned kernel's columns where narrower: a constant sum reads
+        # none
+        kc = k.required_device_columns()
+        base_needed |= a.required_columns() if kc is None else kc
     base_needed = {c for c in base_needed
                    if c in segment.dims or c in segment.metrics}
     needed = set(base_needed)

@@ -71,6 +71,11 @@ class AggKernel:
         """Per-group partial state [num]; `keys` int64 in [0, num)."""
         raise NotImplementedError
 
+    def required_device_columns(self) -> Optional[set]:
+        """The staged columns `update` reads, where narrower than the
+        aggregator's `required_columns()`; None = the aggregator's."""
+        return None
+
     def host_post(self, state) -> np.ndarray:
         """Device state -> host combine-ready state."""
         return state.cpu().numpy() if isinstance(state, torch.Tensor) \
@@ -200,11 +205,9 @@ class SumKernel(AggKernel):
             vtype is ValueType.FLOAT and segment is not None
             and spec.field in segment.metrics
             and segment.column_finite(spec.field))
-        # the reference sums a LONG column whose min equals its max as
-        # constant x count (its code-domain path, not ported) and keeps such
-        # a kernel off the mm, blocked and sorted-projection strategies; the
-        # port carries that eligibility rule, so both packages choose the
-        # same strategy, and sums the column like any other
+        # a LONG column whose min equals its max sums as constant x count
+        # and never stages; such a kernel stays off the mm, blocked and
+        # sorted-projection strategies, as in the reference
         self.const_value: Optional[int] = None
         if vtype is ValueType.LONG and segment is not None \
                 and spec.field in segment.metrics:
@@ -236,9 +239,18 @@ class SumKernel(AggKernel):
             return ("sum_i32", f, self.chunk_rows)
         return None
 
+    def required_device_columns(self):
+        # a constant column is never read, so it never stages
+        return set() if self.const_value is not None else None
+
     def update(self, cols, mask, keys, num):
         dt = _TORCH[self._DTYPES[self.vtype]]
         out = torch.zeros(num, dtype=dt, device=keys.device)
+        if self.const_value is not None:
+            # constant x per-group row count, in int64 (wrapping as the
+            # reference's product does)
+            return out.index_add_(0, keys, mask.to(torch.int64)) \
+                * self.const_value
         if self.spec.field not in cols:
             # missing column aggregates as zero (reference semantics)
             return out

@@ -4,7 +4,8 @@ the aggregation, and kernel B2 reading the row mask as bits.
 The port's counterpart of the reference package's `engine/megakernel.py`.
 `megaize` turns each planned DeviceBitmapNode whose combined words are not
 already cached on the segment into a MegaBitmapNode: its leaves' row
-bitmaps stage as resident words (`stage_mega_leaves`) and its AND/OR/NOT
+bitmaps stage as resident words (`stage_mega_leaves`; built once per run
+where the dimension has run tables) and its AND/OR/NOT
 algebra runs in the query's own pass (`MegaBitmapNode.words`, through
 filters.combine_structure_words) instead of a separate fill.
 
@@ -36,12 +37,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from druid_tpu_torch.data import cascade
 from druid_tpu_torch.engine import sorted_reduce as sorted_reduce_mod
 from druid_tpu_torch.engine.filters import (AndNode, DeviceBitmapNode,
                                             FilterNode, NotNode, OrNode,
                                             bitmap_pool_key,
                                             collect_bitmap_nodes,
-                                            expand_mask_words, leaf_words,
+                                            expand_mask_words, host_words,
+                                            leaf_digest, leaf_words,
                                             pack_mask_words, structure_words)
 
 #: launches of kernel B2 in this process (the chip smoke resets it)
@@ -202,20 +205,41 @@ def record_disabled_fallback(filter_node: Optional[FilterNode]) -> None:
         _STATS.record_fallback(n)
 
 
+def mega_leaf_words(segment, dim: str, lut: np.ndarray, padded_rows: int,
+                    device: torch.device, perm: Optional[np.ndarray] = None,
+                    perm_key=None) -> torch.Tensor:
+    """One mega leaf's int32 words [padded_rows / 32]. Where the rows keep
+    their order and `dim` has run tables, the bits are built once per run
+    (`np.repeat(lut[values], lengths)`) and cached under their own key;
+    otherwise they are filters.leaf_words, shared with the staged fill."""
+    info = cascade.column_run_info(segment, dim) if perm is None else None
+    if info is None:
+        return leaf_words(segment, dim, lut, padded_rows, device, perm,
+                          perm_key)
+
+    def _build():
+        values, ends, _ = info
+        bits = np.zeros(padded_rows, dtype=bool)
+        bits[: int(ends[-1])] = np.repeat(lut[values],
+                                          np.diff(ends, prepend=0))
+        return torch.from_numpy(host_words(bits)).to(device)
+    return segment.device_cached(
+        ("megaleafruns", dim, leaf_digest(lut), padded_rows, str(device)),
+        _build)
+
+
 def stage_mega_leaves(segment, filter_node: Optional[FilterNode],
                       padded_rows: int, device: torch.device,
                       perm: Optional[np.ndarray] = None,
                       perm_key=None) -> Dict[str, torch.Tensor]:
     """{leaf col: int32 words [padded_rows / 32]} for every mega node's
-    leaves (filters.leaf_words, cached on the segment and shared with the
-    staged fill); with `perm` the words are in the projection's row
-    order."""
+    leaves (`mega_leaf_words`, cached on the segment); with `perm` the
+    words are in the projection's row order."""
     out: Dict[str, torch.Tensor] = {}
     for node in collect_mega_nodes(filter_node):
         for j, (dim, lut) in enumerate(node.leaves):
-            out[node.leaf_col(j)] = leaf_words(segment, dim, lut,
-                                               padded_rows, device, perm,
-                                               perm_key)
+            out[node.leaf_col(j)] = mega_leaf_words(
+                segment, dim, lut, padded_rows, device, perm, perm_key)
     return out
 
 

@@ -29,6 +29,7 @@ from druid_tpu.engine import pallas_agg
 from druid_tpu.query.filters import filter_from_json as ref_filter_json
 from druid_tpu.utils.intervals import Interval
 
+from druid_tpu_torch.data import cascade as port_cascade
 from druid_tpu_torch.data.convert import segment_from_arrays
 from druid_tpu_torch.engine import filters as port_filters
 from druid_tpu_torch.engine import megakernel as port_mk
@@ -255,10 +256,12 @@ def test_pack_expand_round_trip_matches_reference_bits(n):
 @pytest.mark.parametrize("ones", [3, 40, 2000])
 def test_staged_fill_sparse_and_dense_leaves(ones):
     """Leaves with few and with many matching rows stage as the same int32
-    words (filters.leaf_words, one cached tensor per leaf, which the fused
-    path reads too); the staged fill's combined words, in the segment's row
-    order and permuted, are the numpy algebra's bits, and equal the fused
-    node's words."""
+    words: the fused path reads filters.leaf_words' cached tensor, except
+    for a dimension with run tables in the segment's row order, whose mega
+    leaf is built once per run under its own key and holds the same bits;
+    the staged fill's combined words, in the segment's row order and
+    permuted, are the numpy algebra's bits, and equal the fused node's
+    words."""
     rng = np.random.default_rng(ones)
     n = 4000
     d = np.zeros(n, dtype=np.int32)
@@ -292,8 +295,11 @@ def test_staged_fill_sparse_and_dense_leaves(ones):
         mega = port_mk.MegaBitmapNode.from_bitmap(node)
         leaves = port_mk.stage_mega_leaves(seg, mega, rows, cpu, p, pk)
         for j, (dim, lut) in enumerate(node.leaves):
-            assert leaves[mega.leaf_col(j)] is port_filters.leaf_words(
-                seg, dim, lut, rows, cpu, p, pk)
+            shared = port_filters.leaf_words(seg, dim, lut, rows, cpu, p, pk)
+            runs = p is None \
+                and port_cascade.column_run_info(seg, dim) is not None
+            assert torch.equal(leaves[mega.leaf_col(j)], shared)
+            assert (leaves[mega.leaf_col(j)] is shared) == (not runs)
         assert torch.equal(mega.words(leaves), words)
 
 

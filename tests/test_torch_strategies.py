@@ -122,6 +122,18 @@ def _specs(module, mix):
     return out
 
 
+def _kernel_columns(aggs, kernels):
+    """The columns the planned kernels read, as both packages'
+    run_grouped_aggregate take them: a kernel's required_device_columns()
+    where it has one (a constant LONG sum reads none), else its
+    aggregator's required_columns()."""
+    out = set()
+    for a, k in zip(aggs, kernels):
+        kc = k.required_device_columns()
+        out |= set(a.required_columns()) if kc is None else kc
+    return out
+
+
 def _ref_selection(seg, dims, gran, mix):
     """The reference's plan-time inputs to select_strategy, as its
     run_grouped_aggregate builds them (grouping.py:1126-1166)."""
@@ -132,7 +144,7 @@ def _ref_selection(seg, dims, gran, mix):
     spec = ref_grouping.make_group_spec(seg, ivs, g, kdims)
     aggs = _specs(RA, mix)
     kernels = [ref_kernels.make_kernel(a, seg) for a in aggs]
-    needed = {c for a in aggs for c in a.required_columns()
+    needed = {c for c in _kernel_columns(aggs, kernels)
               if c in seg.dims or c in seg.metrics}
     if spec.key_mode == "dense":
         needed |= set(dims)
@@ -159,7 +171,7 @@ def _port_selection(seg, dims, gran, mix):
     spec = port_grouping.make_group_spec(seg, ivs, g, kdims)
     aggs = _specs(PA, mix)
     kernels = [port_kernels.make_kernel(a, seg) for a in aggs]
-    needed = {c for a in aggs for c in a.required_columns()
+    needed = {c for c in _kernel_columns(aggs, kernels)
               if c in seg.dims or c in seg.metrics}
     if spec.key_mode == "dense":
         needed |= set(dims)
@@ -523,9 +535,9 @@ def test_mm_double_sum_falls_back(unsorted_segs, monkeypatch):
 
 
 def test_constant_long_column_keeps_the_reference_strategy(monkeypatch):
-    """A constant LONG column: the reference keeps its longSum off mm,
-    blocked and the projection (its code-domain sum); the port follows the
-    selection and sums the column by scatter, with the same rows."""
+    """A constant LONG column: both packages keep its longSum off mm,
+    blocked and the projection and sum it as constant x count, with the
+    same rows."""
     segs = _segments(card_b=200, lo=7, hi=7)
     spy = _Spy(monkeypatch)
     _both(segs, _groupby(["dimB"], MM_AGGS))
