@@ -78,8 +78,26 @@ Phases, each fatal on failure:
      unpack, never used by the port), the host's enqueue time per launch
      and torch.profiler's device time by kernel, with metLong as words
      (the main path's inputs) and decoded, in turns; and the warm p50 of
-     each query.
-The line before the last is the kernels JSON line; the last line is
+     each query;
+ 12. expressions, on fresh headline data (run before phase 11, with the
+     B1/B2 counts set to 0 before it and read after it): X1 the headline
+     groupBy with a FLOAT virtual column vf = metFloat * 2 + metLong and
+     floatMax(vf) (projection, B1 x8 a run; its first B1 call held
+     against the plain version, vf read dense and metLong as w16 words;
+     vf's device time on segment 0); X2 a groupBy filtered by and(in dimA,
+     regex dimB, expression "metLong % 10 < 7") (megakernel, B2 x8, the
+     expression as B2's residual row mask; its first call held against
+     the plain version; the live row share); X3 a topN on a substring
+     extraction of dimB filtered by search dimA "5" (mm); X4 a groupBy on
+     the expression dimension div(metLong, 100) x dimA with a DOUBLE
+     virtual column summed, filtered by not(columnComparison [dimA,
+     dimB]) (windowed over the projection: B1 has no float64 sum); X3 and
+     X4 on 2 of the 8 segments (reduced). Each against numpy (exact, vf
+     within 1e-6 relative, the double sum within 1e-9), with its strategy
+     per segment, cold time, warm p50 of 5 and split_times.
+The line before the last is the kernels JSON line (each kernel's
+`launches` counted on phase 6's path, `launches_expressions` on phase
+12's); the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 import json
@@ -1850,6 +1868,317 @@ def phase_rundomain(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: expressions (virtual columns, string and expression filters,
+# extraction and expression dimensions)
+# ---------------------------------------------------------------------------
+
+#: X3 and X4 run on 2 of the 8 headline segments: their cold runs (the
+#: expression dimension's host np.unique, X4's own projection argsort) would
+#: otherwise add more than 2 minutes to the phase (reduced)
+EXPR_SMALL_SEGMENTS = 2
+VF = {"type": "expression", "name": "vf",
+      "expression": "metFloat * 2 + metLong", "outputType": "float"}
+VD = {"type": "expression", "name": "vd", "expression": "metLong * 0.01",
+      "outputType": "double"}
+#: query -> (segments it runs on, strategy per segment, (B1, B2) per run)
+EXPR_PLAN = {"x1": (SEGMENTS, "projection", (SEGMENTS, 0)),
+             "x2": (SEGMENTS, "megakernel", (0, SEGMENTS)),
+             "x3": (EXPR_SMALL_SEGMENTS, "mm", (0, 0)),
+             "x4": (EXPR_SMALL_SEGMENTS, "windowed", (0, 0))}
+
+
+def expression_queries(segments):
+    iv = f"{DAY[0]}/{DAY[1]}"
+    base = queries(segments)["groupby"]
+    dim_a = list(segments[0].dims["dimA"].dictionary.values)
+    x1 = dict(base, virtualColumns=[VF], aggregations=[
+        {"type": "count", "name": "rows"},
+        {"type": "longSum", "name": "lsum", "fieldName": "metLong"},
+        {"type": "floatMax", "name": "vfmax", "fieldName": "vf"}])
+    x2 = dict(base, filter={"type": "and", "fields": [
+        {"type": "in", "dimension": "dimA", "values": dim_a[:50]},
+        {"type": "regex", "dimension": "dimB", "pattern": "[13579]$"},
+        {"type": "expression", "expression": "metLong % 10 < 7"}]})
+    x3 = {"queryType": "topN", "dataSource": "bench", "intervals": [iv],
+          "granularity": "all", "metric": "lsum", "threshold": 10,
+          "dimension": {"type": "extraction", "dimension": "dimB",
+                        "outputName": "b8", "extractionFn": {
+                            "type": "substring", "index": 0, "length": 8}},
+          "aggregations": [{"type": "longSum", "name": "lsum",
+                            "fieldName": "metLong"}],
+          "filter": {"type": "search", "dimension": "dimA",
+                     "query": {"type": "contains", "value": "5"}}}
+    x4 = {"queryType": "groupBy", "dataSource": "bench", "intervals": [iv],
+          "granularity": "all", "virtualColumns": [VD],
+          "dimensions": [{"type": "expression", "outputName": "e",
+                          "expression": "div(metLong, 100)",
+                          "outputType": "long"}, "dimA"],
+          "aggregations": [{"type": "count", "name": "rows"},
+                           {"type": "doubleSum", "name": "dsum",
+                            "fieldName": "vd"}],
+          "filter": {"type": "not", "field": {
+              "type": "columnComparison", "dimensions": ["dimA", "dimB"]}}}
+    return {"x1": x1, "x2": x2, "x3": x3, "x4": x4}
+
+
+def expression_reference(segments):
+    """Independent numpy results for X1-X4: each expression, extraction and
+    predicate evaluated in numpy over the host arrays."""
+    import re
+    G = 100 * 1000
+    out = {k: np.zeros(G, np.int64) for k in ("x1_cnt", "x2_cnt")}
+    out.update(x1_lsum=np.zeros(G, np.float64),
+               x1_vfmax=np.full(G, -np.inf, np.float32),
+               x2_lsum=np.zeros(G, np.float64),
+               x2_fmax=np.full(G, -np.inf, np.float32),
+               x3_lsum=np.zeros(100, np.float64),
+               x4_cnt=np.zeros(101 * 100, np.int64),
+               x4_dsum=np.zeros(101 * 100, np.float64))
+    rx = re.compile("[13579]$")
+    b_vals = segments[0].dims["dimB"].dictionary.values
+    b_odd = np.asarray([rx.search(v) is not None for v in b_vals])
+    a_vals = segments[0].dims["dimA"].dictionary.values
+    a_five = np.asarray(["5" in v.lower() for v in a_vals])
+    live = 0
+    for i, s in enumerate(segments):
+        a = s.dims["dimA"].ids.astype(np.int64)
+        b = s.dims["dimB"].ids.astype(np.int64)
+        ml = s.metrics["metLong"].values
+        mf = s.metrics["metFloat"].values
+        keep = (ml >= 100) & (ml <= 9900)
+        key = (a * 1000 + b)[keep]
+        vf = mf * np.float32(2) + ml.astype(np.float32)
+        out["x1_cnt"] += np.bincount(key, minlength=G)
+        out["x1_lsum"] += np.bincount(
+            key, weights=ml[keep].astype(np.float64), minlength=G)
+        np.maximum.at(out["x1_vfmax"], key, vf[keep])
+        k2 = (a < 50) & b_odd[b] & (ml % 10 < 7)
+        live += int(k2.sum())
+        key = a[k2] * 1000 + b[k2]
+        out["x2_cnt"] += np.bincount(key, minlength=G)
+        out["x2_lsum"] += np.bincount(
+            key, weights=ml[k2].astype(np.float64), minlength=G)
+        np.maximum.at(out["x2_fmax"], key, mf[k2])
+        if i < EXPR_SMALL_SEGMENTS:
+            k3 = a_five[a]
+            out["x3_lsum"] += np.bincount(
+                b[k3] // 10, weights=ml[k3].astype(np.float64),
+                minlength=100)
+            k4 = a != b                  # dimA and dimB share value names
+            g = (ml[k4] // 100) * 100 + a[k4]
+            out["x4_cnt"] += np.bincount(g, minlength=101 * 100)
+            out["x4_dsum"] += np.bincount(g, weights=ml[k4] * 0.01,
+                                          minlength=101 * 100)
+    for k in ("x1_lsum", "x2_lsum", "x3_lsum"):
+        out[k] = out[k].astype(np.int64)
+    out["x2_live_share"] = live / sum(s.n_rows for s in segments)
+    return out
+
+
+def check_x1(rows, ref):
+    live = np.flatnonzero(ref["x1_cnt"])
+    if len(rows) != len(live):
+        raise AssertionError(f"x1: {len(rows)} rows, numpy {len(live)}")
+    worst = 0.0
+    for r in rows:
+        e = r["event"]
+        g = int(e["dimA"][1:]) * 1000 + int(e["dimB"][1:])
+        want = float(ref["x1_vfmax"][g])
+        rel = abs(e["vfmax"] - want) / max(abs(want), 1e-30)
+        worst = max(worst, rel)
+        if (e["rows"], e["lsum"]) != (int(ref["x1_cnt"][g]),
+                                      int(ref["x1_lsum"][g])) or rel > 1e-6:
+            raise AssertionError(f"x1 row {e} != numpy group {g}")
+    return worst
+
+
+def check_x2(rows, ref):
+    live = np.flatnonzero(ref["x2_cnt"])
+    if len(rows) != len(live):
+        raise AssertionError(f"x2: {len(rows)} rows, numpy {len(live)}")
+    for r in rows:
+        e = r["event"]
+        g = int(e["dimA"][1:]) * 1000 + int(e["dimB"][1:])
+        if (e["rows"], e["lsum"]) != (int(ref["x2_cnt"][g]),
+                                      int(ref["x2_lsum"][g])) \
+                or np.float32(e["fmax"]) != ref["x2_fmax"][g]:
+            raise AssertionError(f"x2 row {e} != numpy group {g}")
+    return 0.0
+
+
+def check_x3(rows, ref):
+    lsum = ref["x3_lsum"]
+    order = np.argsort(-lsum, kind="stable")[:10]
+    want = [(f"v{int(p):07d}", int(lsum[p])) for p in order]
+    got = [(x["b8"], x["lsum"]) for x in rows[0]["result"]]
+    if got != want:
+        raise AssertionError(f"x3: {got} != numpy {want}")
+    return 0.0
+
+
+def check_x4(rows, ref):
+    live = np.flatnonzero(ref["x4_cnt"])
+    if len(rows) != len(live):
+        raise AssertionError(f"x4: {len(rows)} rows, numpy {len(live)}")
+    worst = 0.0
+    for r in rows:
+        e = r["event"]
+        g = int(e["e"]) * 100 + int(e["dimA"][1:])
+        want = float(ref["x4_dsum"][g])
+        rel = abs(e["dsum"] - want) / max(abs(want), 1e-30)
+        worst = max(worst, rel)
+        if e["rows"] != int(ref["x4_cnt"][g]) or rel > 1e-9:
+            raise AssertionError(f"x4 row {e} != numpy group {g}")
+    return worst
+
+
+def vc_eval_ms(view, segment):
+    """Device ms of X1's virtual column over segment 0's permuted block,
+    as the path runs it (its packed input decoded first), and over decoded
+    inputs alone; and the computed column's dtype."""
+    from druid_tpu_torch.data import cascade
+    from druid_tpu_torch.engine import grouping as gr
+    from druid_tpu_torch.query.model import virtualcolumn_from_json
+    plans, luts = gr.plan_virtual_columns(
+        segment, [virtualcolumn_from_json(VF)])
+    t0 = segment.interval.start
+    staged = {k: view.staged[k] for k in ("__valid", "__time_offset",
+                                         "metLong", "metFloat")}
+    dense = {k: view[k] for k in staged}
+    out = gr.eval_virtual_columns(dict(dense), t0, plans, luts)
+    return {"with_decode_ms": cuda_ms(lambda: gr.eval_virtual_columns(
+                cascade.DecodedView(staged), t0, plans, luts), 10),
+            "decoded_inputs_ms": cuda_ms(lambda: gr.eval_virtual_columns(
+                dict(dense), t0, plans, luts), 10),
+            "dtype": str(out["vf"].dtype), "rows": int(out["vf"].shape[0])}
+
+
+def query_device_split(q, segment, dev):
+    """torch.profiler's device ms of one warm run of `q` over `segment`:
+    the total and the largest kernels by name."""
+    from druid_tpu_torch.engine import QueryExecutor
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    ex = QueryExecutor([segment], device=dev)
+    saved = (sr.LAUNCHES, mk.LAUNCHES)
+    by = device_split(lambda: ex.run_json(q), reps=3, top=200)
+    sr.LAUNCHES, mk.LAUNCHES = saved  # measurement, not the path
+    top = dict(sorted(by.items(), key=lambda kv: -kv[1])[:6])
+    return {"device_ms": sum(by.values()), "top": top}
+
+
+def phase_expressions(dev):
+    """X1-X4 on fresh headline segments, each against numpy, with its
+    strategy per segment, cold time, warm p50 of 5 and split_times; B1's
+    and B2's first calls held against their plain versions. Returns (report,
+    {"B1": launches, "B2": launches}, {"B1": max_abs_err, "B2": ...})."""
+    import torch
+    from druid_tpu_torch.engine import QueryExecutor
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    t = time.perf_counter()
+    segments = headline_segments()
+    gen_s = time.perf_counter() - t
+    t = time.perf_counter()
+    ref = expression_reference(segments)
+    log(f"  generated the headline data in {gen_s:.1f} s; numpy reference "
+        f"{time.perf_counter() - t:.1f} s; X2's live row share "
+        f"{ref['x2_live_share']:.4f}")
+    qs = expression_queries(segments)
+    checks = {"x1": check_x1, "x2": check_x2, "x3": check_x3,
+              "x4": check_x4}
+    out = {"gen_s": gen_s, "x2_live_share": ref["x2_live_share"]}
+    errs = {"B1": 0.0, "B2": 0.0}
+    sr.LAUNCHES = mk.LAUNCHES = 0
+    for name, q in qs.items():
+        n_seg, want_strategy, want = EXPR_PLAN[name]
+        segs = segments[:n_seg]
+        ex = QueryExecutor(segs, device=dev)
+        before = (sr.LAUNCHES, mk.LAUNCHES)
+        t = time.perf_counter()
+        with Capture(sr, "sorted_reduce") as cap1, \
+                Capture(mk, "mega_reduce_cuda") as cap2, \
+                StrategyLog() as slog, BlockLog() as blog:
+            rows = ex.run_json(q)
+            torch.cuda.synchronize()
+        cold = time.perf_counter() - t
+        delta = (sr.LAUNCHES - before[0], mk.LAUNCHES - before[1])
+        worst = checks[name](rows, ref)
+        log(f"  {name}: strategy per segment {slog.strategies}")
+        if slog.names() != [want_strategy] * n_seg:
+            raise AssertionError(f"{name}: strategies {slog.strategies}, "
+                                 f"expected {want_strategy} x {n_seg}")
+        if delta != want or (len(cap1.spans), len(cap2.spans)) != want:
+            raise AssertionError(f"{name}: (B1, B2) launched {delta}, "
+                                 f"expected {want}")
+        res = {"segments": n_seg, "cold_s": cold, "strategies":
+               slog.strategies, "result_rows": len(rows),
+               "b1_b2_launches_per_run": delta, "max_rel_err": worst,
+               "block": blog.summary()}
+        if name == "x1":
+            view, m_in, key, ks, G, span, pcs = cap1.first
+            vf = view.staged.get("vf")
+            read = sr.packed_fields(value_fields(view, ks), pcs,
+                                    sr.plan_window(span)[0], key.shape[0])
+            if not torch.is_tensor(vf) or vf.dtype != torch.float32 \
+                    or "vf" in read \
+                    or getattr(read.get("metLong"), "width", 0) != 16:
+                raise AssertionError(f"x1: B1 reads {read}; vf staged as "
+                                     f"{type(vf).__name__}")
+            errs["B1"], _ = check_b1("x1", view, m_in, key, ks, G, span,
+                                     pcs)
+            res["vc_eval_segment0"] = vc_eval_ms(view, segs[0])
+            res["b1_reads_words"] = {f: repr(pc) for f, pc in read.items()}
+            log(f"  x1: B1 reads {res['b1_reads_words']} as words, vf dense "
+                f"float32; vf on segment 0: "
+                f"{res['vc_eval_segment0']['with_decode_ms']:.4f} ms "
+                f"(metLong decoded first) / "
+                f"{res['vc_eval_segment0']['decoded_inputs_ms']:.4f} ms "
+                f"(decoded inputs), device time, "
+                f"{res['vc_eval_segment0']['rows']} rows")
+        if name == "x2":
+            view, words, key, ks, G, span, pcs = cap2.first
+            errs["B2"], _ = check_b2("x2", view, words, key, ks, G, span,
+                                     pcs)
+        warm = []
+        for _ in range(5):
+            before = (sr.LAUNCHES, mk.LAUNCHES)
+            t = time.perf_counter()
+            rows = ex.run_json(q)
+            torch.cuda.synchronize()
+            warm.append((time.perf_counter() - t) * 1e3)
+            got = (sr.LAUNCHES - before[0], mk.LAUNCHES - before[1])
+            if got != want:
+                raise AssertionError(f"{name}: warm run launched (B1, B2) "
+                                     f"{got}, expected {want}")
+        checks[name](rows, ref)
+        split = split_times(q, segs, dev)
+        res.update(warm_ms=warm, p50_ms=float(np.median(warm)), **split)
+        out[name] = res
+        log(f"  {name}: ok on {n_seg} segments, {len(rows)} rows, cold "
+            f"{cold:.2f} s, warm p50 {res['p50_ms']:.1f} ms, (B1, B2) "
+            f"launches/run {delta}; partials {split['partials_ms']:.1f} "
+            f"ms, merge+finish {split['finish_ms']:.1f} ms; max rel err "
+            f"{worst:.3g}")
+    launches = {"B1": sr.LAUNCHES, "B2": mk.LAUNCHES}
+    out["launches"] = launches
+    # where X1's and X2's extra partials time goes: device time by kernel
+    # on segment 0, beside the headline groupBy and the filtered groupBy
+    base = queries(segments)
+    for name, q in (("x1", qs["x1"]), ("groupby", base["groupby"]),
+                    ("x2", qs["x2"]),
+                    ("groupby_filtered", base["groupby_filtered"])):
+        sp = query_device_split(q, segments[0], dev)
+        out[f"device_split_{name}"] = sp
+        log(f"  {name} on segment 0: device {sp['device_ms']:.3f} ms a "
+            f"run (torch.profiler); largest: " + ", ".join(
+                f"{k[:60]} {v:.3f}" for k, v in sp["top"].items()))
+    del segments
+    torch.cuda.synchronize()
+    return out, launches, errs
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1914,6 +2243,11 @@ def main():
     report["run_domain"] = phase_rundomain(dev)
 
     entries = []
+    saved = (sr.LAUNCHES, mk.LAUNCHES)
+    log("phase expressions (X1-X4)")
+    expr, expr_launches, expr_errs = phase_expressions(dev)
+    report["expressions"] = expr
+    sr.LAUNCHES, mk.LAUNCHES = saved
     for which, parity, check, name, source, replaces in (
             ("B1", b1, check_b1, "sorted_reduce",
              "druid_tpu_torch/csrc/sorted_reduce.cu",
@@ -1961,8 +2295,10 @@ def main():
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[which],
+            "launches_expressions": expr_launches[which],
             "max_abs_err": max(err, parity["max_abs_err"],
-                               report["packed_parity"]["max_abs_err"]),
+                               report["packed_parity"]["max_abs_err"],
+                               expr_errs[which]),
             "ms": tb["ms"], "plain_ms": tb["plain_ms"],
             "bound_ms": tb["bound_ms"], "bound_by": "bytes",
             "library_ms": tb["library_ms"],

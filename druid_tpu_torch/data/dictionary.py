@@ -9,7 +9,9 @@ lookup table that the device applies via one gather — see engine/filters.py.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
+
+import numpy as np
 
 
 class Dictionary:
@@ -25,6 +27,10 @@ class Dictionary:
     def cardinality(self) -> int:
         return len(self.values)
 
+    def id_of(self, value: Optional[str]) -> int:
+        """id of value (None reads as ""), or -1 if absent."""
+        return self._index.get("" if value is None else value, -1)
+
     def __len__(self):
         return len(self.values)
 
@@ -39,3 +45,15 @@ class Dictionary:
 
     def __hash__(self):
         return hash(tuple(self.values))
+
+
+def merge_dictionaries(dicts: Sequence[Dictionary]):
+    """Merge dictionaries into one sorted dictionary plus per-input id remap
+    tables (old id -> new id, int32), the role the reference's
+    DimensionMergerV9 plays."""
+    merged = sorted(set().union(*[set(d.values) for d in dicts])) \
+        if dicts else []
+    out = Dictionary(merged)
+    remaps = [np.asarray([out.id_of(v) for v in d.values], dtype=np.int32)
+              for d in dicts]
+    return out, remaps

@@ -1,25 +1,34 @@
 """Per-query-type engines over the grouped-aggregate program.
 
 The port's counterpart of the reference package's `engine/engines.py` for
-timeseries, topN and groupBy. Partials come from one grouped-aggregate run
-per segment (no batching, no sharding), merge on the host
-(engine/merge.py), and finish into the reference's JSON row shapes
-(timestamps as epoch millis ints).
+timeseries, topN and groupBy. Dimension specs become KeyDims here
+(`_keydim_for`: extraction and listFiltered remaps, numeric and expression
+dimensions as query-time dictionaries, unified across the query's segments
+by `unify_query_dims`). Partials come from one grouped-aggregate run per
+segment (no batching, no sharding), merge on the host (engine/merge.py),
+and finish into the reference's JSON row shapes (timestamps as epoch millis
+ints).
 """
 from __future__ import annotations
 
+import hashlib
+import json
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from druid_tpu_torch.data.segment import Segment
+from druid_tpu_torch.engine.filters import _bind_string_dims
 from druid_tpu_torch.engine.grouping import KeyDim, run_grouped_aggregate
 from druid_tpu_torch.engine.merge import merge_partials
-from druid_tpu_torch.query.model import (DefaultDimensionSpec,
-                                         DefaultLimitSpec, GroupByQuery,
+from druid_tpu_torch.query.model import (DefaultLimitSpec, DimensionSpec,
+                                         ExpressionDimensionSpec,
+                                         GroupByQuery,
+                                         ListFilteredDimensionSpec,
                                          TimeseriesQuery, TopNQuery)
 from druid_tpu_torch.query.postaggs import compute_postaggs
+from druid_tpu_torch.utils.expression import parse_expression
 from druid_tpu_torch.utils.granularity import Granularity
 from druid_tpu_torch.utils.intervals import Interval, condense
 
@@ -100,16 +109,144 @@ def _vectorized_postaggs(postaggs, value_arrays: Dict[str, np.ndarray]):
 
 
 def _keydim_for(segment: Segment,
-                spec: DefaultDimensionSpec) -> Tuple[KeyDim, List[str]]:
-    """KeyDim + local id -> output value list for one dimension spec. A
-    column the segment lacks groups as the single value ""."""
+                spec: DimensionSpec) -> Tuple[KeyDim, List]:
+    """KeyDim + local id -> output value list for one dimension spec.
+
+    Extraction fns and listFiltered run on the host over the dictionary
+    into an id remap table (cached per segment; -1 drops the row), the
+    reference's per-row ExtractionFn at O(cardinality). A numeric column
+    groups through a query-time dictionary of its values (np.unique, cached
+    per segment), staged as a derived id column. A column the segment lacks
+    groups as the single value ""."""
+    if isinstance(spec, ExpressionDimensionSpec):
+        return _expr_keydim(segment, spec)
     col = segment.dims.get(spec.dimension)
+    num_ids = num_vals = None
+    dim_col = spec.dimension
     if col is None:
-        if spec.dimension in segment.metrics:
-            raise NotImplementedError(
-                f"grouping on numeric column {spec.dimension!r}")
-        return KeyDim(None, 1), [""]
-    return KeyDim(spec.dimension, col.cardinality), col.dictionary.values
+        m = segment.metrics.get(spec.dimension)
+        if m is None:
+            return KeyDim(None, 1), [""]
+
+        def _compute_num():
+            uniq, inv = np.unique(m.values, return_inverse=True)
+            return inv.astype(np.int32), [v.item() for v in uniq]
+        num_ids, num_vals = segment.aux_cached(("numdim", spec.dimension),
+                                               _compute_num)
+        dim_col = f"__numdim_{spec.dimension}"
+
+    fn = spec.extraction_fn
+    whitelist = None
+    is_white = True
+    if isinstance(spec, ListFilteredDimensionSpec):
+        whitelist = set(spec.values)
+        is_white = spec.is_whitelist
+
+    ids_key = ("numdim_ids", spec.dimension) if num_ids is not None else None
+    if fn is None and whitelist is None:
+        if col is None:
+            return KeyDim(dim_col, max(len(num_vals), 1), None,
+                          host_ids=num_ids, ids_key=ids_key), \
+                (num_vals or [""])
+        return KeyDim(spec.dimension, col.cardinality), \
+            col.dictionary.values
+
+    cache_key = ("keydim", spec.dimension,
+                 json.dumps(fn.cache_key(), sort_keys=True) if fn else None,
+                 tuple(sorted(whitelist)) if whitelist is not None else None,
+                 is_white)
+
+    def _compute():
+        # extraction fns see the STRING form of numeric values (the
+        # reference's ExtractionFn contract)
+        vals = [str(v) for v in num_vals] if col is None \
+            else col.dictionary.values
+        raw = fn.apply_all(vals) if fn else vals
+        outs = ["" if o is None else str(o) for o in raw]
+        keep = [True] * len(outs)
+        if whitelist is not None:
+            for i, o in enumerate(outs):
+                inside = o in whitelist
+                keep[i] = inside if is_white else not inside
+        uniq = sorted({o for o, k in zip(outs, keep) if k})
+        index = {v: i for i, v in enumerate(uniq)}
+        remap = np.asarray(
+            [index[o] if k else -1 for o, k in zip(outs, keep)],
+            dtype=np.int32)
+        return remap, uniq
+
+    remap, uniq = segment.aux_cached(cache_key, _compute)
+    return KeyDim(dim_col, max(len(uniq), 1), remap, host_ids=num_ids,
+                  ids_key=ids_key), (uniq or [""])
+
+
+def _expr_keydim(segment: Segment,
+                 spec: ExpressionDimensionSpec) -> Tuple[KeyDim, List]:
+    """An expression dimension: evaluated on the host over the segment's
+    columns (numpy; string dimensions bind decoded, so string comparisons
+    work), then np.unique into a per-segment value dictionary, as the
+    reference does. The device groups by the derived ids."""
+    cache_key = ("exprdim", spec.expression, spec.output_type)
+
+    def _compute():
+        expr = parse_expression(spec.expression)
+        bindings: Dict[str, np.ndarray] = {"__time": segment.time_ms}
+        bindings.update((n, m.values) for n, m in segment.metrics.items())
+        _bind_string_dims(expr, segment, bindings)
+        vals = np.broadcast_to(np.asarray(expr.evaluate(bindings)),
+                               (segment.n_rows,))
+        uniq, inv = np.unique(vals, return_inverse=True)
+        out = [v.item() if hasattr(v, "item") else v for v in uniq]
+        if spec.output_type == "string":
+            out = [str(v) for v in out]
+        return inv.astype(np.int32), out
+
+    ids, vals = segment.aux_cached(cache_key, _compute)
+    return KeyDim(f"__exprdim_{spec.output_name}", max(len(vals), 1), None,
+                  host_ids=ids,
+                  ids_key=("exprdim_ids", spec.expression,
+                           spec.output_type)), (vals or [""])
+
+
+def unify_query_dims(segs: Sequence[Segment], kds_per_seg,
+                     vals_per_seg) -> None:
+    """Unify per-segment query-time dictionaries (numeric and expression
+    dimensions: KeyDim.host_ids) into one id space across the query's
+    segments, in place: each segment's local ids remap on the host into the
+    sorted union of every segment's values. Ids decode to the same values;
+    the space is merely shared. One remapped id column per (segment,
+    dimension) is kept, replaced when the union changes."""
+    if len(segs) < 2 or not kds_per_seg or not kds_per_seg[0]:
+        return
+    for j in range(len(kds_per_seg[0])):
+        col = [kds[j] for kds in kds_per_seg]
+        if not all(kd.host_ids is not None and kd.remap is None
+                   and kd.ids_key is not None for kd in col):
+            continue
+        lists = [vals[j] for vals in vals_per_seg]
+        if all(v == lists[0] for v in lists[1:]):
+            continue                  # already one id space
+        try:
+            union = sorted(set().union(*map(set, lists)))
+        except TypeError:
+            continue                  # unorderable mixed types: per segment
+        udig = hashlib.sha1(repr(union).encode()).hexdigest()[:16]
+        index = {v: i for i, v in enumerate(union)}
+        for s, kds, vals in zip(segs, kds_per_seg, vals_per_seg):
+            kd = kds[j]
+            slot = s.aux_cached(("unidim",) + tuple(kd.ids_key), dict)
+            new_ids = slot.get(udig)
+            if new_ids is None:
+                remap = np.asarray([index[v] for v in vals[j]],
+                                   dtype=np.int32)
+                new_ids = remap[kd.host_ids]
+                slot.clear()
+                slot[udig] = new_ids
+            kds[j] = KeyDim(kd.column, max(len(union), 1), None,
+                            host_ids=new_ids,
+                            ids_key=("unidim",) + tuple(kd.ids_key)
+                            + (udig,))
+            vals[j] = list(union)
 
 
 def _keydims_for_query(query, segs: Sequence[Segment]):
@@ -127,6 +264,7 @@ def _keydims_for_query(query, segs: Sequence[Segment]):
         pairs = [_keydim_for(s, d) for d in dims]
         kds_per_seg.append([kd for kd, _ in pairs])
         vals_per_seg.append([v for _, v in pairs])
+    unify_query_dims(segs, kds_per_seg, vals_per_seg)
     return kds_per_seg, vals_per_seg
 
 
@@ -155,7 +293,7 @@ def make_aggregate_partials(query, segments: Sequence[Segment],
     kds_per_seg, vals_per_seg = _keydims_for_query(query, segs)
     partials = [run_grouped_aggregate(s, intervals, query.granularity, kds,
                                       query.aggregations, query.filter,
-                                      device)
+                                      device, query.virtual_columns)
                 for s, kds in zip(segs, kds_per_seg)]
     spans = [(s.min_time, s.max_time) for s in segs]
     return AggregatePartials(partials, vals_per_seg, spans, intervals)

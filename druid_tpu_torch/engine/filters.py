@@ -11,8 +11,12 @@ into a boolean lookup table (LUT). Two device forms follow from it:
     segment, and the row mask is a bit test of those words; fused
     (engine/megakernel.py), the leaf words stay resident and the algebra
     runs inside the aggregation.
-Numeric predicates compare the staged value column in its staged dtype.
-Constants are folded out of the tree before any device work.
+Numeric predicates compare the staged value column in its staged dtype, or
+a virtual column in its output dtype. A columnComparison compares the
+dimensions' ids remapped into one merged dictionary; an expression filter
+evaluates on the device (utils/expression.py), its string-dimension
+comparisons rewritten to dictionary LUT gathers. Constants are folded out
+of the tree before any device work.
 
 Word layout, everywhere in the port: int32 words, LSB first — row r is bit
 r % 32 of word r // 32 (the reference's staged filter-word layout,
@@ -20,17 +24,21 @@ r % 32 of word r // 32 (the reference's staged filter-word layout,
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
+import re
 import threading
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
 from druid_tpu_torch.data import cascade
-from druid_tpu_torch.data.dictionary import Dictionary
+from druid_tpu_torch.data.dictionary import Dictionary, merge_dictionaries
 from druid_tpu_torch.data.segment import Segment, ValueType
 from druid_tpu_torch.query import filters as F
+from druid_tpu_torch.utils.expression import (lut_for_site, parse_expression,
+                                              rewrite_string_sites)
 
 Cols = Dict[str, torch.Tensor]
 
@@ -150,6 +158,83 @@ class TimeIntervalsNode(FilterNode):
 
     def build(self, cols):
         return time_mask(cols["__time_offset"], self.offsets)
+
+
+class ColumnCompareNode(FilterNode):
+    """dimA == dimB row by row: each dimension's ids remap into one merged
+    dictionary's ids, which then compare."""
+
+    def __init__(self, dims: Tuple[str, ...], remaps: List[np.ndarray]):
+        self.dims = dims
+        self.remaps = remaps
+
+    def required_device_columns(self):
+        return set(self.dims)
+
+    def build(self, cols):
+        dev = cols["__valid"].device
+        merged = [torch.from_numpy(r).to(dev)[cols[d].long()]
+                  for d, r in zip(self.dims, self.remaps)]
+        mask = torch.ones(cols["__valid"].shape, dtype=torch.bool,
+                          device=dev)
+        for other in merged[1:]:
+            mask &= merged[0] == other
+        return mask
+
+
+class _Bindings:
+    """An expression's bindings over staged columns, read one name at a
+    time (iterating a DecodedView would decode every packed column):
+    `extra` first (the LUTs, computed virtual columns), then the absolute
+    `__time` (int64 offset + time0, built on first use), then `cols`."""
+
+    def __init__(self, cols, time0: int, extra: Dict):
+        self.cols, self.time0, self.extra = cols, time0, extra
+
+    def __getitem__(self, name):
+        if name not in self.extra and name == "__time":
+            self.extra[name] = self.cols["__time_offset"].to(torch.int64) \
+                + self.time0
+        return self.extra[name] if name in self.extra else self.cols[name]
+
+    def __contains__(self, name):
+        return name in self.extra or name == "__time" or name in self.cols
+
+
+def expression_bindings(cols, time0: int, luts: Sequence[np.ndarray]):
+    """Bindings for evaluating an expression over staged columns: absolute
+    `__time` and the string sites' LUTs on the columns' device."""
+    dev = cols["__valid"].device
+    return _Bindings(cols, time0, {
+        "__luts": [torch.from_numpy(lut).to(dev) for lut in luts]})
+
+
+class ExpressionNode(FilterNode):
+    """Expression filter evaluated on the device (utils/expression.py).
+    Comparisons of a string dimension with a literal are rewritten at plan
+    time into per-dictionary-id LUT gathers (`rewrite_string_sites`), so
+    only ids and numbers reach the device; any other use of a string
+    dimension raises."""
+
+    def __init__(self, expression: str, time0: int, segment: Segment):
+        self.expression = expression
+        self.time0 = time0
+        self.expr, sites = rewrite_string_sites(
+            parse_expression(expression), frozenset(segment.dims))
+        self.luts = [lut_for_site(s, segment.dims[s[0]].dictionary.values)
+                     for s in sites]
+
+    def required_device_columns(self):
+        return set(self.expr.required_columns())
+
+    def build(self, cols):
+        out = self.expr.evaluate(expression_bindings(cols, self.time0,
+                                                     self.luts))
+        if torch.is_tensor(out):
+            return out.to(torch.bool)
+        v = cols["__valid"]
+        return torch.full(v.shape, bool(out), dtype=torch.bool,
+                          device=v.device)
 
 
 class _NaryNode(FilterNode):
@@ -393,6 +478,20 @@ def _dictionary_lut(d: Dictionary, pred) -> np.ndarray:
 
 
 def _string_predicate(flt: F.DimFilter):
+    """Value-level predicate of a single-dimension string filter, or None
+    for a filter that has none. An extraction_fn transforms each value
+    before the predicate (None reads as "")."""
+    ex = getattr(flt, "extraction_fn", None)
+    if ex is not None:
+        base = _string_predicate(dataclasses.replace(flt,
+                                                     extraction_fn=None))
+        if base is None:
+            return None
+
+        def extracted(v, _base=base, _ex=ex):
+            out = _ex.apply(v)
+            return _base("" if out is None else out)
+        return extracted
     if isinstance(flt, F.SelectorFilter):
         target = "" if flt.value is None else flt.value
         return lambda v: v == target
@@ -426,7 +525,18 @@ def _string_predicate(flt: F.DimFilter):
                 return False
             return True
         return lex_pred
-    raise NotImplementedError(f"string filter {type(flt).__name__}")
+    if isinstance(flt, F.LikeFilter):
+        rx = re.compile(flt.regex())
+        return lambda v: rx.match(v) is not None
+    if isinstance(flt, F.RegexFilter):
+        rx = re.compile(flt.pattern)
+        return lambda v: rx.search(v) is not None
+    if isinstance(flt, F.SearchFilter):
+        if flt.case_sensitive:
+            return lambda v: flt.value in v
+        needle = flt.value.lower()
+        return lambda v: needle in v.lower()
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -434,17 +544,20 @@ def _string_predicate(flt: F.DimFilter):
 # ---------------------------------------------------------------------------
 
 def plan_filter(flt: Optional[F.DimFilter], segment: Segment,
+                virtual_columns: Sequence = (),
                 device_bitmap: Optional[bool] = None
                 ) -> Optional[FilterNode]:
     """Plan `flt` for `segment` and fold its constants: None (no filter),
     a ConstNode(False) root (nothing matches), or a constant-free tree.
+    A numeric leaf on one of `virtual_columns` compares the computed column.
     device_bitmap: plan maximal bitmap-eligible subtrees to
     DeviceBitmapNodes (None = the process default)."""
     if flt is None:
         return None
     use_bitmap = device_bitmap_enabled() if device_bitmap is None \
         else device_bitmap
-    node = _simplify(_plan(flt.optimize(), segment, use_bitmap))
+    vc_types = {v.name: v.output_type for v in virtual_columns}
+    node = _simplify(_plan(flt.optimize(), segment, vc_types, use_bitmap))
     if isinstance(node, ConstNode) and node.value:
         return None
     assign_bitmap_slots(node)
@@ -452,7 +565,6 @@ def plan_filter(flt: Optional[F.DimFilter], segment: Segment,
 
 
 _I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
-_BITMAP_LEAVES = (F.SelectorFilter, F.InFilter, F.BoundFilter)
 
 
 def can_use_bitmap(flt: F.DimFilter, segment: Segment) -> bool:
@@ -463,7 +575,8 @@ def can_use_bitmap(flt: F.DimFilter, segment: Segment) -> bool:
         return all(can_use_bitmap(f, segment) for f in flt.fields)
     if isinstance(flt, F.NotFilter):
         return can_use_bitmap(flt.field, segment)
-    return isinstance(flt, _BITMAP_LEAVES) and flt.dimension in segment.dims
+    return getattr(flt, "dimension", None) in segment.dims \
+        and _string_predicate(flt) is not None
 
 
 def _bitmap_compilable(flt: F.DimFilter, segment: Segment) -> bool:
@@ -481,7 +594,7 @@ def _bitmap_compilable(flt: F.DimFilter, segment: Segment) -> bool:
     return has_leaf(flt)
 
 
-def _plan(flt: F.DimFilter, segment: Segment,
+def _plan(flt: F.DimFilter, segment: Segment, vc_types: Dict[str, str],
           use_bitmap: bool = False) -> FilterNode:
     if isinstance(flt, F.TrueFilter):
         return ConstNode(True)
@@ -491,21 +604,43 @@ def _plan(flt: F.DimFilter, segment: Segment,
         # a maximal eligible subtree is one node; mixed trees recurse
         return DeviceBitmapNode(flt, segment)
     if isinstance(flt, F.AndFilter):
-        return AndNode([_plan(f, segment, use_bitmap) for f in flt.fields])
+        return AndNode([_plan(f, segment, vc_types, use_bitmap)
+                        for f in flt.fields])
     if isinstance(flt, F.OrFilter):
-        return OrNode([_plan(f, segment, use_bitmap) for f in flt.fields])
+        return OrNode([_plan(f, segment, vc_types, use_bitmap)
+                       for f in flt.fields])
     if isinstance(flt, F.NotFilter):
-        return NotNode(_plan(flt.field, segment, use_bitmap))
+        return NotNode(_plan(flt.field, segment, vc_types, use_bitmap))
     if isinstance(flt, F.IntervalFilter):
         if flt.dimension != "__time":
             raise ValueError("interval filter supported on __time only")
         return TimeIntervalsNode(
             interval_offsets(flt.intervals, segment.interval.start))
+    if isinstance(flt, F.ColumnComparisonFilter):
+        dicts = []
+        for d in flt.dimensions:
+            col = segment.dims.get(d)
+            if col is None:
+                raise ValueError(f"columnComparison on non-string dim {d!r}")
+            dicts.append(col.dictionary)
+        _, remaps = merge_dictionaries(dicts)
+        return ColumnCompareNode(flt.dimensions, remaps)
+    if isinstance(flt, F.ExpressionFilter):
+        return ExpressionNode(flt.expression, segment.interval.start, segment)
 
-    dim = flt.dimension
+    dim = getattr(flt, "dimension", None)
+    if dim is None:
+        raise ValueError(f"cannot plan filter {flt!r}")
     if dim in segment.dims:
+        pred = _string_predicate(flt)
+        if pred is None:
+            raise ValueError(f"cannot plan string filter {flt!r}")
         return LutNode(dim, _dictionary_lut(segment.dims[dim].dictionary,
-                                            _string_predicate(flt)))
+                                            pred))
+    if getattr(flt, "extraction_fn", None) is not None:
+        # numeric and time columns have no dictionary to transform
+        raise ValueError(
+            f"extractionFn filter on non-string column [{dim}]")
     if dim == "__time":
         colname, conv, narrow = "__time_offset", (
             lambda s: min(max(int(s) - segment.interval.start,
@@ -518,6 +653,10 @@ def _plan(flt: F.DimFilter, segment: Segment,
         # staged int32 (every value fits int32 — that is why it did)
         narrow = vt == ValueType.LONG \
             and segment.staged_dtype(dim) == np.int32
+    elif dim in vc_types:
+        # a virtual column compares in its output dtype
+        colname, narrow = dim, False
+        conv = int if vc_types[dim] == "long" else float
     else:
         # missing column: selector of null matches all rows, else none
         if isinstance(flt, F.SelectorFilter) and flt.value in (None, ""):
@@ -551,8 +690,8 @@ def _plan(flt: F.DimFilter, segment: Segment,
             return ConstNode(True)
         return NumericCmpNode(colname, lo, hi, flt.lower_strict,
                               flt.upper_strict)
-    raise NotImplementedError(
-        f"filter {type(flt).__name__} on numeric column {dim!r}")
+    raise ValueError(
+        f"cannot plan filter {type(flt).__name__} on numeric column")
 
 
 def _simplify(node: FilterNode) -> FilterNode:
@@ -717,3 +856,15 @@ def stage_device_bitmaps(segment: Segment, filter_node: Optional[FilterNode],
             key, lambda n=node: _fill_single(segment, n, padded_rows, device,
                                              perm, perm_key))
     return out
+
+
+def _bind_string_dims(expr, segment: Segment, bindings: Dict) -> None:
+    """Bind every string dimension `expr` references as its DECODED value
+    array (object dtype), for host evaluation with numpy: string
+    comparisons then follow the reference's lexicographic semantics
+    directly."""
+    for c in expr.required_columns():
+        if c in segment.dims and c not in bindings:
+            col = segment.dims[c]
+            vals = np.asarray(list(col.dictionary.values), dtype=object)
+            bindings[c] = vals[col.ids]

@@ -68,11 +68,14 @@ from druid_tpu_torch.data.segment import Segment
 from druid_tpu_torch.engine import megakernel, rundomain
 from druid_tpu_torch.engine import sorted_reduce as sorted_reduce_mod
 from druid_tpu_torch.engine.filters import (ConstNode, FilterNode,
+                                            expression_bindings,
                                             interval_offsets, perm_digest,
                                             plan_filter, stage_device_bitmaps,
                                             time_mask)
 from druid_tpu_torch.engine.kernels import AggKernel, make_kernel
 from druid_tpu_torch.engine.mmagg import MM_GROUP_LIMIT, mm_reduce
+from druid_tpu_torch.utils.expression import (lut_for_site, parse_expression,
+                                              rewrite_string_sites)
 from druid_tpu_torch.utils.granularity import Granularity
 from druid_tpu_torch.utils.intervals import Interval
 
@@ -102,11 +105,26 @@ def pad_pow2(n: int, floor: int = 8) -> int:
 
 @dataclass
 class KeyDim:
-    """One grouping dimension: an ids column with its cardinality.
-    column=None means the dimension is absent from the segment — it
-    contributes the constant id 0 (value "")."""
+    """One grouping dimension: an ids column (through an optional remap)
+    with its output cardinality. column=None means the dimension is absent
+    from the segment — it contributes the constant id 0 (value "").
+
+    `remap` (int32 [input cardinality] -> output id, or -1 to drop the row)
+    carries an extraction or listFiltered dimension spec. `host_ids` set
+    means the ids are a derived host array, not a segment column (a numeric
+    or expression dimension's query-time dictionary): `column` is then a
+    synthetic name the block stages the array under, and `ids_key` its
+    cache identity."""
     column: Optional[str]
     cardinality: int
+    remap: Optional[np.ndarray] = None
+    host_ids: Optional[np.ndarray] = None
+    ids_key: Optional[Tuple] = None
+
+    def ids(self, segment: Segment) -> np.ndarray:
+        """The input ids per row (host), before the remap."""
+        return self.host_ids if self.host_ids is not None \
+            else segment.dims[self.column].ids
 
 
 @dataclass
@@ -145,12 +163,14 @@ class SegmentPartial:
 
 
 def _dims_key(dims: Sequence[KeyDim]) -> Tuple:
-    return tuple((d.column, d.cardinality) for d in dims)
+    return tuple((d.column, d.cardinality,
+                  None if d.remap is None else d.remap.tobytes(), d.ids_key)
+                 for d in dims)
 
 
 def _fused_raw_keys(segment: Segment, spec: GroupSpec) -> np.ndarray:
     """Host: int64 fused (bucket, dim ids) key per row; -1 = invalid row
-    (out of the bucket range)."""
+    (out of the bucket range, or a value its dimension's remap drops)."""
     if spec.bucket_mode == "all":
         b = np.zeros(segment.n_rows, dtype=np.int64)
     elif spec.bucket_mode == "uniform":
@@ -164,7 +184,11 @@ def _fused_raw_keys(segment: Segment, spec: GroupSpec) -> np.ndarray:
     for d in spec.dims:
         if d.column is None:
             continue
-        key = key * d.cardinality + segment.dims[d.column].ids
+        ids = d.ids(segment)
+        if d.remap is not None:
+            ids = d.remap[ids]
+            valid &= ids >= 0
+        key = key * d.cardinality + ids
     return np.where(valid, key, -1)
 
 
@@ -327,8 +351,13 @@ def windowed_window(segment: Segment, intervals: Sequence[Interval],
             ok = b >= 0
         k = b
         for d in spec.dims:
-            if d.column is not None:
-                k = k * d.cardinality + segment.dims[d.column].ids
+            if d.column is None:
+                continue
+            ids = d.ids(segment)
+            if d.remap is not None:
+                ids = d.remap[ids]
+                ok = ok & (ids >= 0)
+            k = k * d.cardinality + np.maximum(ids, 0)
         return _max_block_span(k, ok)
 
     span = segment.aux_cached(key, _compute)
@@ -340,15 +369,22 @@ def windowed_window(segment: Segment, intervals: Sequence[Interval],
 
 def select_strategy(spec: GroupSpec, kernels: Sequence[AggKernel],
                     col_dtypes: Dict, padded_rows: int,
-                    windowed_w: Union[int, Callable[[], int]]
-                    ) -> Tuple[str, int]:
+                    windowed_w: Union[int, Callable[[], int]],
+                    vc_dtypes: Optional[Dict] = None) -> Tuple[str, int]:
     """The reference's choice of reduction strategy for one (segment, query)
     plan: (strategy, window). `col_dtypes` are the staged dtypes (never read
-    off tensors); `windowed_w` is W or 0, or a callable run only when the
-    windowed strategy is a candidate (the host span check)."""
+    off tensors), without the virtual columns, as the reference plans;
+    `windowed_w` is W or 0, or a callable run only when the windowed
+    strategy is a candidate (the host span check).
+
+    `vc_dtypes` are the virtual columns' output dtypes. A kernel over a
+    virtual column plans as over a missing column, except that mm needs its
+    plan over the computed dtype: the reference takes mm with a LONG or
+    DOUBLE virtual sum, which has no mm plan, and fails at trace time; the
+    port goes on down the reference's order."""
     num = spec.num_total
-    mm_ok = all(k.mm_plan(col_dtypes, padded_rows) is not None
-                for k in kernels)
+    mm_ok = all(k.mm_plan({**col_dtypes, **(vc_dtypes or {})},
+                          padded_rows) is not None for k in kernels)
     blocked_ok = all(k.blocked_supported(col_dtypes) for k in kernels)
 
     def window() -> int:
@@ -386,12 +422,17 @@ def select_strategy(spec: GroupSpec, kernels: Sequence[AggKernel],
 
 
 def _projection_strategy(proj: Projection, kernels: Sequence[AggKernel],
-                         col_dtypes: Dict, num_total: int) -> Tuple[str, int]:
+                         col_dtypes: Dict, num_total: int,
+                         vc_dtypes: Optional[Dict] = None) -> Tuple[str, int]:
     """The reduction over the sorted compacted layout: kernel B1 when its
     caps hold, else the windowed reduction when the span fits a window, else
-    scatter."""
+    scatter. B1 takes the virtual columns at their computed dtypes
+    (`vc_dtypes`): the reference plans them as missing columns, and its
+    kernel then has no op for a DOUBLE or LONG virtual sum; the port goes
+    on to the windowed reduction there."""
     span = proj.max_span
-    if sorted_reduce_mod.usable(kernels, col_dtypes, span, num_total):
+    if sorted_reduce_mod.usable(kernels, {**col_dtypes, **(vc_dtypes or {})},
+                                span, num_total):
         return "projection", span
     for w in WINDOW_CHOICES:
         if span <= w:
@@ -526,6 +567,60 @@ def _windowed_reduce(arrays: Dict, mask: torch.Tensor, key: torch.Tensor,
     return counts, tuple(states)
 
 
+#: a virtual column's dtype per outputType (anything else: double)
+_VC_DTYPES = {"long": "int64", "double": "float64", "float": "float32"}
+
+
+def vc_dtype(output_type: str) -> str:
+    return _VC_DTYPES.get(output_type, "float64")
+
+
+def plan_virtual_columns(segment: Segment, virtual_columns: Sequence
+                         ) -> Tuple[Tuple, List[np.ndarray]]:
+    """Per-(segment, query) virtual-column plan: each expression parsed, its
+    string-dimension comparisons rewritten into per-dictionary-id LUT
+    gathers (`rewrite_string_sites`; any other use of a string dimension
+    raises). Returns ((name, rewritten expr, output type, LUT count), ...)
+    and the LUTs in order."""
+    plans = []
+    luts: List[np.ndarray] = []
+    string_dims = frozenset(segment.dims)
+    for v in virtual_columns:
+        expr, sites = rewrite_string_sites(parse_expression(v.expression),
+                                           string_dims)
+        luts.extend(lut_for_site(site, segment.dims[site[0]].dictionary
+                                 .values) for site in sites)
+        plans.append((v.name, expr, v.output_type, len(sites)))
+    return tuple(plans), luts
+
+
+def eval_virtual_columns(arrays, time0: int, vc_plans: Tuple,
+                         luts: Sequence[np.ndarray]):
+    """Evaluate the planned virtual columns over the staged block on its
+    device (the reference's ExpressionVirtualColumn): each becomes a
+    [padded_rows] tensor of its output dtype in `arrays` (a dict or a
+    DecodedView, updated in place and returned); a later virtual column
+    may read an earlier one. `__time` is the absolute time (int64 offset
+    + time0) of the block's rows, in its (possibly permuted) order."""
+    bindings = expression_bindings(arrays, time0, luts)
+    all_luts = bindings.extra["__luts"]
+    shape = arrays["__valid"].shape
+    at = 0
+    for name, expr, out_type, n_luts in vc_plans:
+        bindings.extra["__luts"] = all_luts[at:at + n_luts]
+        at += n_luts
+        val = expr.evaluate(bindings)
+        dt = getattr(torch, vc_dtype(out_type))
+        if torch.is_tensor(val):
+            val = val.to(dt).expand(shape).contiguous()
+        else:
+            val = torch.full(shape, val, dtype=dt,
+                             device=arrays["__valid"].device)
+        arrays[name] = val
+        bindings.extra[name] = val
+    return arrays
+
+
 def fuse_filter_update(arrays: Dict[str, torch.Tensor], mask: torch.Tensor,
                        key: torch.Tensor, dims: Sequence[KeyDim],
                        filter_node: Optional[FilterNode],
@@ -536,12 +631,18 @@ def fuse_filter_update(arrays: Dict[str, torch.Tensor], mask: torch.Tensor,
     kernel's reduction by the strategy (`span` is B1/B2's projection span or
     the windowed strategy's W). `arrays` is the dense view (a dict or a
     cascade.DecodedView); `packed_cols` are the packed columns that kernels
-    B1/B2 read as words. Returns (counts, per-kernel states) as device
-    tensors."""
+    B1/B2 read as words. A dimension's remap maps its ids first, and a -1
+    drops the row. Returns (counts, per-kernel states) as device tensors."""
     key = key.to(torch.int64)
     for d in dims:
-        if d.column is not None:
-            key = key * d.cardinality + arrays[d.column].to(torch.int64)
+        if d.column is None:
+            continue
+        ids = arrays[d.column].to(torch.int64)
+        if d.remap is not None:
+            ids = torch.from_numpy(d.remap).to(ids.device)[ids] \
+                .to(torch.int64)
+            mask = mask & (ids >= 0)
+        key = key * d.cardinality + ids.clamp_min(0)
     if strategy == "megakernel":
         # top-level mega conjuncts stay words into kernel B2; only the
         # residual tree builds a row mask
@@ -612,6 +713,9 @@ def staged_col_dtypes(segment: Segment, spec: GroupSpec,
     col_dtypes = {"__time_offset": np.dtype(np.int32),
                   "__valid": np.dtype(bool)}
     col_dtypes.update({c: segment.staged_dtype(c) for c in needed})
+    if spec.key_mode == "dense":
+        col_dtypes.update({d.column: np.dtype(np.int32) for d in spec.dims
+                           if d.host_ids is not None})
     if spec.key_mode == "host":
         col_dtypes["__key"] = np.dtype(np.int32)
     elif spec.bucket_mode == "host":
@@ -621,12 +725,14 @@ def staged_col_dtypes(segment: Segment, spec: GroupSpec,
 
 def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
                           granularity: Granularity, dims: Sequence[KeyDim],
-                          aggs: Sequence, flt,
-                          device: torch.device) -> SegmentPartial:
+                          aggs: Sequence, flt, device: torch.device,
+                          virtual_columns: Sequence = ()) -> SegmentPartial:
     """Execute the grouped aggregation for one segment on `device`; returns
-    host partials."""
+    host partials. `virtual_columns` are evaluated over the staged block on
+    `device` before the filter and every reduction."""
     spec = make_group_spec(segment, intervals, granularity, dims)
-    filter_node = plan_filter(flt, segment)
+    vc_plans, vc_luts = plan_virtual_columns(segment, virtual_columns)
+    filter_node = plan_filter(flt, segment, virtual_columns)
     kernels = [make_kernel(a, segment) for a in aggs]
 
     if isinstance(filter_node, ConstNode) and not filter_node.value:
@@ -641,7 +747,7 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
     # query reads is constant within one shared run partition, the
     # aggregate runs over run tables; no row-width column stages
     rd = rundomain.try_run_domain(segment, intervals, granularity, spec,
-                                  kernels, flt, device)
+                                  kernels, flt, device, virtual_columns)
     if rd is not None:
         counts, states = rd
         spec.strategy = "runDomain"
@@ -662,17 +768,24 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
         # none
         kc = k.required_device_columns()
         base_needed |= a.required_columns() if kc is None else kc
+    # a virtual column's inputs stage; the column itself is computed
+    for _, expr, _, _ in vc_plans:
+        base_needed |= expr.required_columns()
+    base_needed -= {v.name for v in virtual_columns}
     base_needed = {c for c in base_needed
                    if c in segment.dims or c in segment.metrics}
     needed = set(base_needed)
     if spec.key_mode == "dense":
-        needed |= {d.column for d in spec.dims if d.column is not None}
+        needed |= {d.column for d in spec.dims
+                   if d.column is not None and d.host_ids is None}
 
     padded_rows = segment.padded_rows()
     col_dtypes = staged_col_dtypes(segment, spec, needed)
+    vc_dtypes = {v.name: vc_dtype(v.output_type) for v in virtual_columns}
     spec.strategy, spec.window = select_strategy(
         spec, kernels, col_dtypes, padded_rows,
-        lambda: windowed_window(segment, intervals, granularity, spec))
+        lambda: windowed_window(segment, intervals, granularity, spec),
+        vc_dtypes)
 
     perm, perm_key, words = None, None, ()
     if spec.strategy == "projection":
@@ -689,9 +802,11 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
         needed = base_needed  # key prefused: dim columns stay on the host
         col_dtypes = staged_col_dtypes(segment, spec, needed)
         spec.strategy, spec.window = _projection_strategy(
-            proj, kernels, col_dtypes, spec.num_total)
+            proj, kernels, col_dtypes, spec.num_total, vc_dtypes)
         if spec.strategy == "projection":
-            # B1 (or B2) reads these as words where they pack
+            # B1 (or B2) reads these as words where they pack; a virtual
+            # column is not staged (it plans as a missing column), so it is
+            # never asked for as words and B1/B2 read it dense
             words = sorted_reduce_mod.value_fields(kernels, col_dtypes)
 
     # bitmap subtrees whose combined words are not cached fuse into the
@@ -707,6 +822,18 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
     # packed value columns go to B1/B2 as words; everything else reads the
     # dense view, which decodes a column on its first read
     packed_cols, arrays = cascade_mod.split_resident(block.arrays)
+    if vc_plans:
+        # over the staged (on the projection path, permuted) rows, before
+        # the filter and every reduction
+        eval_virtual_columns(arrays, segment.interval.start, vc_plans,
+                             vc_luts)
+    if spec.key_mode == "dense":
+        for d in spec.dims:
+            if d.host_ids is not None:
+                # a derived id column (numeric or expression dimension)
+                arrays[d.column] = _pad_device(
+                    segment, d.ids_key, d.host_ids, block.padded_rows, 0,
+                    device)
     # staged combined words and fused leaf words, in the projection's row
     # order on that path
     arrays.update(stage_device_bitmaps(segment, filter_node,

@@ -169,7 +169,10 @@ def _exact_int_sum(w: torch.Tensor, chunk: int) -> torch.Tensor:
     runs of at most `chunk` rows (a SumKernel's chunk_rows, under which a
     partial stays below 2^30), then int64 across runs. Summing int32 in
     int32 reads `w` once; an int64 sum of it would first write an int64
-    copy."""
+    copy. chunk 0 (no bound: an int64 column, such as a LONG virtual
+    column) sums in int64 directly."""
+    if not chunk:
+        return w.sum(-1, dtype=torch.int64)
     n = w.shape[-1]
     full = n // chunk * chunk
     out = w[..., full:].sum(-1, dtype=torch.int32).to(torch.int64)
@@ -284,8 +287,14 @@ class SumKernel(AggKernel):
         if self.spec.field not in cols_block:
             return carry
         v = cols_block[self.spec.field].unsqueeze(-2)
-        if self.vtype is ValueType.FLOAT:
+        if v.dtype.is_floating_point and self.vtype is not ValueType.LONG:
+            # a float column, or a DOUBLE virtual column (float64): summed
+            # in its own dtype, as the scatter update sums it
             return carry + torch.where(valid, v, 0.0).sum(-1)
+        if v.dtype.is_floating_point:
+            # a LONG sum over a float virtual column truncates each row, as
+            # the scatter update does
+            v = v.to(torch.int64)
         return carry + _exact_int_sum(torch.where(valid, v, 0),
                                       self.chunk_rows)
 

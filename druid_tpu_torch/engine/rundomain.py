@@ -15,11 +15,13 @@ are cached on the segment. Float sums, whose bits follow the summation
 order, never run here, so the results equal the row program's bit for bit.
 
 `run_grouped_aggregate` tries this first for every segment; the plan refuses
-(None) a non-dense key, a granularity that is neither "all" nor uniform, an
-interval that does not cover the segment, a filter node that reads rows
-(time intervals, bitmap words), an aggregator other than count, LONG sum and
-min/max, and a joint partition finer than n_rows / 16 or above
-CASCADE_MAX_RUNS runs. PyTorch runs eagerly: there is no program cache.
+(None) virtual columns, a dimension with derived host ids (numeric and
+expression dimensions), a non-dense key, a granularity that is neither
+"all" nor uniform, an interval that does not cover the segment, a filter
+node that reads rows (time intervals, bitmap words, expressions, column
+comparisons), an aggregator other than count, LONG sum and min/max, and a
+joint partition finer than n_rows / 16 or above CASCADE_MAX_RUNS runs. An
+extraction or listFiltered dimension's remap applies to each run's id. PyTorch runs eagerly: there is no program cache.
 """
 from __future__ import annotations
 
@@ -90,20 +92,23 @@ def _plan_run_kernel(k: AggKernel, segment: Segment) -> Optional[_RunKernel]:
 
 
 def _plan_run_domain(segment: Segment, intervals, granularity, spec,
-                     kernels: Sequence[AggKernel], flt):
+                     kernels: Sequence[AggKernel], flt,
+                     virtual_columns: Sequence = ()):
     """None, or (run filter node, run kernels, partition columns, bucket,
     (starts, lengths, n_runs)) when the whole grouped aggregate can run over
     run tables. Memoized on the spec."""
     if spec._cascade_run_plan is None:
         spec._cascade_run_plan = (_plan_run_domain_uncached(
-            segment, intervals, granularity, spec, kernels, flt),)
+            segment, intervals, granularity, spec, kernels, flt,
+            virtual_columns),)
     return spec._cascade_run_plan[0]
 
 
 def _plan_run_domain_uncached(segment, intervals, granularity, spec, kernels,
-                              flt):
-    if not cascade.run_domain_enabled() or segment.n_rows == 0:
-        return None
+                              flt, virtual_columns):
+    if not cascade.run_domain_enabled() or segment.n_rows == 0 \
+            or virtual_columns:
+        return None                       # a virtual column reads rows
     if spec.bucket_mode not in ("all", "uniform") or spec.key_mode != "dense":
         return None
     if not any(iv.start <= segment.min_time and iv.end > segment.max_time
@@ -119,6 +124,8 @@ def _plan_run_domain_uncached(segment, intervals, granularity, spec, kernels,
             return None
         bucket = (int(spec.bucket_starts[0]), int(granularity.period_ms),
                   spec.num_buckets)
+    if any(d.host_ids is not None for d in spec.dims):
+        return None                       # a derived id column is row space
     cols = set()
     for d in spec.dims:
         if d.column is not None:
@@ -255,11 +262,12 @@ def _run_update(rk: _RunKernel, cols: Dict[str, torch.Tensor],
 
 
 def try_run_domain(segment: Segment, intervals, granularity, spec,
-                   kernels: Sequence[AggKernel], flt, device: torch.device):
+                   kernels: Sequence[AggKernel], flt, device: torch.device,
+                   virtual_columns: Sequence = ()):
     """One segment's grouped aggregate in run space when the plan allows:
     (counts int64 [num_total], per-kernel device states), else None."""
     plan = _plan_run_domain(segment, intervals, granularity, spec, kernels,
-                            flt)
+                            flt, virtual_columns)
     if plan is None:
         return None
     fnode, rkernels, pkey, bucket, (starts, lengths, nr) = plan
@@ -297,9 +305,15 @@ def try_run_domain(segment: Segment, intervals, granularity, spec,
     else:
         key = torch.zeros(rpad, dtype=torch.int64, device=device)
     for d in spec.dims:
-        if d.column is not None:
-            key = key * d.cardinality + cols[d.column].to(torch.int64) \
-                .clamp_min(0)
+        if d.column is None:
+            continue
+        ids = cols[d.column].to(torch.int64)
+        if d.remap is not None:
+            # an extraction / listFiltered dimension: a -1 drops the run
+            ids = torch.from_numpy(d.remap).to(device)[ids.clamp_min(0)] \
+                .to(torch.int64)
+            mask = mask & (ids >= 0)
+        key = key * d.cardinality + ids.clamp_min(0)
     if fnode is not None:
         mask = mask & fnode.build(cols)
     key = key.clamp(0, spec.num_total - 1)

@@ -1,16 +1,19 @@
 """Dimension filter model: the JSON filter tree of a native query.
 
-The port's copy of the reference package's `query/filters.py`, cut to the
-filter types the aggregate path plans here: selector, in, bound, interval,
-and/or/not and the constant true/false. Any other type, and any filter with
-an extractionFn, raises NotImplementedError. Planning a filter into a row
-mask lives in engine/filters.py.
+The port's copy of the reference package's `query/filters.py`: selector,
+in, bound, like, regex and search (each with an optional extractionFn),
+interval, columnComparison, expression, and/or/not and the constant
+true/false. The spatial and javascript filters are not ported and raise
+NotImplementedError; an unknown type raises ValueError, as in the
+reference. Planning a filter into a row mask lives in engine/filters.py.
 """
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
+from druid_tpu_torch.utils.expression import parse_expression
 from druid_tpu_torch.utils.intervals import Interval, normalize_intervals
 
 
@@ -36,9 +39,12 @@ class FalseFilter(DimFilter):
 
 @dataclass(frozen=True)
 class SelectorFilter(DimFilter):
-    """dimension == value (reference: query/filter/SelectorDimFilter.java)."""
+    """dimension == value (reference: query/filter/SelectorDimFilter.java).
+    An optional extraction_fn transforms each dictionary value before the
+    comparison."""
     dimension: str
     value: Optional[str]
+    extraction_fn: Optional[object] = None
 
     def required_columns(self):
         return {self.dimension}
@@ -49,13 +55,15 @@ class InFilter(DimFilter):
     """dimension IN (values) (reference: query/filter/InDimFilter.java)."""
     dimension: str
     values: Tuple[Optional[str], ...]
+    extraction_fn: Optional[object] = None
 
     def required_columns(self):
         return {self.dimension}
 
     def optimize(self):
         if len(self.values) == 1:
-            return SelectorFilter(self.dimension, self.values[0])
+            return SelectorFilter(self.dimension, self.values[0],
+                                  self.extraction_fn)
         return self
 
 
@@ -69,6 +77,62 @@ class BoundFilter(DimFilter):
     lower_strict: bool = False
     upper_strict: bool = False
     ordering: str = "lexicographic"  # or "numeric"
+    extraction_fn: Optional[object] = None
+
+    def required_columns(self):
+        return {self.dimension}
+
+
+@dataclass(frozen=True)
+class LikeFilter(DimFilter):
+    """SQL LIKE (reference: query/filter/LikeDimFilter.java)."""
+    dimension: str
+    pattern: str
+    escape: Optional[str] = None
+    extraction_fn: Optional[object] = None
+
+    def regex(self) -> str:
+        out, i = [], 0
+        esc = self.escape
+        p = self.pattern
+        while i < len(p):
+            c = p[i]
+            if esc and c == esc and i + 1 < len(p):
+                out.append(re.escape(p[i + 1]))
+                i += 2
+                continue
+            if c == "%":
+                out.append(".*")
+            elif c == "_":
+                out.append(".")
+            else:
+                out.append(re.escape(c))
+            i += 1
+        return "^" + "".join(out) + "$"
+
+    def required_columns(self):
+        return {self.dimension}
+
+
+@dataclass(frozen=True)
+class RegexFilter(DimFilter):
+    """reference: query/filter/RegexDimFilter.java"""
+    dimension: str
+    pattern: str
+    extraction_fn: Optional[object] = None
+
+    def required_columns(self):
+        return {self.dimension}
+
+
+@dataclass(frozen=True)
+class SearchFilter(DimFilter):
+    """contains / insensitive contains on dimension values
+    (reference: query/filter/SearchQueryDimFilter.java)."""
+    dimension: str
+    value: str
+    case_sensitive: bool = False
+    extraction_fn: Optional[object] = None
 
     def required_columns(self):
         return {self.dimension}
@@ -82,6 +146,26 @@ class IntervalFilter(DimFilter):
 
     def required_columns(self):
         return {self.dimension}
+
+
+@dataclass(frozen=True)
+class ColumnComparisonFilter(DimFilter):
+    """dimA == dimB row by row
+    (reference: query/filter/ColumnComparisonDimFilter.java)."""
+    dimensions: Tuple[str, ...]
+
+    def required_columns(self):
+        return set(self.dimensions)
+
+
+@dataclass(frozen=True)
+class ExpressionFilter(DimFilter):
+    """Expression-language predicate
+    (reference: query/filter/ExpressionDimFilter.java)."""
+    expression: str
+
+    def required_columns(self):
+        return set(parse_expression(self.expression).required_columns())
 
 
 def _flatten(fields, cls, absorbing, neutral):
@@ -144,24 +228,46 @@ class NotFilter(DimFilter):
 
 
 def filter_from_json(j: Optional[dict]) -> Optional[DimFilter]:
-    """JSON-polymorphic deserialization of the supported filter types."""
+    """JSON-polymorphic deserialization, as the reference's filter_from_json
+    (Jackson @JsonSubTypes on DimFilter)."""
     if j is None:
         return None
     t = j["type"]
+    if t in ("spatial", "javascript"):
+        raise NotImplementedError(f"filter type {t!r}")
+    exfn = None
     if j.get("extractionFn") is not None:
-        raise NotImplementedError(f"extractionFn on a {t!r} filter")
+        # lazy: extraction fns live in query.model, which imports this module
+        from druid_tpu_torch.query.model import extractionfn_from_json
+        exfn = extractionfn_from_json(j["extractionFn"])
+        if t not in ("selector", "in", "bound", "like", "regex", "search"):
+            # silently dropping the fn would return wrong rows
+            raise ValueError(f"extractionFn unsupported on filter type {t!r}")
     if t == "selector":
-        return SelectorFilter(j["dimension"], j.get("value"))
+        return SelectorFilter(j["dimension"], j.get("value"), exfn)
     if t == "in":
-        return InFilter(j["dimension"], tuple(j["values"]))
+        return InFilter(j["dimension"], tuple(j["values"]), exfn)
     if t == "bound":
         return BoundFilter(j["dimension"], j.get("lower"), j.get("upper"),
                            j.get("lowerStrict", False),
                            j.get("upperStrict", False),
-                           j.get("ordering", "lexicographic"))
+                           j.get("ordering", "lexicographic"), exfn)
+    if t == "like":
+        return LikeFilter(j["dimension"], j["pattern"], j.get("escape"),
+                          exfn)
+    if t == "regex":
+        return RegexFilter(j["dimension"], j["pattern"], exfn)
+    if t == "search":
+        q = j.get("query", {})
+        return SearchFilter(j["dimension"], q.get("value", ""),
+                            q.get("caseSensitive", False), exfn)
     if t == "interval":
         return IntervalFilter(j["dimension"],
                               tuple(normalize_intervals(j["intervals"])))
+    if t == "columnComparison":
+        return ColumnComparisonFilter(tuple(j["dimensions"]))
+    if t == "expression":
+        return ExpressionFilter(j["expression"])
     if t == "and":
         return AndFilter(tuple(filter_from_json(f) for f in j["fields"]))
     if t == "or":
@@ -172,4 +278,4 @@ def filter_from_json(j: Optional[dict]) -> Optional[DimFilter]:
         return TrueFilter()
     if t == "false":
         return FalseFilter()
-    raise NotImplementedError(f"filter type {t!r}")
+    raise ValueError(f"unknown filter type {t!r}")

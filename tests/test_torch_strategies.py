@@ -1,8 +1,9 @@
 """The port's reduction strategies against the reference package.
 
 (a) Selection parity: over a grid of group spaces (8 ... 2^17, dense and
-    host key modes), aggregator mixes, long ranges (small, negative, wide,
-    constant), a float column with a NaN, sorted and unsorted segments, the
+    host key modes), aggregator mixes (one over a FLOAT virtual column,
+    which both packages plan as a missing column), long ranges (small,
+    negative, wide, constant), a float column with a NaN, sorted and unsorted segments, the
     projection's row floor on and off, and every FORCE_STRATEGY value, the
     port's `select_strategy` returns the reference's (strategy, window).
 (b) Query parity per strategy: mm, blocked, windowed, the mixed hybrid and
@@ -104,7 +105,12 @@ MIXES = {
     "count": [("count", None)],
     "minmax": [("count", None), ("longMax", "metLong"),
                ("doubleMin", "metFloat")],
+    # "vf": a FLOAT virtual column (computed, never staged)
+    "vc": [("count", None), ("longSum", "metLong"), ("floatMax", "vf"),
+           ("floatSum", "vf")],
 }
+#: the output dtypes of the virtual columns the mixes read
+VC_DTYPES = {"vf": "float32"}
 
 _AGG_CLASSES = {"count": "CountAggregator", "longSum": "LongSumAggregator",
                 "floatSum": "FloatSumAggregator",
@@ -178,7 +184,8 @@ def _port_selection(seg, dims, gran, mix):
     return port_grouping.select_strategy(
         spec, kernels, port_grouping.staged_col_dtypes(seg, spec, needed),
         seg.padded_rows(),
-        lambda: port_grouping.windowed_window(seg, ivs, g, spec))
+        lambda: port_grouping.windowed_window(seg, ivs, g, spec),
+        {f: VC_DTYPES[f] for _, f in MIXES[mix] if f in VC_DTYPES})
 
 
 _GRID_SEGMENTS = {}
@@ -211,6 +218,31 @@ def test_selection_matches_reference(sort_by_dims, lrange, nan, monkeypatch):
     assert {"blocked", "mm", "projection", "mixed"} <= seen
     if sort_by_dims:
         assert "windowed" in seen
+
+
+def test_selection_with_a_double_virtual_sum(monkeypatch):
+    """A DOUBLE virtual sum has no mm plan over its computed float64
+    column. The reference plans it as a missing column and can select mm
+    (then fails at trace time); the port selects as the reference does
+    everywhere else, and where the reference says mm it goes on down the
+    reference's order."""
+    key = (False, "small", False)
+    if key not in _GRID_SEGMENTS:
+        _GRID_SEGMENTS[key] = _grid_segment(*key)
+    ref_seg, port_seg = _GRID_SEGMENTS[key]
+    monkeypatch.setitem(MIXES, "vd", [("count", None),
+                                      ("doubleSum", "vd")])
+    monkeypatch.setitem(VC_DTYPES, "vd", "float64")
+    seen = set()
+    for dims, gran in SHAPES:
+        want = _ref_selection(ref_seg, dims, gran, "vd")
+        got = _port_selection(port_seg, dims, gran, "vd")
+        seen.add(want[0])
+        if want[0] == "mm":
+            assert got[0] in ("blocked", "mixed"), (dims, gran)
+        else:
+            assert got == want, (dims, gran)
+    assert "mm" in seen
 
 
 def test_selection_grid_spans_the_group_spaces():
