@@ -60,7 +60,9 @@ Phases, each fatal on failure:
      gives the same rows;
  10. run domain: the headline schema in the rollup order (8 segments of
      12.5M rows) with a constant LONG `cnt`, and 2 of them re-ordered by
-     (hour, dimA, dimB): a timeseries (all, `in` dimA), a topN on dimA, an
+     (hour, dimA, dimB): a timeseries (all, `in` dimA), a timeseries with a
+     filtered longSum of `cnt` and a filtered count (each `in` dimA), a
+     topN on dimA, an
      hourly groupBy on dimA over the hour-ordered segments, all served in
      run space (code-domain aggregation, engine/rundomain.py) on every
      segment with B1/B2 launched 0 times, and the count-only groupBy on
@@ -79,8 +81,9 @@ Phases, each fatal on failure:
      and torch.profiler's device time by kernel, with metLong as words
      (the main path's inputs) and decoded, in turns; and the warm p50 of
      each query;
- 12. expressions, on fresh headline data (run before phase 11, with the
-     B1/B2 counts set to 0 before it and read after it): X1 the headline
+ 12. expressions, on headline data generated anew (run before phase 11,
+     with the B1/B2 counts set to 0 before it and read after it): X1 the
+     headline
      groupBy with a FLOAT virtual column vf = metFloat * 2 + metLong and
      floatMax(vf) (projection, B1 x8 a run; its first B1 call held
      against the plain version, vf read dense and metLong as w16 words;
@@ -94,10 +97,25 @@ Phases, each fatal on failure:
      dimB]) (windowed over the projection: B1 has no float64 sum); X3 and
      X4 on 2 of the 8 segments (reduced). Each against numpy (exact, vf
      within 1e-6 relative, the double sum within 1e-9), with its strategy
-     per segment, cold time, warm p50 of 5 and split_times.
+     per segment, cold time, warm p50 of 5 and split_times;
+ 13. aggregators, on phase 12's segments (before phase 11, B1/B2 counts
+     set to 0 before it; both must stay 0): A1 an hourly timeseries with a
+     count and a filtered count, longSum and longMax (their bitmap trees
+     fused), again with the megakernel off and with device bitmaps off;
+     A2 a groupBy on dimA with hyperUnique(dimB, log2m 12), and the HLL
+     update's device time on segment 0 beside its bytes bound; A3 an
+     hourly timeseries with cardinality([dimA, dimB], byRow, round) and
+     cardinality([metLong]); A4 an hourly groupBy on dimA with longFirst,
+     longLast and floatLast; A5 hyperUnique over an int8 register column
+     on the (dimA, dimB) rollup of 2 segments that the script builds
+     (~410 MB of registers a segment; reduced). Each against numpy (its
+     own FNV-1a and splitmix64 hashes and estimator; registers, estimates
+     and first/last values exact), with its strategy per segment (mixed,
+     with the blocked hybrid where G <= 2048), cold time, warm p50 of 5
+     and split_times.
 The line before the last is the kernels JSON line (each kernel's
 `launches` counted on phase 6's path, `launches_expressions` on phase
-12's); the last line is
+12's, `launches_aggregators` on phase 13's); the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 import json
@@ -1621,6 +1639,17 @@ def rundomain_queries(segments):
             "intervals": [iv], "granularity": "all", "aggregations": aggs,
             "filter": {"type": "in", "dimension": "dimA",
                        "values": dim_a[0:100:2]}},
+        "timeseries_filtered": {
+            "queryType": "timeseries", "dataSource": "bench",
+            "intervals": [iv], "granularity": "all", "aggregations": [
+                aggs[0],
+                {"type": "filtered", "aggregator": aggs[1], "filter": {
+                    "type": "in", "dimension": "dimA",
+                    "values": dim_a[0:100:2]}},
+                {"type": "filtered", "aggregator": {
+                    "type": "count", "name": "fc"}, "filter": {
+                    "type": "in", "dimension": "dimA",
+                    "values": dim_a[:30]}}]},
         "topn_dima": {
             "queryType": "topN", "dataSource": "bench", "intervals": [iv],
             "granularity": "all", "dimension": "dimA", "metric": "rows",
@@ -1657,6 +1686,13 @@ def check_rundomain(name, rows, ref):
         want = int(ref["a_cnt"][0::2].sum())
         if len(rows) != 1 or (rows[0]["result"]["rows"],
                               rows[0]["result"]["c"]) != (want, want):
+            raise AssertionError(f"{name}: {rows} != {want}")
+    elif name == "timeseries_filtered":
+        v = rows[0]["result"] if len(rows) == 1 else {}
+        want = {"rows": int(ref["a_cnt"].sum()),
+                "c": int(ref["a_cnt"][0::2].sum()),
+                "fc": int(ref["a_cnt"][:30].sum())}
+        if v != want:
             raise AssertionError(f"{name}: {rows} != {want}")
     elif name == "topn_dima":
         order = np.argsort(-ref["a_cnt"], kind="stable")[:10]
@@ -2068,7 +2104,7 @@ def query_device_split(q, segment, dev):
     return {"device_ms": sum(by.values()), "top": top}
 
 
-def phase_expressions(dev):
+def phase_expressions(dev, segments):
     """X1-X4 on fresh headline segments, each against numpy, with its
     strategy per segment, cold time, warm p50 of 5 and split_times; B1's
     and B2's first calls held against their plain versions. Returns (report,
@@ -2078,17 +2114,13 @@ def phase_expressions(dev):
     from druid_tpu_torch.engine import megakernel as mk
     from druid_tpu_torch.engine import sorted_reduce as sr
     t = time.perf_counter()
-    segments = headline_segments()
-    gen_s = time.perf_counter() - t
-    t = time.perf_counter()
     ref = expression_reference(segments)
-    log(f"  generated the headline data in {gen_s:.1f} s; numpy reference "
-        f"{time.perf_counter() - t:.1f} s; X2's live row share "
-        f"{ref['x2_live_share']:.4f}")
+    log(f"  numpy reference {time.perf_counter() - t:.1f} s; X2's live row "
+        f"share {ref['x2_live_share']:.4f}")
     qs = expression_queries(segments)
     checks = {"x1": check_x1, "x2": check_x2, "x3": check_x3,
               "x4": check_x4}
-    out = {"gen_s": gen_s, "x2_live_share": ref["x2_live_share"]}
+    out = {"x2_live_share": ref["x2_live_share"]}
     errs = {"B1": 0.0, "B2": 0.0}
     sr.LAUNCHES = mk.LAUNCHES = 0
     for name, q in qs.items():
@@ -2174,9 +2206,478 @@ def phase_expressions(dev):
         log(f"  {name} on segment 0: device {sp['device_ms']:.3f} ms a "
             f"run (torch.profiler); largest: " + ", ".join(
                 f"{k[:60]} {v:.3f}" for k, v in sp["top"].items()))
-    del segments
     torch.cuda.synchronize()
     return out, launches, errs
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the first/last, filtered and HLL aggregators
+# ---------------------------------------------------------------------------
+
+#: A5 rolls up this many of the headline segments by (dimA, dimB): ~100,000
+#: rows a segment, each a 2^12-register HLL of metLong (~410 MB of int8
+#: registers a segment; reduced from 8 segments to keep the phase short)
+ROLLUP_SEGMENTS = 2
+HLL_LOG2M = 12
+U64 = (1 << 64) - 1
+
+
+def np_splitmix64(x):
+    """splitmix64 over numpy uint64 (wrapping)."""
+    x = np.asarray(x, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        x = x + np.uint64(0x9E3779B97F4A7C15)
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        return x ^ (x >> np.uint64(31))
+
+
+def np_hash_strings(values):
+    """FNV-1a over each string's UTF-8 bytes, then splitmix64."""
+    out = np.empty(len(values), dtype=np.uint64)
+    for i, v in enumerate(values):
+        h = 0xCBF29CE484222325
+        for byte in v.encode("utf-8"):
+            h = ((h ^ byte) * 0x100000001B3) & U64
+        out[i] = h
+    return np_splitmix64(out)
+
+
+def np_register_table(hashes, log2m):
+    """(register, rho) per uint64 hash: the low log2m bits pick the
+    register; rho is 1 + the leading zeros of the other 64 - log2m bits
+    (Python's bit_length, one hash at a time: tables only)."""
+    width = 64 - log2m
+    reg = np.empty(len(hashes), np.int64)
+    rho = np.empty(len(hashes), np.int64)
+    for i, h in enumerate(int(x) for x in hashes):
+        reg[i] = h & ((1 << log2m) - 1)
+        rest = h >> log2m
+        rho[i] = width - rest.bit_length() + 1 if rest else width + 1
+    return reg, rho
+
+
+def np_estimate(regs, log2m):
+    """The HLL estimate of each row of a [G, m] register grid, with the
+    small-range (linear counting) and large-range corrections."""
+    m = 1 << log2m
+    alpha = 0.7213 / (1 + 1.079 / m)
+    raw = alpha * m * m / np.power(2.0, -regs.astype(np.float64)).sum(-1)
+    zeros = (regs == 0).sum(-1)
+    with np.errstate(divide="ignore"):
+        lin = np.where(zeros > 0, m * np.log(m / np.maximum(zeros, 1)), raw)
+    out = np.where((raw <= 2.5 * m) & (zeros > 0), lin, raw)
+    two64 = 2.0 ** 64
+    return np.where(out > two64 / 30.0,
+                    -two64 * np.log1p(-out / two64), out)
+
+
+def np_registers(groups, reg, rho, n_groups, log2m):
+    """[n_groups, m] registers: the max rho of each (group, register)."""
+    regs = np.zeros((n_groups, 1 << log2m), np.int32)
+    np.maximum.at(regs, (groups, reg), rho)
+    return regs
+
+
+def rollup_segments(segments):
+    """The (dimA, dimB) rollup of each segment (port Segments built here):
+    one row per present pair at the segment's first instant, `cnt` its row
+    count and `uu` the int8 HLL registers (log2m HLL_LOG2M) of its metLong
+    values."""
+    from druid_tpu_torch.data.segment import (ComplexColumn, NumericColumn,
+                                              Segment, SegmentId,
+                                              StringDimColumn, ValueType)
+    m = 1 << HLL_LOG2M
+    reg_v, rho_v = np_register_table(
+        np_splitmix64(np.arange(10_001, dtype=np.uint64)), HLL_LOG2M)
+    out = []
+    for s in segments:
+        a = s.dims["dimA"].ids.astype(np.int64)
+        g = a * 1000 + s.dims["dimB"].ids
+        cnt = np.bincount(g, minlength=100_000)
+        live = np.flatnonzero(cnt)
+        row_of = np.full(100_000, -1, np.int64)
+        row_of[live] = np.arange(live.size)
+        v = s.metrics["metLong"].values
+        regs = np.zeros(live.size * m, np.int8)
+        np.maximum.at(regs, row_of[g] * m + reg_v[v], rho_v[v].astype(
+            np.int8))
+        out.append(Segment(
+            SegmentId("rolled", s.interval, "v1", s.id.partition),
+            np.full(live.size, s.min_time, np.int64),
+            {"dimA": StringDimColumn((live // 1000).astype(np.int32),
+                                     s.dims["dimA"].dictionary),
+             "dimB": StringDimColumn((live % 1000).astype(np.int32),
+                                     s.dims["dimB"].dictionary)},
+            {"cnt": NumericColumn(cnt[live].astype(np.int64),
+                                  ValueType.LONG),
+             "uu": ComplexColumn(regs.reshape(live.size, m),
+                                 "hyperUnique")}))
+    return out
+
+
+def aggregator_queries(segments):
+    iv = f"{DAY[0]}/{DAY[1]}"
+    dim_a = list(segments[0].dims["dimA"].dictionary.values)
+    head = segments[0].dims["dimB"].dictionary.values[dimb_head(segments)]
+    in_a = {"type": "in", "dimension": "dimA", "values": dim_a[:50]}
+    a1 = {"queryType": "timeseries", "dataSource": "bench",
+          "intervals": [iv], "granularity": "hour", "aggregations": [
+              {"type": "count", "name": "rows"},
+              {"type": "filtered", "filter": in_a, "aggregator": {
+                  "type": "count", "name": "fc"}},
+              {"type": "filtered", "aggregator": {
+                  "type": "longSum", "name": "fs", "fieldName": "metLong"},
+               "filter": {"type": "not", "field": {
+                   "type": "selector", "dimension": "dimB",
+                   "value": head}}},
+              {"type": "filtered", "aggregator": {
+                  "type": "longMax", "name": "fm", "fieldName": "metLong"},
+               "filter": {"type": "in", "dimension": "dimA",
+                          "values": dim_a[25:75]}}]}
+    a2 = {"queryType": "groupBy", "dataSource": "bench", "intervals": [iv],
+          "granularity": "all", "dimensions": ["dimA"], "aggregations": [
+              {"type": "count", "name": "rows"},
+              {"type": "hyperUnique", "name": "u", "fieldName": "dimB",
+               "log2m": HLL_LOG2M}]}
+    a3 = {"queryType": "timeseries", "dataSource": "bench",
+          "intervals": [iv], "granularity": "hour", "aggregations": [
+              {"type": "count", "name": "rows"},
+              {"type": "cardinality", "name": "ab",
+               "fields": ["dimA", "dimB"], "byRow": True, "round": True},
+              {"type": "cardinality", "name": "ml",
+               "fields": ["metLong"]}]}
+    a4 = {"queryType": "groupBy", "dataSource": "bench", "intervals": [iv],
+          "granularity": "hour", "dimensions": ["dimA"], "aggregations": [
+              {"type": "longFirst", "name": "lf", "fieldName": "metLong"},
+              {"type": "longLast", "name": "ll", "fieldName": "metLong"},
+              {"type": "floatLast", "name": "fl", "fieldName": "metFloat"}]}
+    a5 = {"queryType": "groupBy", "dataSource": "rolled", "intervals": [iv],
+          "granularity": "all", "dimensions": ["dimA"], "aggregations": [
+              {"type": "longSum", "name": "n", "fieldName": "cnt"},
+              {"type": "hyperUnique", "name": "u", "fieldName": "uu",
+               "log2m": HLL_LOG2M}]}
+    return {"a1": a1, "a2": a2, "a3": a3, "a4": a4, "a5": a5}
+
+
+def aggregator_reference(segments):
+    """Independent numpy results for A1-A5: counts and sums by bincount,
+    registers from each query's (group, value) presence and the hash tables
+    above, first/last from per-segment sorts."""
+    t0 = segments[0].interval.start
+    head = dimb_head(segments)
+    a_vals = segments[0].dims["dimA"].dictionary.values
+    b_vals = segments[0].dims["dimB"].dictionary.values
+    h_a, h_b = np_hash_strings(a_vals), np_hash_strings(b_vals)
+    reg_b, rho_b = np_register_table(h_b, HLL_LOG2M)
+    with np.errstate(over="ignore"):
+        h_ab = np_splitmix64(h_a[:, None] * np.uint64(31)
+                             + h_b[None, :]).reshape(-1)
+    reg_ab, rho_ab = np_register_table(h_ab, 11)
+    h_v = np_splitmix64(np.arange(10_001, dtype=np.uint64))
+    reg_v11, rho_v11 = np_register_table(h_v, 11)
+    reg_v12, rho_v12 = np_register_table(h_v, HLL_LOG2M)
+    r = {k: np.zeros(24, np.int64) for k in ("rows", "fc", "fs")}
+    r["fm"] = np.full(24, np.iinfo(np.int64).min, np.int64)
+    ab = np.zeros(100 * 1000, np.int64)
+    h_pair = np.zeros(24 * 100_000, np.int64)
+    h_val = np.zeros(24 * 10_001, np.int64)
+    a_val = np.zeros(100 * 10_001, np.int64)
+    first = {}
+    for i, s in enumerate(segments):
+        a = s.dims["dimA"].ids.astype(np.int64)
+        b = s.dims["dimB"].ids.astype(np.int64)
+        ml = s.metrics["metLong"].values
+        h = (s.time_ms - t0) // 3_600_000
+        r["rows"] += np.bincount(h, minlength=24)
+        r["fc"] += np.bincount(h[a < 50], minlength=24)
+        r["fs"] += np.bincount(h[b != head], weights=ml[b != head],
+                               minlength=24).astype(np.int64)
+        keep = (a >= 25) & (a < 75)
+        np.maximum.at(r["fm"], h[keep], ml[keep])
+        ab += np.bincount(a * 1000 + b, minlength=100_000)
+        h_pair += np.bincount(h * 100_000 + a * 1000 + b,
+                              minlength=24 * 100_000)
+        h_val += np.bincount(h * 10_001 + ml, minlength=24 * 10_001)
+        if i < ROLLUP_SEGMENTS:
+            a_val += np.bincount(a * 10_001 + ml, minlength=100 * 10_001)
+        # first / last per (hour, dimA): the least (time, row) and the
+        # greatest time with the least row among its rows
+        g = h * 100 + a
+        order = np.argsort(g.astype(np.int16), kind="stable")
+        gs = g[order]
+        starts = np.flatnonzero(np.r_[True, gs[1:] != gs[:-1]])
+        off = (s.time_ms - s.interval.start)[order]
+        idx = order.astype(np.int64)
+        lo = np.minimum.reduceat((off << 24) | idx, starts) & ((1 << 24) - 1)
+        hi = ((1 << 24) - 1) - (np.maximum.reduceat(
+            (off << 24) | (((1 << 24) - 1) - idx), starts) & ((1 << 24) - 1))
+        mf = s.metrics["metFloat"].values
+        for gi, i_lo, i_hi in zip(gs[starts], lo, hi):
+            first[int(gi)] = (int(ml[i_lo]), int(ml[i_hi]), float(mf[i_hi]))
+    live = np.flatnonzero(ab)
+    r["a2_rows"] = ab.reshape(100, 1000).sum(1)
+    r["a2_regs"] = np_registers(live // 1000, reg_b[live % 1000],
+                                rho_b[live % 1000], 100, HLL_LOG2M)
+    p = np.flatnonzero(h_pair)
+    regs_ab = np_registers(p // 100_000, reg_ab[p % 100_000],
+                           rho_ab[p % 100_000], 24, 11)
+    r["a3_ab"] = np.rint(np_estimate(regs_ab, 11)).astype(np.int64)
+    p = np.flatnonzero(h_val)
+    r["a3_ml"] = np_estimate(np_registers(p // 10_001, reg_v11[p % 10_001],
+                                          rho_v11[p % 10_001], 24, 11), 11)
+    r["a4"] = first
+    p = np.flatnonzero(a_val)
+    r["a5_regs"] = np_registers(p // 10_001, reg_v12[p % 10_001],
+                                rho_v12[p % 10_001], 100, HLL_LOG2M)
+    r["a5_rows"] = sum(np.bincount(s.dims["dimA"].ids, minlength=100)
+                       for s in segments[:ROLLUP_SEGMENTS])
+    r["t0"] = t0
+    return r
+
+
+class MergeLog:
+    """Keeps the first merge's output (`engines.merge_partials`) while
+    active: the merged register grids of the HLL queries."""
+
+    def __enter__(self):
+        from druid_tpu_torch.engine import engines
+        self.mod, self.orig, self.first = engines, engines.merge_partials, None
+        orig = self.orig
+
+        def merge(*a, **k):
+            out = orig(*a, **k)
+            if self.first is None:
+                self.first = out
+            return out
+        engines.merge_partials = merge
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.merge_partials = self.orig
+
+
+class HllCapture:
+    """Keeps the first `HllKernel.update` call's inputs while active."""
+
+    def __enter__(self):
+        from druid_tpu_torch.engine import kernels
+        self.cls, self.orig, self.first = (kernels.HllKernel,
+                                           kernels.HllKernel.update, None)
+        orig = self.orig
+
+        def update(k, cols, mask, keys, num):
+            if self.first is None:
+                self.first = (k, cols, mask, keys, num)
+            return orig(k, cols, mask, keys, num)
+        kernels.HllKernel.update = update
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.update = self.orig
+
+
+def _merged_registers(merged, name):
+    """{dimA id: registers} of a merged groupBy state."""
+    _, dim_vals, _, states, _ = merged
+    return {int(v[1:]): states[name][i] for i, v in enumerate(dim_vals[0])}
+
+
+def check_a1(rows, ref, merged=None):
+    if len(rows) != 24:
+        raise AssertionError(f"a1: {len(rows)} buckets")
+    for i, row in enumerate(rows):
+        got = tuple(row["result"][k] for k in ("rows", "fc", "fs", "fm"))
+        want = tuple(int(ref[k][i]) for k in ("rows", "fc", "fs", "fm"))
+        if got != want:
+            raise AssertionError(f"a1 bucket {i}: {got} != numpy {want}")
+
+
+def check_a2(rows, ref, merged=None):
+    est = np_estimate(ref["a2_regs"], HLL_LOG2M)
+    if len(rows) != 100:
+        raise AssertionError(f"a2: {len(rows)} rows")
+    for row in rows:
+        e = row["event"]
+        a = int(e["dimA"][1:])
+        if (e["rows"], e["u"]) != (int(ref["a2_rows"][a]), float(est[a])):
+            raise AssertionError(f"a2 {e} != numpy {est[a]}")
+    if merged is not None:
+        for a, regs in _merged_registers(merged, "u").items():
+            if not np.array_equal(regs, ref["a2_regs"][a]):
+                raise AssertionError(f"a2: registers of dimA {a} differ")
+
+
+def check_a3(rows, ref, merged=None):
+    if len(rows) != 24:
+        raise AssertionError(f"a3: {len(rows)} buckets")
+    for i, row in enumerate(rows):
+        v = row["result"]
+        if (v["rows"], v["ab"], v["ml"]) != (int(ref["rows"][i]),
+                                             int(ref["a3_ab"][i]),
+                                             float(ref["a3_ml"][i])):
+            raise AssertionError(f"a3 bucket {i}: {v}")
+
+
+def check_a4(rows, ref, merged=None):
+    if len(rows) != len(ref["a4"]):
+        raise AssertionError(f"a4: {len(rows)} rows, numpy {len(ref['a4'])}")
+    for row in rows:
+        e = row["event"]
+        g = (row["timestamp"] - ref["t0"]) // 3_600_000 * 100 \
+            + int(e["dimA"][1:])
+        if (e["lf"], e["ll"], e["fl"]) != ref["a4"][g]:
+            raise AssertionError(f"a4 group {g}: {e} != {ref['a4'][g]}")
+
+
+def check_a5(rows, ref, merged=None):
+    est = np_estimate(ref["a5_regs"], HLL_LOG2M)
+    if len(rows) != 100:
+        raise AssertionError(f"a5: {len(rows)} rows")
+    for row in rows:
+        e = row["event"]
+        a = int(e["dimA"][1:])
+        if (e["n"], e["u"]) != (int(ref["a5_rows"][a]), float(est[a])):
+            raise AssertionError(f"a5 {e} != numpy {est[a]}")
+    if merged is not None:
+        for a, regs in _merged_registers(merged, "u").items():
+            if not np.array_equal(regs, ref["a5_regs"][a]):
+                raise AssertionError(f"a5: registers of dimA {a} differ")
+
+
+#: query -> (checker, blocked-reduction kernels per segment: the reference's
+#: mixed hybrid where G <= 2048, else none)
+AGG_PLAN = {"a1": (check_a1, ("rows",)), "a2": (check_a2, ("rows",)),
+            "a3": (check_a3, ("rows",)), "a4": (check_a4, None),
+            "a5": (check_a5, ("n",))}
+
+
+def run_agg_query(ex, name, q, segs, dev, ref):
+    """One A-query: a cold run (rows against numpy, registers where it has
+    them, strategies and blocked kernels per segment), 5 warm runs and
+    split_times."""
+    import torch
+    check, blocked = AGG_PLAN[name]
+    t = time.perf_counter()
+    with StrategyLog() as slog, MergeLog() as mlog:
+        rows = ex.run_json(q)
+        torch.cuda.synchronize()
+    cold = time.perf_counter() - t
+    check(rows, ref, mlog.first)
+    want = [("mixed", 0)] * len(segs)
+    want_blocked = [blocked] * len(segs) if blocked else []
+    if slog.strategies != want or slog.blocked != want_blocked:
+        raise AssertionError(f"{name}: strategies {slog.strategies}, "
+                             f"blocked {slog.blocked}")
+    warm = []
+    for _ in range(5):
+        t = time.perf_counter()
+        rows = ex.run_json(q)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t) * 1e3)
+    check(rows, ref)
+    return {"segments": len(segs), "cold_s": cold, "warm_ms": warm,
+            "p50_ms": float(np.median(warm)), "result_rows": len(rows),
+            "strategies": slog.strategies, "blocked_kernels": slog.blocked,
+            **split_times(q, segs, dev)}
+
+
+def hll_update_time(cap):
+    """A2's HLL update on segment 0 (its first HllKernel.update call):
+    CUDA-event ms, torch.profiler device ms, and the bytes bound: the dimB
+    ids, the mask and the keys read once, the register grid written once,
+    at 3.35 TB/s."""
+    k, cols, mask, keys, num = cap
+    ids = cols["dimB"]
+    nbytes = (ids.numel() * ids.element_size() + mask.numel()
+              + keys.numel() * keys.element_size()
+              + num * (1 << k.log2m) * 4)
+    by = device_split(lambda: k.update(cols, mask, keys, num), reps=5,
+                      top=20)
+    return {"ms": cuda_ms(lambda: k.update(cols, mask, keys, num), 10),
+            "device_ms": sum(by.values()), "device_by_kernel": by,
+            "rows": int(mask.shape[0]), "groups": num, "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def phase_aggregators(dev, segments):
+    """A1-A5 on the headline segments (A5 on their rollup), each against
+    numpy, with its device time by kernel on segment 0; A1 also with the
+    megakernel off and with device bitmaps off. Returns (report, {"B1":
+    launches, "B2": launches})."""
+    import torch
+    from druid_tpu_torch.engine import QueryExecutor
+    from druid_tpu_torch.engine import filters as F
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    t = time.perf_counter()
+    rolled = rollup_segments(segments[:ROLLUP_SEGMENTS])
+    roll_s = time.perf_counter() - t
+    t = time.perf_counter()
+    ref = aggregator_reference(segments)
+    ref_s = time.perf_counter() - t
+    reg_mb = [s.metrics["uu"].values.nbytes / 1e6 for s in rolled]
+    log(f"  rolled up {ROLLUP_SEGMENTS} segments in {roll_s:.1f} s "
+        f"({[s.n_rows for s in rolled]} rows, {reg_mb} MB of registers); "
+        f"numpy reference {ref_s:.1f} s")
+    qs = aggregator_queries(segments)
+    out = {"rollup_s": roll_s, "reference_s": ref_s,
+           "rolled_rows": [s.n_rows for s in rolled],
+           "rolled_register_mb": reg_mb}
+    sr.LAUNCHES = mk.LAUNCHES = 0
+    for name, q in qs.items():
+        segs = rolled if name == "a5" else segments
+        ex = QueryExecutor(segs, device=dev)
+        hits = mk.stats().snapshot()["hits"]
+        with HllCapture() as hcap:
+            res = run_agg_query(ex, name, q, segs, dev, ref)
+        if name == "a1":
+            res["megakernel_hits"] = mk.stats().snapshot()["hits"] - hits
+            if res["megakernel_hits"] < 2 * len(segs):
+                raise AssertionError("a1: the filtered trees were not fused")
+            for tag, setter in (("megakernel_off", mk.set_enabled),
+                                ("device_bitmaps_off",
+                                 F.set_device_bitmap_enabled)):
+                prev = setter(False)
+                try:
+                    t = time.perf_counter()
+                    check_a1(ex.run_json(q), ref)
+                    torch.cuda.synchronize()
+                    res[f"{tag}_s"] = time.perf_counter() - t
+                finally:
+                    setter(prev)
+        if name == "a2":
+            res["hll_update_segment0"] = hll_update_time(hcap.first)
+            u = res["hll_update_segment0"]
+            log(f"  a2: HLL update on segment 0 ({u['rows']} rows, G = "
+                f"{u['groups']}): {u['ms']:.4f} ms (CUDA events), device "
+                f"{u['device_ms']:.4f} ms (torch.profiler), bound "
+                f"{u['bound_ms']:.4f} ms ({u['bytes']} B); by kernel "
+                + ", ".join(f"{k[:50]} {v:.4f}"
+                            for k, v in u["device_by_kernel"].items()))
+        sp = res["device_split_segment0"] = query_device_split(q, segs[0],
+                                                               dev)
+        out[name] = res
+        log(f"  {name} on segment 0: device {sp['device_ms']:.3f} ms a run "
+            f"(torch.profiler); largest: " + ", ".join(
+                f"{k[:60]} {v:.3f}" for k, v in sp["top"].items()))
+        log(f"  {name}: ok on {len(segs)} segments, {res['result_rows']} "
+            f"rows, strategies {sorted(set(res['strategies']))} (blocked "
+            f"{sorted(set(res['blocked_kernels']))}), cold "
+            f"{res['cold_s']:.2f} s, warm p50 {res['p50_ms']:.1f} ms, "
+            f"partials {res['partials_ms']:.1f} ms, merge+finish "
+            f"{res['finish_ms']:.1f} ms"
+            + (f"; megakernel off {res['megakernel_off_s']:.2f} s, device "
+               f"bitmaps off {res['device_bitmaps_off_s']:.2f} s, same rows"
+               if name == "a1" else ""))
+    launches = {"B1": sr.LAUNCHES, "B2": mk.LAUNCHES}
+    if any(launches.values()):
+        raise AssertionError(f"aggregators launched B1/B2: {launches}")
+    out["launches"] = launches
+    del rolled
+    torch.cuda.synchronize()
+    return out, launches
+
 
 
 def main():
@@ -2244,9 +2745,17 @@ def main():
 
     entries = []
     saved = (sr.LAUNCHES, mk.LAUNCHES)
-    log("phase expressions (X1-X4)")
-    expr, expr_launches, expr_errs = phase_expressions(dev)
+    t = time.perf_counter()
+    fresh = headline_segments()
+    report["fresh_gen_s"] = time.perf_counter() - t
+    log(f"phase expressions (X1-X4); generated the headline data anew in "
+        f"{report['fresh_gen_s']:.1f} s")
+    expr, expr_launches, expr_errs = phase_expressions(dev, fresh)
     report["expressions"] = expr
+    log("phase aggregators (A1-A5), the same segments")
+    aggr, aggr_launches = phase_aggregators(dev, fresh)
+    report["aggregators"] = aggr
+    del fresh
     sr.LAUNCHES, mk.LAUNCHES = saved
     for which, parity, check, name, source, replaces in (
             ("B1", b1, check_b1, "sorted_reduce",
@@ -2296,6 +2805,7 @@ def main():
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[which],
             "launches_expressions": expr_launches[which],
+            "launches_aggregators": aggr_launches[which],
             "max_abs_err": max(err, parity["max_abs_err"],
                                report["packed_parity"]["max_abs_err"],
                                expr_errs[which]),

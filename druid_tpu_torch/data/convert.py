@@ -13,7 +13,8 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 
 from druid_tpu_torch.data.dictionary import Dictionary
-from druid_tpu_torch.data.segment import (NumericColumn, Segment, SegmentId,
+from druid_tpu_torch.data.segment import (ComplexColumn, NumericColumn,
+                                          Segment, SegmentId,
                                           StringDimColumn, ValueType)
 from druid_tpu_torch.utils.intervals import Interval
 
@@ -24,7 +25,8 @@ def segment_from_arrays(time_ms: np.ndarray,
                         datasource: str, interval: Tuple[int, int],
                         version: str = "v1", partition: int = 0) -> Segment:
     """`dims` maps a name to (int32 ids, sorted dictionary values);
-    `metrics` maps a name to (value type "long"/"float"/"double", values);
+    `metrics` maps a name to (value type "long"/"float"/"double", values)
+    or to ("complex", 2-D values), such as HLL registers int8 [n, m];
     `interval` is (start, end) in epoch millis. Rows keep their order."""
     sid = SegmentId(datasource, Interval(int(interval[0]), int(interval[1])),
                     version, partition)
@@ -38,6 +40,10 @@ def segment_from_arrays(time_ms: np.ndarray,
     met_cols = {}
     for name, (vtype, values) in metrics.items():
         vt = ValueType(vtype)
+        if vt is ValueType.COMPLEX:
+            met_cols[name] = ComplexColumn(np.ascontiguousarray(values),
+                                           "hyperUnique")
+            continue
         met_cols[name] = NumericColumn(
             np.ascontiguousarray(values, dtype=vt.numpy_dtype), vt)
     return Segment(sid, np.asarray(time_ms, dtype=np.int64), dim_cols,

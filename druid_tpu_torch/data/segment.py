@@ -2,7 +2,8 @@
 
 The port's counterpart of the reference package's `data/segment.py`. The host
 side is the same: int32 dictionary ids for string dimensions, int64/float32/
-float64 numeric columns, and an int64 `__time` column sorted ascending.
+float64 numeric columns, 2-D complex columns (one state vector a row, such
+as HLL registers), and an int64 `__time` column sorted ascending.
 
 `device_block` stages a column subset, padded to a multiple of
 DEFAULT_ROW_ALIGN rows, plus `__time_offset` (int32 millis from the interval
@@ -10,7 +11,8 @@ start) and `__valid` (False on padding rows). A column that kernels B1/B2
 read as words (the caller's `words`) stages as bit-packed words
 (data/packed.py) where `cascade.plan_pair` packs it; every other column
 stages as a decoded tensor, since a consumer that reads it decoded would
-unpack it on every query. A permuted layout (the sorted projection) packs
+unpack it on every query. A complex column stages as-is, padded by rows. A
+permuted layout (the sorted projection) packs
 after the permutation. Staged blocks are cached per segment in a plain dict
 keyed by the columns, device, permutation and pack descriptor; there is no
 byte budget.
@@ -38,6 +40,7 @@ class ValueType(enum.Enum):
     LONG = "long"
     FLOAT = "float"
     DOUBLE = "double"
+    COMPLEX = "complex"
 
     @property
     def numpy_dtype(self):
@@ -83,6 +86,21 @@ class NumericColumn:
     def __init__(self, values: np.ndarray, vtype: ValueType):
         self.values = values
         self.type = vtype
+
+
+class ComplexColumn:
+    """A fixed-width complex metric: one row is one state vector (HLL
+    registers: int8 [n, 2^log2m]), so the device reduces the rows
+    directly."""
+
+    __slots__ = ("values", "type_name")
+    type = ValueType.COMPLEX
+
+    def __init__(self, values: np.ndarray, type_name: str):
+        if values.ndim != 2:
+            raise ValueError(f"a complex column is 2-D, got {values.shape}")
+        self.values = values
+        self.type_name = type_name
 
 
 @dataclass
@@ -190,7 +208,7 @@ class Segment:
         def _pad(a: np.ndarray, fill=0) -> np.ndarray:
             if perm is not None:
                 a = a[perm]
-            out = np.full((pad_n,), fill, dtype=a.dtype)
+            out = np.full((pad_n,) + a.shape[1:], fill, dtype=a.dtype)
             out[: a.shape[0]] = a
             return out
 
@@ -271,6 +289,8 @@ class Segment:
             if -(2**31) <= lo and hi < 2**31:
                 return np.dtype(np.int32)
             return np.dtype(np.int64)
+        if m.type is ValueType.COMPLEX:
+            return m.values.dtype
         return np.dtype(m.type.numpy_dtype)
 
     def aux_cached(self, key: Tuple, fn):

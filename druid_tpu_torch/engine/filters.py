@@ -68,6 +68,11 @@ class FilterNode:
     def required_device_columns(self) -> Set[str]:
         return set()
 
+    def signature(self) -> str:
+        """The reference's structural signature: the run domain's plan
+        carries it, so only the nodes that plan admits define one."""
+        raise NotImplementedError
+
     def build(self, cols: Cols) -> torch.Tensor:
         """The bool row mask; `cols` maps column name -> staged tensor."""
         raise NotImplementedError
@@ -76,6 +81,9 @@ class FilterNode:
 class ConstNode(FilterNode):
     def __init__(self, value: bool):
         self.value = value
+
+    def signature(self):
+        return f"const({self.value})"
 
     def build(self, cols):
         v = cols["__valid"]
@@ -89,6 +97,9 @@ class LutNode(FilterNode):
     def __init__(self, dim: str, lut: np.ndarray):
         self.dim = dim
         self.lut = torch.from_numpy(lut.astype(bool))
+
+    def signature(self):
+        return f"lut({self.dim})"
 
     def required_device_columns(self):
         return {self.dim}
@@ -106,6 +117,11 @@ class NumericCmpNode(FilterNode):
         self.column = column
         self.lower, self.upper = lower, upper
         self.lower_strict, self.upper_strict = lower_strict, upper_strict
+
+    def signature(self):
+        return (f"numcmp({self.column},{self.lower is not None},"
+                f"{self.upper is not None},{self.lower_strict},"
+                f"{self.upper_strict})")
 
     def required_device_columns(self):
         return {self.column}
@@ -127,6 +143,9 @@ class NumericEqNode(FilterNode):
         self.column = column
         self.value = value
 
+    def signature(self):
+        return f"numeq({self.column})"
+
     def required_device_columns(self):
         return {self.column}
 
@@ -139,6 +158,9 @@ class NumericInNode(FilterNode):
     def __init__(self, column: str, values: List):
         self.column = column
         self.values = values
+
+    def signature(self):
+        return f"numin({self.column},{len(self.values)})"
 
     def required_device_columns(self):
         return {self.column}
@@ -247,6 +269,9 @@ class _NaryNode(FilterNode):
 
 
 class AndNode(_NaryNode):
+    def signature(self):
+        return "and(" + ",".join(c.signature() for c in self.children) + ")"
+
     def build(self, cols):
         mask = self.children[0].build(cols)
         for c in self.children[1:]:
@@ -255,6 +280,9 @@ class AndNode(_NaryNode):
 
 
 class OrNode(_NaryNode):
+    def signature(self):
+        return "or(" + ",".join(c.signature() for c in self.children) + ")"
+
     def build(self, cols):
         mask = self.children[0].build(cols)
         for c in self.children[1:]:
@@ -265,6 +293,9 @@ class OrNode(_NaryNode):
 class NotNode(FilterNode):
     def __init__(self, child: FilterNode):
         self.child = child
+
+    def signature(self):
+        return "not(" + self.child.signature() + ")"
 
     def required_device_columns(self):
         return self.child.required_device_columns()
@@ -353,12 +384,24 @@ def collect_bitmap_nodes(node: Optional[FilterNode]
     return out
 
 
-def assign_bitmap_slots(filter_node: Optional[FilterNode]) -> int:
-    """Unique slots (hence staged names `__fbmpN`) for the tree's bitmap
-    nodes, in DFS order; returns the slot count. The reference numbers the
-    filtered aggregators' trees after the query filter's; the port has no
-    filtered aggregators yet."""
+def item_bitmap_nodes(filter_node: Optional[FilterNode],
+                      kernels: Sequence = ()) -> List[DeviceBitmapNode]:
+    """The bitmap nodes of one execution: the query filter's, then every
+    filtered aggregator's tree in kernel order (`AggKernel.filter_trees`)."""
     nodes = collect_bitmap_nodes(filter_node)
+    for k in kernels:
+        for tree in k.filter_trees():
+            nodes.extend(collect_bitmap_nodes(tree))
+    return nodes
+
+
+def assign_bitmap_slots(filter_node: Optional[FilterNode],
+                        kernels: Sequence = ()) -> int:
+    """Unique slots (hence staged names `__fbmpN` and mega leaf names) for
+    every bitmap node of one execution, in `item_bitmap_nodes` order: a
+    filtered aggregator's tree, planned from slot 0, would otherwise stage
+    its words under the query filter's names. Returns the slot count."""
+    nodes = item_bitmap_nodes(filter_node, kernels)
     for slot, node in enumerate(nodes):
         node.slot = slot
     return len(nodes)
@@ -841,14 +884,16 @@ def _fill_single(segment: Segment, node: DeviceBitmapNode, padded_rows: int,
 def stage_device_bitmaps(segment: Segment, filter_node: Optional[FilterNode],
                          padded_rows: int, device: torch.device,
                          perm: Optional[np.ndarray] = None,
-                         perm_key=None) -> Dict[str, torch.Tensor]:
+                         perm_key=None, kernels: Sequence = ()
+                         ) -> Dict[str, torch.Tensor]:
     """{node.col: int32 words [padded_rows / 32]} for every DeviceBitmapNode
-    of the tree, cached on the segment under bitmap_pool_key; with `perm`,
-    the words are in the permuted row order, under their own key. Batched
-    fill waves across segments are not ported."""
+    of the query filter and of the kernels' filter trees, cached on the
+    segment under bitmap_pool_key; with `perm`, the words are in the
+    permuted row order, under their own key. Batched fill waves across
+    segments are not ported."""
     pdg = perm_digest(perm_key)
     out: Dict[str, torch.Tensor] = {}
-    for node in collect_bitmap_nodes(filter_node):
+    for node in item_bitmap_nodes(filter_node, kernels):
         key = bitmap_pool_key(node, padded_rows, pdg, device)
         hit = segment.device_contains(key)
         _FBMP_STATS.record(hit, 0 if hit else padded_rows // 8)

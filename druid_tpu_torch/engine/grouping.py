@@ -68,6 +68,7 @@ from druid_tpu_torch.data.segment import Segment
 from druid_tpu_torch.engine import megakernel, rundomain
 from druid_tpu_torch.engine import sorted_reduce as sorted_reduce_mod
 from druid_tpu_torch.engine.filters import (ConstNode, FilterNode,
+                                            assign_bitmap_slots,
                                             expression_bindings,
                                             interval_offsets, perm_digest,
                                             plan_filter, stage_device_bitmaps,
@@ -734,6 +735,9 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
     vc_plans, vc_luts = plan_virtual_columns(segment, virtual_columns)
     filter_node = plan_filter(flt, segment, virtual_columns)
     kernels = [make_kernel(a, segment) for a in aggs]
+    # one `__fbmpN` / mega leaf namespace for the query filter's and the
+    # filtered aggregators' bitmap nodes
+    assign_bitmap_slots(filter_node, kernels)
 
     if isinstance(filter_node, ConstNode) and not filter_node.value:
         # constant-false filter: nothing matches, no device work
@@ -754,7 +758,7 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
         return SegmentPartial(
             segment=segment, spec=spec,
             counts=counts.cpu().numpy().astype(np.int64),
-            states={k.name: k.host_post(st)
+            states={k.name: k.host_post(st, segment)
                     for k, st in zip(kernels, states)},
             kernels=kernels)
 
@@ -814,8 +818,10 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
     if megakernel.enabled():
         filter_node = megakernel.megaize(filter_node, segment, padded_rows,
                                          device, perm_digest(perm_key))
+        megakernel.megaize_kernels(kernels, segment, padded_rows, device,
+                                   perm_digest(perm_key))
     else:
-        megakernel.record_disabled_fallback(filter_node)
+        megakernel.record_disabled_fallback(filter_node, kernels)
 
     block = segment.device_block(sorted(needed), device, perm=perm,
                                  perm_key=perm_key, words=words)
@@ -838,9 +844,10 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
     # order on that path
     arrays.update(stage_device_bitmaps(segment, filter_node,
                                        block.padded_rows, device, perm,
-                                       perm_key))
+                                       perm_key, kernels))
     arrays.update(megakernel.stage_mega_leaves(
-        segment, filter_node, block.padded_rows, device, perm, perm_key))
+        segment, filter_node, block.padded_rows, device, perm, perm_key,
+        kernels))
     if spec.strategy == "projection" \
             and megakernel.split_for_kernel(filter_node)[0]:
         spec.strategy = "megakernel"
@@ -871,7 +878,8 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
         arrays, mask, key, key_dims, filter_node, kernels, spec.num_total,
         strategy=spec.strategy, span=spec.window,
         packed_cols=packed_cols or None)
-    host_states = {k.name: k.host_post(st) for k, st in zip(kernels, states)}
+    host_states = {k.name: k.host_post(st, segment)
+                   for k, st in zip(kernels, states)}
     return SegmentPartial(segment=segment, spec=spec,
                           counts=counts.cpu().numpy().astype(np.int64),
                           states=host_states, kernels=kernels)

@@ -1,28 +1,36 @@
 """Aggregation kernels: one aggregator's grouped update, combine and finalize.
 
 The port's counterpart of the reference package's `engine/kernels.py`
-(CountKernel, SumKernel, MinMaxKernel). `update` is the plain scatter
-strategy: `index_add_` for counts and sums, `scatter_reduce` for min/max, in
+(CountKernel, SumKernel, MinMaxKernel, FirstLastKernel, FilteredKernel,
+HllKernel). `update` is the plain scatter strategy: `index_add_` for counts
+and sums, `scatter_reduce` for min/max, first/last and HLL registers, in
 place of the reference's `segment_sum/min/max`. Long sums accumulate in
-int64 and are exact. `pallas_op` describes the kernel to the sorted-
-projection reduction (engine/sorted_reduce.py) with the reference's op
-vocabulary. The blocked hooks (`blocked_supported/init/step/finish`) serve
-the masked broadcast-reduce of the blocked and windowed strategies
-(engine/grouping.py), and `mm_plan` the one-hot matmul of the mm strategy
-(engine/mmagg.py). Every eligibility rule is the reference's, so both
-packages choose the same strategy for the same plan.
+int64 and are exact. A state is a tensor, or a tuple of tensors that
+`host_post` turns into the reference's host form (first/last: a dict of
+arrays; HLL: an int32 [G, m] register grid). `pallas_op` describes the
+kernel to the sorted-projection reduction (engine/sorted_reduce.py) with
+the reference's op vocabulary. The blocked hooks
+(`blocked_supported/init/step/finish`) serve the masked broadcast-reduce of
+the blocked and windowed strategies (engine/grouping.py), and `mm_plan` the
+one-hot matmul of the mm strategy (engine/mmagg.py). Every eligibility rule
+is the reference's, so both packages choose the same strategy for the same
+plan: a first/last, filtered or HLL kernel has neither an mm plan nor a
+blocked step, so a plan holding one is "mixed".
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from druid_tpu_torch.data.segment import Segment, ValueType
+from druid_tpu_torch.engine import hll
+from druid_tpu_torch.engine.filters import FilterNode, plan_filter
 from druid_tpu_torch.query import aggregators as A
 
+INT32_MIN = -(2**31)
 INT64_MAX = np.int64(2**63 - 1)
 INT64_MIN = np.int64(-(2**63))
 
@@ -66,17 +74,27 @@ class AggKernel:
         self.spec = spec
         self.name = spec.name
 
+    def signature(self) -> str:
+        """The reference's structural signature (the run domain's plan
+        carries it)."""
+        raise NotImplementedError
+
     def update(self, cols: Dict[str, torch.Tensor], mask: torch.Tensor,
                keys: torch.Tensor, num: int) -> torch.Tensor:
         """Per-group partial state [num]; `keys` int64 in [0, num)."""
         raise NotImplementedError
+
+    def filter_trees(self) -> List[FilterNode]:
+        """The planned filter trees this kernel owns (a FilteredKernel
+        chain's): bitmap slots, word staging and megaizing walk them."""
+        return []
 
     def required_device_columns(self) -> Optional[set]:
         """The staged columns `update` reads, where narrower than the
         aggregator's `required_columns()`; None = the aggregator's."""
         return None
 
-    def host_post(self, state) -> np.ndarray:
+    def host_post(self, state, segment: Segment):
         """Device state -> host combine-ready state."""
         return state.cpu().numpy() if isinstance(state, torch.Tensor) \
             else np.asarray(state)
@@ -126,6 +144,9 @@ class AggKernel:
 
 class CountKernel(AggKernel):
 
+    def signature(self):
+        return "count"
+
     def pallas_op(self, cols_avail):
         return ("count",)
 
@@ -133,8 +154,8 @@ class CountKernel(AggKernel):
         return torch.zeros(num, dtype=torch.int64, device=keys.device) \
             .index_add_(0, keys, mask.to(torch.int64))
 
-    def host_post(self, state):
-        return super().host_post(state).astype(np.int64)
+    def host_post(self, state, segment):
+        return super().host_post(state, segment).astype(np.int64)
 
     def combine(self, a, b):
         return a + b
@@ -227,6 +248,11 @@ class SumKernel(AggKernel):
             nl = max(1, ((int(hi) - base).bit_length() + 6) // 7)
             if nl <= 4:
                 self.mm_limbs, self.mm_base = nl, base
+
+    def signature(self):
+        return (f"sum({self.spec.field},{self.vtype.value},{self.chunk_rows},"
+                f"mm{self.mm_limbs}:{self.mm_base}:{int(self.mm_float_ok)},"
+                f"c{int(self.const_value is not None)})")
 
     def pallas_op(self, cols_avail):
         f = self.spec.field
@@ -354,11 +380,23 @@ class SumKernel(AggKernel):
 
 
 class MinMaxKernel(AggKernel):
-    def __init__(self, spec, vtype: ValueType, is_max: bool):
+    def __init__(self, spec, vtype: ValueType, is_max: bool,
+                 segment: Optional[Segment] = None):
         super().__init__(spec)
         self.vtype = vtype
         self.is_max = is_max
         self.reduce_kind = "max" if is_max else "min"
+        # the staged dtype as the reference's signature renders it: a LONG
+        # column's by its numpy scalar class, any other's by its dtype
+        self.staged = ""
+        if segment is not None and spec.field in segment.metrics:
+            dt = segment.staged_dtype(spec.field)
+            self.staged = str(dt.type if segment.metrics[spec.field].type
+                              is ValueType.LONG else dt)
+
+    def signature(self):
+        return (f"{'max' if self.is_max else 'min'}"
+                f"({self.spec.field},{self.vtype.value},{self.staged})")
 
     @property
     def identity(self):
@@ -390,8 +428,8 @@ class MinMaxKernel(AggKernel):
         return out.scatter_reduce_(0, keys, v,
                                    "amax" if self.is_max else "amin")
 
-    def host_post(self, state):
-        st = super().host_post(state)
+    def host_post(self, state, segment):
+        st = super().host_post(state, segment)
         if self.vtype == ValueType.LONG and st.dtype != np.int64:
             # narrow sentinels widen to the int64 identity so cross-segment
             # merges stay correct
@@ -439,7 +477,262 @@ class MinMaxKernel(AggKernel):
         return np.full(n, self.identity, dtype=dt)
 
 
-def make_kernel(spec: A.AggregatorSpec, segment: Segment) -> AggKernel:
+#: copies of the grid a first/last scatter-max/min writes: row r updates
+#: copy r % SCATTER_COPIES, so the rows of one group spread over that many
+#: addresses instead of contending for one, and the copies reduce after
+SCATTER_COPIES = 64
+
+
+def _seg_reduce(values: torch.Tensor, keys: torch.Tensor, num: int,
+                red: str) -> torch.Tensor:
+    """Per-group max ("amax") or min ("amin") over the rows, as
+    jax.ops.segment_max/min: a group without rows holds the dtype's least
+    (max) or greatest (min) value."""
+    info = torch.iinfo(values.dtype)
+    copies = SCATTER_COPIES
+    cell = keys + torch.arange(keys.shape[0], device=keys.device) \
+        % copies * num
+    out = torch.full((copies * num,), info.min if red == "amax" else info.max,
+                     dtype=values.dtype, device=values.device)
+    out = out.scatter_reduce_(0, cell, values, red).view(copies, num)
+    return out.amax(0) if red == "amax" else out.amin(0)
+
+
+class FirstLastKernel(AggKernel):
+    """The value at the least (first) or greatest (last) time of each
+    group. On the device: the best time per group, then the least row index
+    among the rows at that time, then a gather of the value; the host state
+    carries the absolute time, so partials combine across segments in time
+    order (ties keep the earlier partial)."""
+
+    def __init__(self, spec, vtype: ValueType, is_last: bool,
+                 time_field: Optional[str] = None):
+        super().__init__(spec)
+        self.vtype = vtype
+        self.is_last = is_last
+        # a rolled-up segment's pair column __ft_<field> (absolute int64
+        # event times) orders the rows where present, else __time does
+        self.time_field = time_field
+
+    @property
+    def _ident(self):
+        return INT64_MIN if self.is_last else INT64_MAX
+
+    def update(self, cols, mask, keys, num):
+        dev = keys.device
+        pair = self.time_field is not None and self.time_field in cols
+        if self.spec.field not in cols:
+            # no row has a value: host_post gives every group the empty
+            # state's time
+            return (torch.zeros(num, dtype=torch.int32, device=dev),
+                    torch.from_numpy(self.empty_state(num)["value"]).to(dev),
+                    torch.zeros(num, dtype=torch.bool, device=dev))
+        t = cols[self.time_field].to(torch.int64) if pair \
+            else cols["__time_offset"]
+        v = cols[self.spec.field]
+        n = t.shape[0]
+        info = torch.iinfo(t.dtype)
+        ident_t = info.min if self.is_last else info.max
+        red = "amax" if self.is_last else "amin"
+        tbest = _seg_reduce(torch.where(mask, t, ident_t), keys, num, red)
+        cand = mask & (t == tbest[keys])
+        idx = torch.where(cand, torch.arange(n, dtype=torch.int32,
+                                             device=dev), n)
+        best = _seg_reduce(idx, keys, num, "amin")
+        has = best < n
+        val = torch.where(has, v[best.clamp(0, n - 1).to(torch.int64)],
+                          torch.zeros((), dtype=v.dtype, device=dev))
+        return torch.where(has, tbest, ident_t), val, has
+
+    def host_post(self, state, segment):
+        t, v, has = (s.cpu().numpy() for s in state)
+        t_abs = t.astype(np.int64)
+        if self.time_field is None:
+            t_abs = t_abs + segment.interval.start
+        return {"time": np.where(has, t_abs, self._ident), "value": v,
+                "has": has}
+
+    def combine(self, a, b):
+        if self.is_last:
+            take_b = (b["time"] > a["time"]) | (~a["has"] & b["has"])
+        else:
+            take_b = (b["time"] < a["time"]) | (~a["has"] & b["has"])
+        return {"time": np.where(take_b, b["time"], a["time"]),
+                "value": np.where(take_b, b["value"], a["value"]),
+                "has": a["has"] | b["has"]}
+
+    def empty_state(self, n):
+        return {"time": np.full(n, self._ident, dtype=np.int64),
+                "value": np.zeros(n, dtype=self.vtype.numpy_dtype),
+                "has": np.zeros(n, dtype=bool)}
+
+    def finalize_array(self, state):
+        return np.where(state["has"], state["value"], 0)
+
+
+class FilteredKernel(AggKernel):
+    """A delegate kernel over the rows that also pass its own filter tree
+    (None: the filter folded to always-true)."""
+
+    def __init__(self, spec: A.FilteredAggregator, child: AggKernel,
+                 filter_node: Optional[FilterNode]):
+        super().__init__(spec)
+        self.child = child
+        self.filter_node = filter_node
+        self.reduce_kind = child.reduce_kind
+
+    def filter_trees(self):
+        own = [] if self.filter_node is None else [self.filter_node]
+        return own + self.child.filter_trees()
+
+    def required_device_columns(self):
+        child = self.child.required_device_columns()
+        if child is None:
+            child = set(self.spec.delegate.required_columns())
+        if self.filter_node is None:
+            return child
+        return child | self.filter_node.required_device_columns()
+
+    def update(self, cols, mask, keys, num):
+        if self.filter_node is not None:
+            mask = mask & self.filter_node.build(cols)
+        return self.child.update(cols, mask, keys, num)
+
+    def host_post(self, state, segment):
+        return self.child.host_post(state, segment)
+
+    def combine(self, a, b):
+        return self.child.combine(a, b)
+
+    def empty_state(self, n):
+        return self.child.empty_state(n)
+
+    def finalize_array(self, state):
+        return self.child.finalize_array(state)
+
+
+class HllKernel(AggKernel):
+    """cardinality and hyperUnique: each row's (register, rho) scatter-maxed
+    into an int32 [G, 2^log2m] grid (engine/hll.py). A dimension gathers
+    host-hashed tables by id; a numeric column (and __time, which hashes
+    its int32 offset from the segment's interval start, as the reference
+    does) hashes on the device; a complex column's register rows max in
+    directly. byRow folds the row's field hashes into one."""
+
+    reduce_kind = "max"
+
+    def __init__(self, spec, fields: Sequence[str], segment: Segment,
+                 log2m: int, by_row: bool):
+        super().__init__(spec)
+        self.fields = tuple(fields)
+        self.log2m = log2m
+        self.by_row = by_row
+        self._tables = []
+        for f in self.fields:
+            col = segment.dims.get(f)
+            met = segment.metrics.get(f)
+            if col is not None:
+                if by_row:
+                    tbl = segment.aux_cached(
+                        ("hll_hash", f),
+                        lambda c=col: hll.dim_hash_table(c.dictionary))
+                    self._tables.append(("dim_hash", f, (tbl,)))
+                else:
+                    tbls = segment.aux_cached(
+                        ("hll_regrho", f, log2m),
+                        lambda c=col: hll.dim_register_tables(c.dictionary,
+                                                              log2m))
+                    self._tables.append(("dim_regrho", f, tbls))
+            elif met is not None and met.type is ValueType.COMPLEX:
+                if by_row:
+                    raise ValueError(
+                        f"byRow cardinality cannot consume pre-aggregated "
+                        f"hyperUnique column {f!r}; use hyperUnique instead")
+                if met.values.shape[1] != (1 << log2m):
+                    raise ValueError(
+                        f"hyperUnique column {f!r} has {met.values.shape[1]} "
+                        f"registers, query expects {1 << log2m}")
+                self._tables.append(("complex", f, ()))
+            elif met is not None or f == "__time":
+                self._tables.append(("numeric", f, ()))
+            else:
+                self._tables.append(("missing", f, ()))
+
+    @staticmethod
+    def _gather(tables, ids: torch.Tensor):
+        """The host tables (uint64 hashes as their int64 bits) gathered by
+        dictionary id on the ids' device."""
+        idx = ids.to(torch.int64)
+        return [torch.from_numpy(t.view(np.int64) if t.dtype == np.uint64
+                                 else t).to(ids.device)[idx]
+                for t in tables]
+
+    @staticmethod
+    def _field(cols, f: str) -> torch.Tensor:
+        return cols["__time_offset"] if f == "__time" else cols[f]
+
+    def update(self, cols, mask, keys, num):
+        m = 1 << self.log2m
+        if self.by_row:
+            h = None
+            for kind, f, tables in self._tables:
+                if kind == "dim_hash":
+                    hf, = self._gather(tables, cols[f])
+                elif kind == "numeric":
+                    hf = hll.hash_numeric(self._field(cols, f))
+                else:
+                    continue
+                h = hf if h is None else hll.splitmix64(h * 31 + hf)
+            if h is None:
+                h = torch.zeros(mask.shape, dtype=torch.int64,
+                                device=mask.device)
+            reg, rho = hll.register_of(h, self.log2m)
+            return hll.update_registers(None, rho, reg, keys, mask, num,
+                                        self.log2m)
+        regs = None
+        for kind, f, tables in self._tables:
+            if kind == "complex":
+                # register rows max in; a group without rows holds int32's
+                # least value, as the reference's segment_max leaves it
+                rows = torch.where(mask[:, None], cols[f].to(torch.int32), 0)
+                part = torch.full((num, m), INT32_MIN, dtype=torch.int32,
+                                  device=rows.device).scatter_reduce_(
+                    0, keys[:, None].expand(-1, m), rows, "amax")
+                regs = part if regs is None else torch.maximum(regs, part)
+                continue
+            if kind == "dim_regrho":
+                reg, rho = self._gather(tables, cols[f])
+            elif kind == "numeric":
+                reg, rho = hll.register_of(
+                    hll.hash_numeric(self._field(cols, f)), self.log2m)
+            else:
+                continue
+            regs = hll.update_registers(regs, rho, reg, keys, mask, num,
+                                        self.log2m)
+        if regs is None:
+            regs = torch.zeros((num, m), dtype=torch.int32,
+                               device=keys.device)
+        return regs
+
+    def combine(self, a, b):
+        return np.maximum(a, b)
+
+    def empty_state(self, n):
+        return np.zeros((n, 1 << self.log2m), dtype=np.int32)
+
+    def finalize_array(self, state):
+        est = hll.estimate_array(state, self.log2m)
+        if self.spec.round:
+            est = np.rint(est).astype(np.int64)
+        return est
+
+
+def make_kernel(spec: A.AggregatorSpec, segment: Segment,
+                device_bitmap: Optional[bool] = None) -> AggKernel:
+    """`device_bitmap` plans a filtered aggregator's filter: None follows
+    the process default (filters.device_bitmap_enabled), so its
+    bitmap-eligible subtrees read staged or fused words like the query
+    filter's."""
     if isinstance(spec, A.CountAggregator):
         return CountKernel(spec)
     sums = {A.LongSumAggregator: ValueType.LONG,
@@ -454,5 +747,20 @@ def make_kernel(spec: A.AggregatorSpec, segment: Segment) -> AggKernel:
               A.FloatMinAggregator: (ValueType.FLOAT, False),
               A.FloatMaxAggregator: (ValueType.FLOAT, True)}
     if type(spec) in minmax:
-        return MinMaxKernel(spec, *minmax[type(spec)])
-    raise NotImplementedError(f"no kernel for aggregator {type(spec).__name__}")
+        return MinMaxKernel(spec, *minmax[type(spec)], segment)
+    if isinstance(spec, (A.FirstAggregator, A.LastAggregator)):
+        tf = f"__ft_{spec.field}"
+        return FirstLastKernel(spec, ValueType(spec.kind),
+                               isinstance(spec, A.LastAggregator),
+                               tf if tf in segment.metrics else None)
+    if isinstance(spec, A.FilteredAggregator):
+        child = make_kernel(spec.delegate, segment,
+                            device_bitmap=device_bitmap)
+        return FilteredKernel(spec, child, plan_filter(
+            spec.filter, segment, device_bitmap=device_bitmap))
+    if isinstance(spec, A.HyperUniqueAggregator):
+        return HllKernel(spec, (spec.field,), segment, spec.log2m,
+                         by_row=False)
+    if isinstance(spec, A.CardinalityAggregator):
+        return HllKernel(spec, spec.fields, segment, spec.log2m, spec.by_row)
+    raise ValueError(f"no kernel for aggregator {type(spec).__name__}")

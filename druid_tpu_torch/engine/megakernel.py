@@ -8,6 +8,8 @@ bitmaps stage as resident words (`stage_mega_leaves`; built once per run
 where the dimension has run tables) and its AND/OR/NOT
 algebra runs in the query's own pass (`MegaBitmapNode.words`, through
 filters.combine_structure_words) instead of a separate fill.
+`megaize_kernels` does the same to every filtered aggregator's tree; those
+words always expand to bool rows, since such a plan is "mixed".
 
 On the sorted-projection strategy, when the tree's root or its top-level AND
 conjuncts are mega nodes (`split_for_kernel`), the query takes the
@@ -44,7 +46,8 @@ from druid_tpu_torch.engine.filters import (AndNode, DeviceBitmapNode,
                                             bitmap_pool_key,
                                             collect_bitmap_nodes,
                                             expand_mask_words, host_words,
-                                            leaf_digest, leaf_words,
+                                            item_bitmap_nodes, leaf_digest,
+                                            leaf_words,
                                             pack_mask_words, structure_words)
 
 #: launches of kernel B2 in this process (the chip smoke resets it)
@@ -197,10 +200,24 @@ def megaize(filter_node: Optional[FilterNode], segment, padded_rows: int,
     return rebuild(filter_node)
 
 
-def record_disabled_fallback(filter_node: Optional[FilterNode]) -> None:
-    """Stats only: bitmap subtrees that stay staged because the megakernel
-    is off."""
-    n = len(collect_bitmap_nodes(filter_node))
+def megaize_kernels(kernels: Sequence, segment, padded_rows: int,
+                    device: torch.device,
+                    perm_dig: Optional[str] = None) -> None:
+    """`megaize` every filtered aggregator's tree, in place (kernels are
+    planned per execution)."""
+    from druid_tpu_torch.engine.kernels import FilteredKernel
+    for k in kernels:
+        while isinstance(k, FilteredKernel):
+            k.filter_node = megaize(k.filter_node, segment, padded_rows,
+                                    device, perm_dig)
+            k = k.child
+
+
+def record_disabled_fallback(filter_node: Optional[FilterNode],
+                             kernels: Sequence = ()) -> None:
+    """Stats only: bitmap subtrees, of the query filter and the filtered
+    aggregators, that stay staged because the megakernel is off."""
+    n = len(item_bitmap_nodes(filter_node, kernels))
     if n:
         _STATS.record_fallback(n)
 
@@ -231,12 +248,18 @@ def mega_leaf_words(segment, dim: str, lut: np.ndarray, padded_rows: int,
 def stage_mega_leaves(segment, filter_node: Optional[FilterNode],
                       padded_rows: int, device: torch.device,
                       perm: Optional[np.ndarray] = None,
-                      perm_key=None) -> Dict[str, torch.Tensor]:
+                      perm_key=None, kernels: Sequence = ()
+                      ) -> Dict[str, torch.Tensor]:
     """{leaf col: int32 words [padded_rows / 32]} for every mega node's
-    leaves (`mega_leaf_words`, cached on the segment); with `perm` the
-    words are in the projection's row order."""
+    leaves, in the query filter and the kernels' filter trees
+    (`mega_leaf_words`, cached on the segment); with `perm` the words are
+    in the projection's row order."""
+    nodes = collect_mega_nodes(filter_node)
+    for k in kernels:
+        for tree in k.filter_trees():
+            nodes.extend(collect_mega_nodes(tree))
     out: Dict[str, torch.Tensor] = {}
-    for node in collect_mega_nodes(filter_node):
+    for node in nodes:
         for j, (dim, lut) in enumerate(node.leaves):
             out[node.leaf_col(j)] = mega_leaf_words(
                 segment, dim, lut, padded_rows, device, perm, perm_key)

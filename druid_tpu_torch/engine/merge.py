@@ -3,7 +3,8 @@
 The port's copy of the reference package's `engine/merge.py`: compact each
 partial to its non-empty keys, re-encode them into a merged key space over
 the merged dimension values, np.unique over all keys, then scatter-align
-each partial and combine with the kernels' elementwise combine.
+each partial and combine with the kernels' elementwise combine. A state is
+an array (1-D, or 2-D for HLL registers) or a dict of arrays (first/last).
 """
 from __future__ import annotations
 
@@ -12,6 +13,26 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from druid_tpu_torch.engine.grouping import SegmentPartial
+
+
+# ---------------------------------------------------------------------------
+# States: arrays or dicts of arrays
+# ---------------------------------------------------------------------------
+
+def state_select(state, idx: np.ndarray):
+    if isinstance(state, dict):
+        return {k: state_select(v, idx) for k, v in state.items()}
+    return state[idx]
+
+
+def state_scatter(dest, pos: np.ndarray, src):
+    """dest[pos] = src, in place (each array keeps its own dtype)."""
+    if isinstance(dest, dict):
+        for k in dest:
+            state_scatter(dest[k], pos, src[k])
+        return dest
+    dest[pos] = src
+    return dest
 
 
 # ---------------------------------------------------------------------------
@@ -104,9 +125,8 @@ def merge_partials(partials: Sequence[SegmentPartial],
         np.add.at(counts, pos, p.counts[nz])
         aligned = {}
         for k in kernels:
-            dest = k.empty_state(G)
-            dest[pos] = p.states[k.name][nz]
-            aligned[k.name] = dest
+            aligned[k.name] = state_scatter(
+                k.empty_state(G), pos, state_select(p.states[k.name], nz))
         if states is None:
             states = aligned
         else:

@@ -19,9 +19,12 @@ order, never run here, so the results equal the row program's bit for bit.
 expression dimensions), a non-dense key, a granularity that is neither
 "all" nor uniform, an interval that does not cover the segment, a filter
 node that reads rows (time intervals, bitmap words, expressions, column
-comparisons), an aggregator other than count, LONG sum and min/max, and a
-joint partition finer than n_rows / 16 or above CASCADE_MAX_RUNS runs. An
-extraction or listFiltered dimension's remap applies to each run's id. PyTorch runs eagerly: there is no program cache.
+comparisons), an aggregator other than count, LONG sum, min/max and a
+filtered one of these, and a joint partition finer than n_rows / 16 or
+above CASCADE_MAX_RUNS runs. A filtered aggregator's filter is re-planned
+without bitmap nodes and must pass the same node whitelist; its columns
+join the partition. An extraction or listFiltered dimension's remap applies
+to each run's id. PyTorch runs eagerly: there is no program cache.
 """
 from __future__ import annotations
 
@@ -39,15 +42,35 @@ from druid_tpu_torch.engine.filters import (AndNode, ConstNode, FilterNode,
                                             NumericEqNode, NumericInNode,
                                             OrNode, plan_filter)
 from druid_tpu_torch.engine.kernels import (AggKernel, CountKernel,
-                                            MinMaxKernel, SumKernel)
+                                            FilteredKernel, MinMaxKernel,
+                                            SumKernel)
 
 
 @dataclass
 class _RunKernel:
     """One kernel's run-space plan: the kernel and the run columns it reads
-    (none for a count, a constant sum or a missing column)."""
+    (none for a count, a constant sum or a missing column); for a filtered
+    kernel, its run-space filter (None: always true) and its child's
+    plan."""
     kernel: AggKernel
     cols: frozenset = frozenset()
+    fnode: Optional[FilterNode] = None
+    child: Optional["_RunKernel"] = None
+
+    def sig(self) -> str:
+        """The reference's signature of this run kernel."""
+        if self.child is not None:
+            f = self.fnode.signature() if self.fnode is not None else "none"
+            return f"rfiltered({f},{self.child.sig()})"
+        return self.kernel.signature()
+
+    def columns(self) -> set:
+        if self.child is None:
+            return set(self.cols)
+        cols = self.child.columns()
+        if self.fnode is not None:
+            cols |= self.fnode.required_device_columns()
+        return cols
 
 
 def _run_filter_ok(node: Optional[FilterNode]) -> bool:
@@ -65,6 +88,16 @@ def _run_filter_ok(node: Optional[FilterNode]) -> bool:
 
 
 def _plan_run_kernel(k: AggKernel, segment: Segment) -> Optional[_RunKernel]:
+    if isinstance(k, FilteredKernel):
+        child = _plan_run_kernel(k.child, segment)
+        if child is None:
+            return None
+        # re-planned from the spec without bitmap nodes: the kernel's own
+        # tree may hold words, which are row space
+        fnode = plan_filter(k.spec.filter, segment, device_bitmap=False)
+        if not _run_filter_ok(fnode):
+            return None
+        return _RunKernel(k, fnode=fnode, child=child)
     if isinstance(k, CountKernel):
         return _RunKernel(k)
     if isinstance(k, SumKernel):
@@ -144,7 +177,7 @@ def _plan_run_domain_uncached(segment, intervals, granularity, spec, kernels,
         if rk is None:
             return None
         rkernels.append(rk)
-        cols |= rk.cols
+        cols |= rk.columns()
     if any(c not in segment.dims and c not in segment.metrics for c in cols):
         return None
     pkey = tuple(sorted(cols))
@@ -226,6 +259,10 @@ def _run_update(rk: _RunKernel, cols: Dict[str, torch.Tensor],
                 num: int) -> torch.Tensor:
     """One kernel's state over the runs, shaped and typed as its row-path
     `update` would return it, so host_post and the merge are unchanged."""
+    if rk.child is not None:
+        if rk.fnode is not None:
+            mask = mask & rk.fnode.build(cols)
+        return _run_update(rk.child, cols, mask, key, lens, num)
     k = rk.kernel
     dev = key.device
     if isinstance(k, CountKernel):

@@ -1,14 +1,17 @@
 """Aggregator specs: the query-model side of aggregation.
 
-The port's copy of the reference package's `query/aggregators.py`, cut to
-count and the long/double/float sum, min and max. Any other aggregator
-type raises NotImplementedError. The device side of each spec is an
+The port's copy of the reference package's `query/aggregators.py`: count,
+the long/double/float sum, min, max, first and last, filtered, hyperUnique
+and cardinality. An unknown type raises ValueError, as in the reference;
+the extension registry is not ported. The device side of each spec is an
 AggKernel in engine/kernels.py.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
+
+from druid_tpu_torch.query.filters import filter_from_json
 
 
 class AggregatorSpec:
@@ -82,11 +85,90 @@ _FIELD_TYPES = {
 }
 
 
+@dataclass(frozen=True)
+class FirstAggregator(AggregatorSpec):
+    """The value at the least time of each group; `kind` is long, double
+    or float."""
+    name: str
+    field: str
+    kind: str = "double"
+
+    def required_columns(self):
+        # a rolled-up segment keeps each row's event time in the hidden
+        # pair column __ft_<field>, which then orders the rows
+        return {self.field, f"__ft_{self.field}"}
+
+
+@dataclass(frozen=True)
+class LastAggregator(AggregatorSpec):
+    """The value at the greatest time of each group."""
+    name: str
+    field: str
+    kind: str = "double"
+
+    def required_columns(self):
+        return {self.field, f"__ft_{self.field}"}
+
+
+@dataclass(frozen=True)
+class FilteredAggregator(AggregatorSpec):
+    """A delegate aggregator over the rows that also pass `filter`."""
+    name: str
+    delegate: AggregatorSpec = None
+    filter: object = None             # a query.filters.DimFilter
+
+    def required_columns(self):
+        return self.delegate.required_columns() \
+            | self.filter.required_columns()
+
+
+@dataclass(frozen=True)
+class HyperUniqueAggregator(AggregatorSpec):
+    """HLL cardinality of a column: a register (complex) column, a
+    dimension or a numeric column."""
+    name: str
+    field: str
+    log2m: int = 11
+    round: bool = False
+
+
+@dataclass(frozen=True)
+class CardinalityAggregator(AggregatorSpec):
+    """HLL cardinality of the values of `fields` (byRow: of the rows'
+    combined values)."""
+    name: str
+    fields: Tuple[str, ...] = ()
+    by_row: bool = False
+    log2m: int = 11
+    round: bool = False
+
+    def required_columns(self):
+        return set(self.fields)
+
+
 def agg_from_json(j: dict) -> AggregatorSpec:
     t = j["type"]
     if t == "count":
         return CountAggregator(j["name"])
     cls = _FIELD_TYPES.get(t)
-    if cls is None:
-        raise NotImplementedError(f"aggregator type {t!r}")
-    return cls(j["name"], j["fieldName"])
+    if cls is not None:
+        return cls(j["name"], j["fieldName"])
+    if t == "hyperUnique":
+        return HyperUniqueAggregator(j["name"], j["fieldName"],
+                                     log2m=j.get("log2m", 11),
+                                     round=j.get("round", False))
+    if t == "cardinality":
+        return CardinalityAggregator(j["name"], tuple(j["fields"]),
+                                     j.get("byRow", False),
+                                     log2m=j.get("log2m", 11),
+                                     round=j.get("round", False))
+    for kind in ("long", "double", "float"):
+        if t == f"{kind}First":
+            return FirstAggregator(j["name"], j["fieldName"], kind)
+        if t == f"{kind}Last":
+            return LastAggregator(j["name"], j["fieldName"], kind)
+    if t == "filtered":
+        return FilteredAggregator(j.get("name") or j["aggregator"]["name"],
+                                  agg_from_json(j["aggregator"]),
+                                  filter_from_json(j["filter"]))
+    raise ValueError(f"unknown aggregator type {t!r}")

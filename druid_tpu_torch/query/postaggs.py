@@ -1,7 +1,8 @@
 """Post-aggregators: arithmetic over finalized aggregate values.
 
 The port's copy of the reference package's `query/postaggs.py`, cut to
-arithmetic, fieldAccess, finalizingFieldAccess and constant. Any other type
+arithmetic, fieldAccess, finalizingFieldAccess, hyperUniqueCardinality and
+constant. Any other type
 raises NotImplementedError. Evaluated on the host over result rows, per row
 (scalars) or per column (numpy arrays).
 """
@@ -23,6 +24,17 @@ class PostAggregator:
 
 @dataclass(frozen=True)
 class FieldAccessPostAgg(PostAggregator):
+    name: str
+    field: str
+
+    def compute(self, row):
+        return row.get(self.field)
+
+
+@dataclass(frozen=True)
+class HyperUniqueFinalizingPostAgg(PostAggregator):
+    """hyperUniqueCardinality: the HLL aggregator's states are finalized to
+    their estimate before post-aggregation, so this reads the field."""
     name: str
     field: str
 
@@ -78,6 +90,8 @@ def postagg_from_json(j: dict) -> PostAggregator:
     t = j["type"]
     if t in ("fieldAccess", "finalizingFieldAccess"):
         return FieldAccessPostAgg(j.get("name", j["fieldName"]), j["fieldName"])
+    if t == "hyperUniqueCardinality":
+        return HyperUniqueFinalizingPostAgg(j["name"], j["fieldName"])
     if t == "constant":
         return ConstantPostAgg(j.get("name", "const"), j["value"])
     if t == "arithmetic":

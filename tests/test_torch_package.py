@@ -28,7 +28,8 @@ def test_import_pulls_in_neither_jax_nor_druid_tpu():
     code = ("import sys, druid_tpu_torch, druid_tpu_torch.engine, "
             "druid_tpu_torch.data.generator, druid_tpu_torch.data.convert, "
             "druid_tpu_torch.data.packed, druid_tpu_torch.data.cascade, "
-            "druid_tpu_torch.utils.expression, druid_tpu_torch.query.lookup; "
+            "druid_tpu_torch.utils.expression, druid_tpu_torch.query.lookup, "
+            "druid_tpu_torch.engine.hll, druid_tpu_torch.engine.executor; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'druid_tpu' "
             "or m.startswith('druid_tpu.')); print(bad)")

@@ -2,7 +2,8 @@
 
 (a) Selection parity: over a grid of group spaces (8 ... 2^17, dense and
     host key modes), aggregator mixes (one over a FLOAT virtual column,
-    which both packages plan as a missing column), long ranges (small,
+    which both packages plan as a missing column; ones holding a first/last,
+    filtered or HLL kernel, which select mixed), long ranges (small,
     negative, wide, constant), a float column with a NaN, sorted and unsorted segments, the
     projection's row floor on and off, and every FORCE_STRATEGY value, the
     port's `select_strategy` returns the reference's (strategy, window).
@@ -108,7 +109,17 @@ MIXES = {
     # "vf": a FLOAT virtual column (computed, never staged)
     "vc": [("count", None), ("longSum", "metLong"), ("floatMax", "vf"),
            ("floatSum", "vf")],
+    # the kernels that have no mm plan and no blocked step: first/last,
+    # filtered and HLL, beside eligible ones
+    "first_last": [("count", None), ("longSum", "metLong"),
+                   ("longFirst", "metLong"), ("floatLast", "metFloat")],
+    "filtered": [("count", None), ("floatSum", "metFloat"),
+                 ("filtered", "metLong")],
+    "hll": [("count", None), ("longSum", "metLong"), ("cardinality", "d5"),
+            ("hyperUnique", "metLong")],
 }
+#: the mixes holding a kernel that has neither an mm plan nor a blocked step
+NO_MM_NO_BLOCKED = ("first_last", "filtered", "hll")
 #: the output dtypes of the virtual columns the mixes read
 VC_DTYPES = {"vf": "float32"}
 
@@ -120,9 +131,28 @@ _AGG_CLASSES = {"count": "CountAggregator", "longSum": "LongSumAggregator",
                 "doubleMin": "DoubleMinAggregator"}
 
 
+#: the new kernels' aggregators, as JSON (each package parses its own)
+_JSON_AGGS = {
+    "longFirst": lambda n, f: {"type": "longFirst", "name": n,
+                               "fieldName": f},
+    "floatLast": lambda n, f: {"type": "floatLast", "name": n,
+                               "fieldName": f},
+    "filtered": lambda n, f: {"type": "filtered", "name": n, "aggregator": {
+        "type": "longSum", "name": n, "fieldName": f}, "filter": {
+        "type": "selector", "dimension": "d5", "value": "v00000001"}},
+    "cardinality": lambda n, f: {"type": "cardinality", "name": n,
+                                 "fields": [f]},
+    "hyperUnique": lambda n, f: {"type": "hyperUnique", "name": n,
+                                 "fieldName": f},
+}
+
+
 def _specs(module, mix):
     out = []
     for i, (kind, field) in enumerate(MIXES[mix]):
+        if kind in _JSON_AGGS:
+            out.append(module.agg_from_json(_JSON_AGGS[kind](f"a{i}", field)))
+            continue
         cls = getattr(module, _AGG_CLASSES[kind])
         out.append(cls(f"a{i}") if field is None else cls(f"a{i}", field))
     return out
@@ -214,6 +244,9 @@ def test_selection_matches_reference(sort_by_dims, lrange, nan, monkeypatch):
                     got = _port_selection(port_seg, dims, gran, mix)
                     assert got == want, (dims, gran, mix, force, proj_min)
                     seen.add(want[0])
+                    if mix in NO_MM_NO_BLOCKED:
+                        # under every force and shape
+                        assert want == ("mixed", 0), (dims, gran, mix)
     # the grid reaches every strategy the selection can return
     assert {"blocked", "mm", "projection", "mixed"} <= seen
     if sort_by_dims:
