@@ -113,11 +113,34 @@ Phases, each fatal on failure:
      and first/last values exact), with its strategy per segment (mixed,
      with the blocked hybrid where G <= 2048), cold time, warm p50 of 5
      and split_times.
+ 14. batching and the device pool (before phase 11, B1/B2 counts set to 0
+     before it; both must stay 0): the headline schema generated anew in
+     48 hourly segments of 1M rows over two days (rung 2^20: stacked runs
+     of 32 and 16) and one 3M-row segment for the next hour (above
+     BATCH_MAX_SEGMENT_ROWS: a straggler), each in a random row order so
+     that the run domain refuses; B-ts an hourly timeseries (count,
+     longSum, floatMax, doubleSum: the mixed hybrid), B-topN a topN of dimB
+     by longSum under `in` half of dimA (mm, G = 1024), B-gb a groupBy on
+     dimA with count, longSum, longMin, longFirst and a filtered count of
+     dimB's head (mixed). Each batched and with {"batchSegments": false},
+     1 cold and 5 warm runs, rows against numpy and against each other;
+     warm p50, split_times and cold time; the batched runs, segments per
+     run, fill ratio and stragglers (`batching.stats()`); B-ts and B-topN
+     with a floatSum twice batched (the same bits required) and alone
+     (bit equality reported); each stacked run's device kernels at K = 16
+     and K = 32 (torch.profiler; equal required for the mixed and blocked
+     cells); then B-ts three times under a pool budget of half its resident
+     bytes (evictions required, rows unchanged) and the default budget
+     back.
+The device pool's snapshot is printed after phases 6-10, 12 and 13; at the
+default budget none may show an eviction.
+`python3 chip_smoke.py batching` runs the build and phase 14 alone.
 The line before the last is the kernels JSON line (each kernel's
 `launches` counted on phase 6's path, `launches_expressions` on phase
 12's, `launches_aggregators` on phase 13's); the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -671,12 +694,14 @@ class BlockLog:
 
 class StrategyLog:
     """Records, while active, the strategy and window of every segment's
-    reduction (`grouping.fuse_filter_update`), the kernels each blocked
-    reduction took (`grouping._blocked_reduce`), and the first fuse and mm
-    calls' inputs (segment 0's, for the per-op timings). Every wrapped
-    function runs unchanged."""
+    reduction (`grouping.fuse_filter_update`, and K entries for a batched
+    run of K segments, `grouping.fuse_filter_update_stacked`), the kernels
+    each blocked reduction took (`grouping._blocked_reduce`, per segment),
+    and the first fuse and mm calls' inputs (segment 0's, for the per-op
+    timings). Every wrapped function runs unchanged."""
 
-    NAMES = ("fuse_filter_update", "_blocked_reduce", "mm_reduce")
+    NAMES = ("fuse_filter_update", "_blocked_reduce", "mm_reduce",
+             "fuse_filter_update_stacked")
 
     def __enter__(self):
         from druid_tpu_torch.engine import grouping as gr
@@ -696,9 +721,18 @@ class StrategyLog:
                 strategy=strategy, span=span, packed_cols=packed_cols)
 
         def blocked(arrays, mask, key, kernels, num_total):
-            self.blocked.append(tuple(k.name for k in kernels))
+            # a batched stack [K, R] reduces K segments at once
+            k = mask.shape[0] if mask.dim() == 2 else 1
+            self.blocked.extend([tuple(kr.name for kr in kernels)] * k)
             return orig["_blocked_reduce"](arrays, mask, key, kernels,
                                            num_total)
+
+        def stacked(arrays, mask, key, dims, filter_node, kernels,
+                    num_total, slot_base, strategy="mixed", span=0):
+            self.strategies.extend([(strategy, span)] * mask.shape[0])
+            return orig["fuse_filter_update_stacked"](
+                arrays, mask, key, dims, filter_node, kernels, num_total,
+                slot_base, strategy=strategy, span=span)
 
         def mm(arrays, mask, key, kernels, plans, num_total):
             if self.first_mm is None:
@@ -706,7 +740,7 @@ class StrategyLog:
                                  list(plans), num_total)
             return orig["mm_reduce"](arrays, mask, key, kernels, plans,
                                      num_total)
-        for n, f in zip(self.NAMES, (fuse, blocked, mm)):
+        for n, f in zip(self.NAMES, (fuse, blocked, mm, stacked)):
             setattr(gr, n, f)
         return self
 
@@ -1578,13 +1612,16 @@ HOUR_SEGMENTS = 2                    # the hour-ordered shape: 2 of the 8
 
 class PartialLog:
     """Records, while active, each segment partial's strategy
-    (`engines.run_grouped_aggregate`): "runDomain" for a segment served in
+    (`run_grouped_aggregate`, called by the engines and for batching's
+    stragglers): "runDomain" for a segment served in
     run space, which never reaches `fuse_filter_update`; and, for those,
     the segment and the run partition its tables are cached under."""
 
     def __enter__(self):
-        from druid_tpu_torch.engine import engines
-        self.mod, self.orig = engines, engines.run_grouped_aggregate
+        from druid_tpu_torch.engine import batching, engines
+        # a segment runs alone from the engines or as a batching straggler
+        self.mods = (engines, batching)
+        self.orig = engines.run_grouped_aggregate
         self.strategies, self.run_tables = [], []
         orig = self.orig
 
@@ -1595,11 +1632,13 @@ class PartialLog:
             if plan is not None:
                 self.run_tables.append((p.segment, (plan[2], plan[3])))
             return p
-        engines.run_grouped_aggregate = run
+        for mod in self.mods:
+            mod.run_grouped_aggregate = run
         return self
 
     def __exit__(self, *exc):
-        self.mod.run_grouped_aggregate = self.orig
+        for mod in self.mods:
+            mod.run_grouped_aggregate = self.orig
 
 
 def rundomain_segments():
@@ -1732,7 +1771,7 @@ def joint_runs(seg, cols):
 def run_table_mb(run_tables):
     """MB (min, max) over segments of the run tables a query read: the
     entries cached under its run partition."""
-    mb = [sum(int(v.nbytes) for k, v in seg._device_cache.items()
+    mb = [sum(int(v.nbytes) for k, v in seg.device_entries().items()
               if k[0] == "rundom" and k[1] == part) / 1e6
           for seg, part in run_tables]
     return [min(mb), max(mb)] if mb else None
@@ -2679,6 +2718,494 @@ def phase_aggregators(dev, segments):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: batching and the device pool
+# ---------------------------------------------------------------------------
+
+#: the hourly hand-offs of streaming ingestion over two days (48 segments of
+#: 1M rows: rung 2^20, buckets of 32 + 16) and the next hour's 3M-row
+#: segment (above BATCH_MAX_SEGMENT_ROWS: a straggler), queried by a
+#: two-day dashboard
+BATCH_HOURS, BATCH_ROWS, BATCH_BIG_ROWS = 48, 1_000_000, 3_000_000
+BATCH_IV = "2026-01-01T00:00:00.000Z/2026-01-03T01:00:00.000Z"
+HOUR_MS = 3_600_000
+
+
+def hourly_segments():
+    """The headline schema in hourly segments, each in a random row order
+    (so that the run domain refuses them)."""
+    from druid_tpu_torch.data.generator import ColumnSpec, DataGenerator
+    from druid_tpu_torch.data.segment import (NumericColumn, Segment,
+                                              StringDimColumn)
+    from druid_tpu_torch.utils.intervals import Interval
+    schema = (
+        ColumnSpec("dimA", "string", cardinality=100, distribution="uniform"),
+        ColumnSpec("dimB", "string", cardinality=1000, distribution="zipf"),
+        ColumnSpec("metLong", "long", low=0, high=10_000),
+        ColumnSpec("metFloat", "float", distribution="normal", mean=100.0,
+                   std=25.0),
+    )
+    gen = DataGenerator(schema, seed=SEED + 14)
+    rng = np.random.default_rng(SEED + 14)
+    start = Interval.parse(BATCH_IV).start
+    out = []
+    for h in range(BATCH_HOURS + 1):
+        iv = Interval(start + h * HOUR_MS, start + (h + 1) * HOUR_MS)
+        seg = gen.segment(BATCH_ROWS if h < BATCH_HOURS else BATCH_BIG_ROWS,
+                          iv, datasource="hourly")
+        perm = rng.permutation(seg.n_rows)
+        out.append(Segment(
+            seg.id, seg.time_ms[perm],
+            {n: StringDimColumn(c.ids[perm], c.dictionary)
+             for n, c in seg.dims.items()},
+            {n: NumericColumn(m.values[perm], m.type)
+             for n, m in seg.metrics.items()}))
+    return out
+
+
+def batching_queries(segments):
+    dim_a = list(segments[0].dims["dimA"].dictionary.values)
+    head = segments[0].dims["dimB"].dictionary.values[dimb_head(segments)]
+    base = {"dataSource": "hourly", "intervals": [BATCH_IV]}
+    ts = dict(base, queryType="timeseries", granularity="hour", aggregations=[
+        {"type": "count", "name": "rows"},
+        {"type": "longSum", "name": "lsum", "fieldName": "metLong"},
+        {"type": "floatMax", "name": "fmax", "fieldName": "metFloat"},
+        {"type": "doubleSum", "name": "dsum", "fieldName": "metFloat"}])
+    topn = dict(base, queryType="topN", granularity="all", dimension="dimB",
+                metric="lsum", threshold=100, aggregations=[
+                    {"type": "count", "name": "rows"},
+                    {"type": "longSum", "name": "lsum",
+                     "fieldName": "metLong"}],
+                filter={"type": "in", "dimension": "dimA",
+                        "values": dim_a[0:100:2]})
+    gb = dict(base, queryType="groupBy", granularity="all",
+              dimensions=["dimA"], aggregations=[
+                  {"type": "count", "name": "rows"},
+                  {"type": "longSum", "name": "lsum", "fieldName": "metLong"},
+                  {"type": "longMin", "name": "lmin", "fieldName": "metLong"},
+                  {"type": "longFirst", "name": "lfirst",
+                   "fieldName": "metLong"},
+                  {"type": "filtered", "filter": {
+                      "type": "selector", "dimension": "dimB", "value": head},
+                   "aggregator": {"type": "count", "name": "head"}}])
+    return {"B-ts": ts, "B-topN": topn, "B-gb": gb}
+
+
+def batching_reference(segments):
+    """numpy results of the three B-queries (and of floatSum(metFloat))."""
+    t0 = segments[0].interval.start
+    head = dimb_head(segments)
+    H = BATCH_HOURS + 1
+    r = {k: np.zeros(n, np.int64) for k, n in (
+        ("h_cnt", H), ("h_lsum", H), ("tb_cnt", 1000), ("tb_lsum", 1000),
+        ("a_cnt", 100), ("a_lsum", 100), ("a_head", 100))}
+    r.update(h_fmax=np.full(H, -np.inf, np.float32),
+             h_fsum=np.zeros(H), h_abs=np.zeros(H),
+             tb_fsum=np.zeros(1000), tb_abs=np.zeros(1000),
+             a_lmin=np.full(100, np.iinfo(np.int64).max),
+             a_ftime=np.full(100, np.iinfo(np.int64).max),
+             a_first=np.zeros(100, np.int64))
+    for s in segments:
+        a = s.dims["dimA"].ids.astype(np.int64)
+        b = s.dims["dimB"].ids.astype(np.int64)
+        ml = s.metrics["metLong"].values
+        mf = s.metrics["metFloat"].values
+        mf64 = mf.astype(np.float64)
+        h = (s.time_ms - t0) // HOUR_MS
+        r["h_cnt"] += np.bincount(h, minlength=H)
+        r["h_lsum"] += np.bincount(h, weights=ml, minlength=H).astype(
+            np.int64)
+        for hv in range(int(h.min()), int(h.max()) + 1):
+            r["h_fmax"][hv] = max(r["h_fmax"][hv], mf[h == hv].max())
+        r["h_fsum"] += np.bincount(h, weights=mf64, minlength=H)
+        r["h_abs"] += np.bincount(h, weights=np.abs(mf64), minlength=H)
+        even = (a % 2) == 0
+        r["tb_cnt"] += np.bincount(b[even], minlength=1000)
+        r["tb_lsum"] += np.bincount(b[even], weights=ml[even],
+                                    minlength=1000).astype(np.int64)
+        r["tb_fsum"] += np.bincount(b[even], weights=mf64[even],
+                                    minlength=1000)
+        r["tb_abs"] += np.bincount(b[even], weights=np.abs(mf64[even]),
+                                   minlength=1000)
+        r["a_cnt"] += np.bincount(a, minlength=100)
+        r["a_lsum"] += np.bincount(a, weights=ml, minlength=100).astype(
+            np.int64)
+        r["a_head"] += np.bincount(a[b == head], minlength=100)
+        # per-group minima from one sort of a packed key each: (dimA,
+        # metLong) for longMin; (dimA, time offset, row) for longFirst (the
+        # least time, then the least row index; an earlier segment wins a
+        # tie, as the partials merge in the segments' order)
+        g_lmin = np.sort((a << 14) | ml)
+        starts = np.searchsorted(g_lmin >> 14, np.arange(100))
+        live = starts < g_lmin.shape[0]
+        live[live] = (g_lmin[starts[live]] >> 14) == np.arange(100)[live]
+        lmin = g_lmin[starts[live]] & ((1 << 14) - 1)
+        r["a_lmin"][live] = np.minimum(r["a_lmin"][live], lmin)
+        toff = s.time_ms - s.interval.start
+        g_first = np.sort((a << 44) | (toff << 22)
+                          | np.arange(s.n_rows, dtype=np.int64))
+        starts = np.searchsorted(g_first >> 44, np.arange(100))
+        live = starts < g_first.shape[0]
+        live[live] = (g_first[starts[live]] >> 44) == np.arange(100)[live]
+        first = g_first[starts[live]]
+        t_first = ((first >> 22) & ((1 << 22) - 1)) + s.interval.start
+        row = first & ((1 << 22) - 1)
+        g = np.arange(100)[live]
+        better = t_first < r["a_ftime"][g]
+        r["a_ftime"][g[better]] = t_first[better]
+        r["a_first"][g[better]] = ml[row[better]]
+    r["t0"] = t0
+    return r
+
+
+def _check_fsum(got, want, absv, what):
+    if abs(got - want) > 1e-5 * absv:
+        raise AssertionError(f"{what}: float sum {got} against {want} "
+                             f"(sum|v| {absv})")
+
+
+def check_b_ts(rows, ref, fsum=False):
+    t0, H = ref["t0"], BATCH_HOURS + 1
+    if [r["timestamp"] for r in rows] != [t0 + h * HOUR_MS
+                                          for h in range(H)]:
+        raise AssertionError("B-ts: bucket timestamps")
+    for h, r in enumerate(rows):
+        v = r["result"]
+        if (v["rows"], v["lsum"], v["fmax"]) != (
+                int(ref["h_cnt"][h]), int(ref["h_lsum"][h]),
+                float(ref["h_fmax"][h])):
+            raise AssertionError(f"B-ts: hour {h}: {v}")
+        _check_fsum(v["dsum"], ref["h_fsum"][h], ref["h_abs"][h],
+                    f"B-ts hour {h} dsum")
+        if fsum:
+            _check_fsum(v["fsum"], ref["h_fsum"][h], ref["h_abs"][h],
+                        f"B-ts hour {h} fsum")
+
+
+def check_b_topn(rows, ref, fsum=False, segments=None):
+    res = rows[0]["result"]
+    vals = {v: i for i, v in enumerate(
+        segments[0].dims["dimB"].dictionary.values)}
+    want_top = np.sort(ref["tb_lsum"])[::-1][:100]
+    if len(res) != 100 or [e["lsum"] for e in res] != want_top.tolist():
+        raise AssertionError("B-topN: the top 100 sums")
+    for e in res:
+        i = vals[e["dimB"]]
+        if (e["rows"], e["lsum"]) != (int(ref["tb_cnt"][i]),
+                                      int(ref["tb_lsum"][i])):
+            raise AssertionError(f"B-topN: {e}")
+        if fsum:
+            _check_fsum(e["fsum"], ref["tb_fsum"][i], ref["tb_abs"][i],
+                        f"B-topN {e['dimB']} fsum")
+
+
+def check_b_gb(rows, ref, segments=None):
+    vals = {v: i for i, v in enumerate(
+        segments[0].dims["dimA"].dictionary.values)}
+    if len(rows) != 100:
+        raise AssertionError(f"B-gb: {len(rows)} rows")
+    for r in rows:
+        e = r["event"]
+        i = vals[e["dimA"]]
+        want = (int(ref["a_cnt"][i]), int(ref["a_lsum"][i]),
+                int(ref["a_lmin"][i]), int(ref["a_first"][i]),
+                int(ref["a_head"][i]))
+        if (e["rows"], e["lsum"], e["lmin"], e["lfirst"], e["head"]) != want:
+            raise AssertionError(f"B-gb: {e} against {want}")
+
+
+def float_bits(rows, name):
+    """The float64 bit patterns of every `name` value in `rows`."""
+    out = []
+    for r in rows:
+        for v in ([r["event"]] if "event" in r else
+                  r["result"] if isinstance(r["result"], list)
+                  else [r["result"]]):
+            out.append(np.float64(v[name]).view(np.int64).item())
+    return out
+
+
+def pool_snapshot(tag, require_no_evictions=True):
+    """Logs the device pool's counters; fails on an eviction where the
+    default budget must hold the phase."""
+    from druid_tpu_torch.data.devicepool import device_pool
+    s = device_pool().snapshot()
+    log(f"  pool after {tag}: {s.resident_bytes / 1e9:.3f} GB resident in "
+        f"{s.entries} entries (budget {s.budget_bytes / 1e9:.3f} GB), hits "
+        f"{s.hits}, misses {s.misses}, evictions {s.evictions} "
+        f"({s.evicted_bytes / 1e9:.3f} GB)")
+    if require_no_evictions and s.evictions:
+        raise AssertionError(f"{tag}: {s.evictions} pool evictions at the "
+                             f"default budget")
+    return dataclasses.asdict(s)
+
+
+def stacked_launches(q, segments, dev, K):
+    """One warm stacked run of K compatible segments of `q`: the device
+    kernels it launched (copies excluded) and the runtime launch calls,
+    from torch.profiler over the run's own range (a few warm-up kernels
+    open the trace first: counted over the whole trace, a long process's
+    later traces lost kernels); the tensor ops dispatched to the card (a
+    host-side count); and the run's time by CUDA events. The runs are
+    measurement; they add to `batching.stats()` outside the query runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from druid_tpu_torch.engine import batching, engines
+    from druid_tpu_torch.query.model import query_from_json
+    query = query_from_json(q)
+
+    def chunk():
+        intervals, segs, kds, _ = engines._query_plan(query, segments)
+        plans = [batching._plan_for(s, k, i, intervals, query.granularity,
+                                    query.aggregations, query.filter,
+                                    query.virtual_columns)
+                 for i, (s, k) in enumerate(zip(segs, kds))]
+        bucket = max(batching._shape_buckets(
+            [p for p in plans if p.eligible]), key=len)
+        return bucket[:K]
+
+    class DeviceOps(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if any(torch.is_tensor(t) and t.is_cuda
+                   for t in torch.utils._pytree.tree_leaves(out)) \
+                    and not func._schema.name.startswith(
+                        ("aten::view", "aten::_unsafe_view", "aten::select",
+                         "aten::slice", "aten::as_strided", "aten::expand",
+                         "aten::unsqueeze", "aten::t", "aten::permute",
+                         "aten::detach", "aten::alias", "aten::unflatten",
+                         "aten::diagonal", "aten::transpose",
+                         "aten::_reshape_alias", "aten::unbind")):
+                self.n += 1
+            return out
+
+    batching._run_batch(chunk(), dev)          # warm: staged, built
+    torch.cuda.synchronize()
+    plans = chunk()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    batching._run_batch(plans, dev)
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop)
+    ops = DeviceOps()
+    with ops:
+        batching._run_batch(chunk(), dev)
+    torch.cuda.synchronize()
+    plans = chunk()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        warm = torch.zeros(1 << 20, device=dev)
+        for _ in range(8):
+            warm.add_(1)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        with record_function("stacked run"):
+            batching._run_batch(plans, dev)
+            torch.cuda.synchronize()
+    events = prof.events()
+    region = [e for e in events if e.name == "stacked run"][0]
+    t0, t1 = region.time_range.start, region.time_range.end
+    kernels = runtime = 0
+    by_kernel = {}
+    for e in events:
+        if not (t0 <= e.time_range.start <= t1):
+            continue
+        if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                      "cudaLaunchKernelExC", "cuLaunchKernelEx"):
+            runtime += 1
+        elif e.device_type == torch.autograd.DeviceType.CUDA \
+                and "Memcpy" not in e.name and "Memset" not in e.name \
+                and not e.name.startswith(("aten::", "cuda", "Activity")):
+            kernels += 1
+            key = e.name[:300]
+            by_kernel[key] = by_kernel.get(key, 0) + 1
+    return {"K": K, "strategy": plans[0].spec.strategy,
+            "device_kernels": kernels, "launch_calls": runtime,
+            "device_ops": ops.n, "by_kernel": by_kernel, "ms": ms}
+
+
+def run_batching_query(ex, name, q, segments, dev, check, batched):
+    """A cold run and 5 warm runs (rows checked each time), split_times;
+    with `batched` False the query carries {"batchSegments": false}."""
+    import torch
+    from druid_tpu_torch.engine import batching
+    if not batched:
+        q = dict(q, context={"batchSegments": False})
+    s0 = batching.stats().snapshot()
+    batching.stats().drain_events()
+    t = time.perf_counter()
+    rows = ex.run_json(q)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t
+    check(rows)
+    s1 = batching.stats().snapshot()
+    events, _ = batching.stats().drain_events()
+    warm = []
+    for _ in range(5):
+        t = time.perf_counter()
+        rows = ex.run_json(q)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t) * 1e3)
+    check(rows)
+    batching.stats().drain_events()
+    return rows, {"cold_s": cold, "warm_ms": warm,
+                  "p50_ms": float(np.median(warm)),
+                  "dispatches": s1["batches"] - s0["batches"],
+                  "segments_per_dispatch": sorted(n for n, _ in events),
+                  "fill_ratio": [f for _, f in events],
+                  "stragglers": s1["fallbackSegments"]
+                  - s0["fallbackSegments"],
+                  **split_times(q, segments, dev)}
+
+
+def phase_batching(dev):
+    """B-ts, B-topN and B-gb over 48 hourly segments and a straggler,
+    batched and alone, against numpy and each other; float bits, launches
+    per stacked run at K = 16 and 32, and the pool under a budget of half
+    B-ts's resident bytes."""
+    import torch
+    from druid_tpu_torch.data.devicepool import device_pool
+    from druid_tpu_torch.engine import QueryExecutor, batching
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    t = time.perf_counter()
+    segments = hourly_segments()
+    gen_s = time.perf_counter() - t
+    t = time.perf_counter()
+    ref = batching_reference(segments)
+    log(f"  {len(segments)} segments ({BATCH_HOURS} x {BATCH_ROWS} rows + "
+        f"{BATCH_BIG_ROWS}) generated in {gen_s:.1f} s, numpy reference "
+        f"{time.perf_counter() - t:.1f} s")
+    qs = batching_queries(segments)
+    checks = {"B-ts": lambda rows, fs=False: check_b_ts(rows, ref, fs),
+              "B-topN": lambda rows, fs=False: check_b_topn(
+                  rows, ref, fs, segments),
+              "B-gb": lambda rows, fs=False: check_b_gb(rows, ref, segments)}
+    want_strategy = {"B-ts": "mixed", "B-topN": "mm", "B-gb": "mixed"}
+    ex = QueryExecutor(segments, device=dev)
+    pool = device_pool()
+    out = {"segments": len(segments), "gen_s": gen_s}
+    sr.LAUNCHES = mk.LAUNCHES = 0
+    for name, q in qs.items():
+        check = checks[name]
+        r0 = pool.snapshot().resident_bytes
+        with StrategyLog() as slog:
+            rows_b, res_b = run_batching_query(ex, name, q, segments, dev,
+                                               check, True)
+        res_b["resident_bytes"] = pool.snapshot().resident_bytes - r0
+        rows_a, res_a = run_batching_query(ex, name, q, segments, dev,
+                                           check, False)
+        if not same_rows(rows_b, rows_a):
+            raise AssertionError(f"{name}: batched rows differ from alone")
+        strategies = sorted(set(slog.names()))
+        if res_b["dispatches"] != 2 or res_b["stragglers"] != 1 \
+                or res_b["segments_per_dispatch"] != [16, 32] \
+                or strategies != [want_strategy[name]]:
+            raise AssertionError(f"{name}: {res_b['dispatches']} dispatches "
+                                 f"of {res_b['segments_per_dispatch']}, "
+                                 f"{res_b['stragglers']} stragglers, "
+                                 f"strategies {strategies}")
+        if res_a["dispatches"]:
+            raise AssertionError(f"{name}: batched with batchSegments off")
+        res = {"batched": res_b, "alone": res_a, "strategies": strategies}
+        if name in ("B-ts", "B-topN"):
+            # the blocked / mm float sum: two batched runs, the same bits;
+            # batched against alone, reported
+            fq = with_fsum(q)
+            fa = ex.run_json(fq)
+            fb = ex.run_json(fq)
+            fo = ex.run_json(dict(fq, context={"batchSegments": False}))
+            for rows in (fa, fb, fo):
+                check(rows, True)
+            if float_bits(fa, "fsum") != float_bits(fb, "fsum"):
+                raise AssertionError(f"{name}: fsum bits differ between two "
+                                     f"batched runs")
+            res["fsum_bits_batched_twice_equal"] = True
+            res["fsum_bits_equal_alone"] = \
+                float_bits(fa, "fsum") == float_bits(fo, "fsum")
+        res["launches"] = [stacked_launches(q, segments, dev, k)
+                           for k in (16, 32)]
+        l16, l32 = res["launches"]
+        for kname in sorted(set(l16["by_kernel"]) | set(l32["by_kernel"])):
+            n16 = l16["by_kernel"].get(kname, 0)
+            n32 = l32["by_kernel"].get(kname, 0)
+            if n16 != n32:
+                log(f"    {kname[:160]}: {n16} at K = 16, {n32} at 32")
+        if want_strategy[name] != "mm" \
+                and l16["device_kernels"] != l32["device_kernels"]:
+            raise AssertionError(f"{name}: {l16['device_kernels']} kernels "
+                                 f"at K = 16, {l32['device_kernels']} at 32")
+        out[name] = res
+        log(f"  {name}: {strategies}, batched: cold {res_b['cold_s']:.2f} s, "
+            f"warm p50 {res_b['p50_ms']:.1f} ms (partials "
+            f"{res_b['partials_ms']:.1f}, merge+finish "
+            f"{res_b['finish_ms']:.1f}), {res_b['dispatches']} dispatches "
+            f"of {res_b['segments_per_dispatch']} segments, fill "
+            f"{[round(f, 4) for f in res_b['fill_ratio']]}, "
+            f"{res_b['stragglers']} straggler, "
+            f"{res_b['resident_bytes'] / 1e6:.1f} MB staged; alone: cold "
+            f"{res_a['cold_s']:.2f} s, warm p50 {res_a['p50_ms']:.1f} ms "
+            f"(partials {res_a['partials_ms']:.1f}, merge+finish "
+            f"{res_a['finish_ms']:.1f}); rows equal numpy and each other"
+            + (f"; fsum bits batched twice equal, equal alone: "
+               f"{res['fsum_bits_equal_alone']}" if "fsum_bits_equal_alone"
+               in res else ""))
+        for la in res["launches"]:
+            log(f"    stacked run at K = {la['K']} ({la['strategy']}): "
+                f"{la['device_kernels']} device kernels, "
+                f"{la['launch_calls']} launch calls (torch.profiler), "
+                f"{la['device_ops']} tensor ops on the card; "
+                f"{la['ms']:.3f} ms (CUDA events)")
+    out["pool"] = pool_snapshot("phase 14's queries")
+
+    # the pool under a budget of half B-ts's resident bytes
+    budget = out["B-ts"]["batched"]["resident_bytes"] // 2
+    before = pool.snapshot()
+    pool.configure(budget)
+    s0 = pool.snapshot()
+    runs = []
+    for _ in range(3):
+        t = time.perf_counter()
+        rows = ex.run_json(qs["B-ts"])
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t) * 1e3)
+        checks["B-ts"](rows)
+    s1 = pool.snapshot()
+    pool.configure(None)
+    ev = s1.evictions - before.evictions
+    if ev <= 0 or s1.resident_bytes > budget \
+            or s1.misses == s0.misses:
+        raise AssertionError(f"pool sub-phase: {ev} evictions, "
+                             f"{s1.resident_bytes} resident over {budget}")
+    out["pool_budget"] = {"budget_bytes": budget, "runs_ms": runs,
+                          "evictions_on_configure": s0.evictions
+                          - before.evictions,
+                          "evictions": ev,
+                          "evicted_bytes": s1.evicted_bytes
+                          - before.evicted_bytes,
+                          "misses": s1.misses - s0.misses}
+    log(f"  pool at {budget / 1e6:.1f} MB (half B-ts's): B-ts 3 runs "
+        f"{[round(x, 1) for x in runs]} ms, rows unchanged; evictions "
+        f"{s0.evictions - before.evictions} on configure, {ev} in all "
+        f"({(s1.evicted_bytes - before.evicted_bytes) / 1e9:.3f} GB), "
+        f"{s1.misses - s0.misses} "
+        f"misses; default budget back: "
+        f"{pool.snapshot().budget_bytes / 1e9:.3f} GB")
+    launches = {"B1": sr.LAUNCHES, "B2": mk.LAUNCHES}
+    if any(launches.values()):
+        raise AssertionError(f"phase 14 launched B1/B2: {launches}")
+    del ex, segments
+    torch.cuda.synchronize()
+    return out
+
 
 def main():
     import torch
@@ -2698,6 +3225,11 @@ def main():
         f"python {sys.version.split()[0]}")
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
+    from druid_tpu_torch.data.devicepool import device_pool
+    report["pool_budget_bytes"] = device_pool().budget_bytes
+    log(f"device pool budget {report['pool_budget_bytes']} B "
+        f"({report['pool_budget_bytes'] / 2**30:.2f} GiB, "
+        f"{torch.cuda.get_device_properties(0).total_memory} B on the card)")
 
     t = time.perf_counter()
     built = _build.build_all()
@@ -2708,6 +3240,13 @@ def main():
         for line in ptxas.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
+
+    if sys.argv[1:] == ["batching"]:
+        # the build and phase 14 alone (a quicker check of that phase; its
+        # numbers are in the log)
+        log("phase batching and the pool")
+        phase_batching(dev)
+        return 0
 
     log("phase B1 parity, synthetic projections")
     b1 = phase_b1(dev)
@@ -2729,19 +3268,24 @@ def main():
     ref = main_out.pop("ref")
     captured = {k: main_out.pop(k) for k in ("mm_inputs", "ts_inputs")}
     report["main"] = main_out
+    pools = report["pool"] = {"main": pool_snapshot("the main path")}
 
     log("phase packing off, 2 segments")
     report["packing_off"] = phase_packing_off(dev, segments, qs)
+    pools["packing_off"] = pool_snapshot("packing off")
 
     log("phase strategies, the 8 headline segments")
     report["strategies"] = phase_strategies(dev, segments, qs, ref, captured)
+    pools["strategies"] = pool_snapshot("strategies")
     del segments, captured, ref
 
     log(f"phase sorted, {SORTED_SEGMENTS} segments in the rollup order")
     report["sorted"] = phase_sorted(dev)
+    pools["sorted"] = pool_snapshot("sorted")
 
     log(f"phase run domain, {RUN_SEGMENTS} segments in the rollup order")
     report["run_domain"] = phase_rundomain(dev)
+    pools["run_domain"] = pool_snapshot("run domain")
 
     entries = []
     saved = (sr.LAUNCHES, mk.LAUNCHES)
@@ -2752,10 +3296,18 @@ def main():
         f"{report['fresh_gen_s']:.1f} s")
     expr, expr_launches, expr_errs = phase_expressions(dev, fresh)
     report["expressions"] = expr
+    pools["expressions"] = pool_snapshot("expressions")
     log("phase aggregators (A1-A5), the same segments")
     aggr, aggr_launches = phase_aggregators(dev, fresh)
     report["aggregators"] = aggr
+    pools["aggregators"] = pool_snapshot("aggregators")
     del fresh
+    log(f"phase batching and the pool ({BATCH_HOURS} hourly segments and a "
+        f"straggler)")
+    t = time.perf_counter()
+    report["batching"] = phase_batching(dev)
+    report["batching"]["phase_s"] = time.perf_counter() - t
+    log(f"  phase 14 took {report['batching']['phase_s']:.1f} s")
     sr.LAUNCHES, mk.LAUNCHES = saved
     for which, parity, check, name, source, replaces in (
             ("B1", b1, check_b1, "sorted_reduce",

@@ -13,9 +13,11 @@ read as words (the caller's `words`) stages as bit-packed words
 stages as a decoded tensor, since a consumer that reads it decoded would
 unpack it on every query. A complex column stages as-is, padded by rows. A
 permuted layout (the sorted projection) packs
-after the permutation. Staged blocks are cached per segment in a plain dict
-keyed by the columns, device, permutation and pack descriptor; there is no
-byte budget.
+after the permutation. Staged blocks, and every other device tensor a
+segment keeps (`device_cached`), live in the process-wide byte-budgeted
+device pool (data/devicepool.py), keyed by the columns, row alignment,
+device, permutation and pack descriptor; the pool evicts the least recently
+used entry by bytes and drops a segment's entries when it is collected.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from druid_tpu_torch.data import cascade, packed
+from druid_tpu_torch.data.devicepool import device_pool
 from druid_tpu_torch.data.dictionary import Dictionary
 from druid_tpu_torch.utils.intervals import Interval
 
@@ -149,8 +152,11 @@ class Segment:
         self.min_time = int(self.time_ms.min()) if self.n_rows else 0
         self.max_time = int(self.time_ms.max()) if self.n_rows else 0
         self._aux_cache: Dict[Tuple, object] = {}
-        self._device_cache: Dict[Tuple, object] = {}
         self._lock = threading.Lock()
+        # device tensors live in the process-wide pool, dropped when this
+        # segment is collected
+        self._pool = device_pool()
+        self._pool_owner = self._pool.register_owner(self)
 
     @property
     def interval(self) -> Interval:
@@ -169,17 +175,21 @@ class Segment:
     # ---- device staging ------------------------------------------------
     def device_block(self, columns: Sequence[str], device: torch.device,
                      perm: Optional[np.ndarray] = None, perm_key=None,
-                     words: Sequence[str] = ()) -> DeviceBlock:
-        """Stage `columns` (plus `__time_offset` and `__valid`) on `device`.
+                     words: Sequence[str] = (),
+                     row_align: int = DEFAULT_ROW_ALIGN) -> DeviceBlock:
+        """Stage `columns` (plus `__time_offset` and `__valid`) on `device`,
+        padded to a multiple of `row_align` rows: the batched path stages at
+        its ladder rung (row_align >= n_rows pads to exactly row_align).
 
         `perm` applies a row permutation on the host before staging (the
         sorted-projection path); it needs a stable hashable `perm_key` so the
         cache tells layouts apart. `words` names the value columns kernels
         B1/B2 will read as words: each stages packed where
         `cascade.plan_pair` packs it (a cascade rung claims a column first,
-        and it then stages dense). Cached per (columns, device, perm_key,
-        pack descriptor): flipping packing never serves a block staged the
-        other way."""
+        and it then stages dense). Pooled per (columns, row_align, device,
+        perm_key, pack descriptor): flipping packing never serves a block
+        staged the other way, and a block padded to a rung never stands in
+        for one padded to DEFAULT_ROW_ALIGN."""
         if perm is not None and perm_key is None:
             raise ValueError("device_block(perm=...) requires perm_key")
         packs = ()
@@ -188,16 +198,18 @@ class Segment:
                                          permuted=perm is not None)
             want = set(words)
             packs = tuple(p for p in packs if p[0] in want)
-        key = ("block", tuple(sorted(set(columns))), str(device), perm_key,
-               packs)
-        return self.device_cached(
-            key, lambda: self._stage_block(columns, device, perm, packs))
+        key = ("block", tuple(sorted(set(columns))), row_align, str(device),
+               perm_key, packs)
+        return self._pool.get_or_build(
+            self._pool_owner, key,
+            lambda: self._stage_block(columns, device, perm, packs,
+                                      row_align))
 
     def _stage_block(self, columns: Sequence[str], device: torch.device,
-                     perm: Optional[np.ndarray],
-                     packs: Tuple = ()) -> DeviceBlock:
+                     perm: Optional[np.ndarray], packs: Tuple = (),
+                     row_align: int = DEFAULT_ROW_ALIGN) -> DeviceBlock:
         pack_for = {name: (w, base) for name, w, base in packs}
-        pad_n = self.padded_rows()
+        pad_n = self.padded_rows(row_align)
         time0 = self.interval.start
         off = self.time_ms - time0
         if off.size and (off.min() < 0 or off.max() >= 2**31):
@@ -242,18 +254,21 @@ class Segment:
                            packs=packs)
 
     def device_cached(self, key: Tuple, fn):
-        """Memoize a device tensor (or block) built by `fn` under `key`."""
-        with self._lock:
-            if key in self._device_cache:
-                return self._device_cache[key]
-        value = fn()
-        with self._lock:
-            return self._device_cache.setdefault(key, value)
+        """Memoize a derived device tensor built by `fn` under `key`, in the
+        same byte-budgeted pool as the staged blocks."""
+        return self._pool.get_or_build(self._pool_owner, ("aux",) + key, fn)
 
     def device_contains(self, key: Tuple) -> bool:
-        """Whether `device_cached` holds `key` (a residency probe)."""
-        with self._lock:
-            return key in self._device_cache
+        """Whether the pool holds `device_cached`'s `key` (a residency
+        probe that touches neither the LRU order nor the pool's counts)."""
+        return self._pool.peek(self._pool_owner, ("aux",) + key)
+
+    def device_entries(self) -> Dict[Tuple, object]:
+        """{key: value} of this segment's resident pool entries: blocks
+        under ("block", ...), `device_cached` entries under their own
+        key."""
+        return {(k[1:] if k[0] == "aux" else k): v
+                for k, v in self._pool.owner_entries(self._pool_owner).items()}
 
     def column_minmax(self, name: str) -> Tuple[int, int]:
         """Cached (min, max) of a numeric column (0, 0 when empty)."""

@@ -4,10 +4,12 @@ The port's counterpart of the reference package's `engine/engines.py` for
 timeseries, topN and groupBy. Dimension specs become KeyDims here
 (`_keydim_for`: extraction and listFiltered remaps, numeric and expression
 dimensions as query-time dictionaries, unified across the query's segments
-by `unify_query_dims`). Partials come from one grouped-aggregate run per
-segment (no batching, no sharding), merge on the host (engine/merge.py),
-and finish into the reference's JSON row shapes (timestamps as epoch millis
-ints).
+by `unify_query_dims`). Partials come from `_make_partials`: batching
+first (engine/batching.py: one stacked run per chunk of shape-compatible
+small segments), then one grouped-aggregate run per segment for whatever it
+returns None for (no sharding: the mesh is not ported). They merge on the
+host (engine/merge.py) and finish into the reference's JSON row shapes
+(timestamps as epoch millis ints).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from druid_tpu_torch.data.segment import Segment
+from druid_tpu_torch.engine import batching
 from druid_tpu_torch.engine.filters import _bind_string_dims
 from druid_tpu_torch.engine.grouping import KeyDim, run_grouped_aggregate
 from druid_tpu_torch.engine.merge import merge_partials
@@ -280,23 +283,100 @@ class AggregatePartials:
         self.intervals = intervals        # intervals partials were built with
 
 
-def make_aggregate_partials(query, segments: Sequence[Segment],
-                            device: torch.device) -> AggregatePartials:
-    """Partial states for a timeseries/topN/groupBy query over local
-    segments, one grouped-aggregate run per segment on `device`."""
+def _make_partials(segs, intervals, query, kds_per_seg,
+                   device: torch.device, check=None):
+    """One partial per segment: batched runs over shape-compatible
+    segments, and one run per segment for the rest (or for all, where
+    batching returns None). `check` (a cancel or timeout probe) runs at
+    every run boundary."""
+    if check is not None:
+        check()
+    partials = batching.run_with_batching(
+        segs, intervals, query.granularity, kds_per_seg, query.aggregations,
+        query.filter, device, query.virtual_columns,
+        context=query.context_map, check=check)
+    if partials is None:
+        partials = []
+        for s, kds in zip(segs, kds_per_seg):
+            if check is not None and partials:
+                check()
+            partials.append(run_grouped_aggregate(
+                s, intervals, query.granularity, kds, query.aggregations,
+                query.filter, device, query.virtual_columns))
+    return partials
+
+
+def _query_plan(query, segments: Sequence[Segment]):
+    """(intervals, matched segments, per-segment KeyDims, value lists): the
+    host derivation every partial-producing path shares."""
     intervals = condense(query.intervals)
     segs = _segments_for(segments, intervals)
     if not query.granularity.is_all:
         intervals = _clamp_to_data(intervals, segs)
     if not segs:
-        return AggregatePartials([], [], [], intervals)
+        return intervals, segs, [], []
     kds_per_seg, vals_per_seg = _keydims_for_query(query, segs)
-    partials = [run_grouped_aggregate(s, intervals, query.granularity, kds,
-                                      query.aggregations, query.filter,
-                                      device, query.virtual_columns)
-                for s, kds in zip(segs, kds_per_seg)]
+    return intervals, segs, kds_per_seg, vals_per_seg
+
+
+def make_aggregate_partials(query, segments: Sequence[Segment],
+                            device: torch.device,
+                            check=None) -> AggregatePartials:
+    """Partial states for a timeseries/topN/groupBy query over local
+    segments on `device`."""
+    intervals, segs, kds_per_seg, vals_per_seg = _query_plan(query,
+                                                             segments)
+    if not segs:
+        return AggregatePartials([], [], [], intervals)
+    partials = _make_partials(segs, intervals, query, kds_per_seg, device,
+                              check=check)
     spans = [(s.min_time, s.max_time) for s in segs]
     return AggregatePartials(partials, vals_per_seg, spans, intervals)
+
+
+def make_aggregate_partials_multi(items, device: torch.device,
+                                  on_batch=None) -> List[object]:
+    """Partials of several queries in one call, their segments batched
+    across queries. `items` are (query, segments, check) triples over local
+    segments. Returns one entry per item: its AggregatePartials, or the
+    exception its planning or its `check` raised. Each query's host
+    derivation is the single-query path's, so each result equals that
+    query's make_aggregate_partials. `on_batch(n_queries, n_segments,
+    fill)` observes each stacked run."""
+    work: List[batching.BatchWork] = []
+    meta: List[object] = []   # per item: (intervals, segs, vals) or result
+    for query, segments, check in items:
+        try:
+            intervals, segs, kds_per_seg, vals_per_seg = _query_plan(
+                query, segments)
+        except Exception as e:
+            meta.append(e)
+            continue
+        if not segs:
+            meta.append(AggregatePartials([], [], [], intervals))
+            continue
+        meta.append((intervals, segs, vals_per_seg))
+        work.append(batching.BatchWork(
+            segs=segs, intervals=intervals, granularity=query.granularity,
+            kds_per_seg=kds_per_seg, aggs=query.aggregations,
+            flt=query.filter, virtual_columns=query.virtual_columns,
+            context=query.context_map, check=check))
+    multi = iter(batching.run_multi_with_batching(work, device,
+                                                  on_batch=on_batch))
+    out: List[object] = []
+    for m in meta:
+        if not isinstance(m, tuple):
+            out.append(m)
+            continue
+        intervals, segs, vals_per_seg = m
+        got = next(multi)
+        if isinstance(got, BaseException):
+            out.append(got)
+            continue
+        spans = [(s.min_time, s.max_time) for s in segs]
+        out.append(AggregatePartials(got, list(vals_per_seg), spans,
+                                     intervals))
+    return out
 
 
 def run_timeseries(query: TimeseriesQuery, segments: Sequence[Segment],

@@ -69,9 +69,14 @@ class FilterNode:
         return set()
 
     def signature(self) -> str:
-        """The reference's structural signature: the run domain's plan
-        carries it, so only the nodes that plan admits define one."""
+        """The reference's structural signature (the run domain's plan and
+        the batched path's bucket digest carry it)."""
         raise NotImplementedError
+
+    def aux_arrays(self) -> List[np.ndarray]:
+        """The node's constants, in the reference's order: plans whose
+        structure matches batch together only where these are equal."""
+        return []
 
     def build(self, cols: Cols) -> torch.Tensor:
         """The bool row mask; `cols` maps column name -> staged tensor."""
@@ -101,6 +106,9 @@ class LutNode(FilterNode):
     def signature(self):
         return f"lut({self.dim})"
 
+    def aux_arrays(self):
+        return [self.lut.numpy()]
+
     def required_device_columns(self):
         return {self.dim}
 
@@ -122,6 +130,10 @@ class NumericCmpNode(FilterNode):
         return (f"numcmp({self.column},{self.lower is not None},"
                 f"{self.upper is not None},{self.lower_strict},"
                 f"{self.upper_strict})")
+
+    def aux_arrays(self):
+        return [np.asarray(b) for b in (self.lower, self.upper)
+                if b is not None]
 
     def required_device_columns(self):
         return {self.column}
@@ -146,6 +158,9 @@ class NumericEqNode(FilterNode):
     def signature(self):
         return f"numeq({self.column})"
 
+    def aux_arrays(self):
+        return [np.asarray(self.value)]
+
     def required_device_columns(self):
         return {self.column}
 
@@ -161,6 +176,9 @@ class NumericInNode(FilterNode):
 
     def signature(self):
         return f"numin({self.column},{len(self.values)})"
+
+    def aux_arrays(self):
+        return [np.asarray(self.values)]
 
     def required_device_columns(self):
         return {self.column}
@@ -178,6 +196,12 @@ class TimeIntervalsNode(FilterNode):
     def __init__(self, offsets: np.ndarray):
         self.offsets = offsets.astype(np.int32)
 
+    def signature(self):
+        return f"timein({self.offsets.shape[0]})"
+
+    def aux_arrays(self):
+        return [self.offsets]
+
     def build(self, cols):
         return time_mask(cols["__time_offset"], self.offsets)
 
@@ -189,6 +213,12 @@ class ColumnCompareNode(FilterNode):
     def __init__(self, dims: Tuple[str, ...], remaps: List[np.ndarray]):
         self.dims = dims
         self.remaps = remaps
+
+    def signature(self):
+        return f"colcmp({','.join(self.dims)})"
+
+    def aux_arrays(self):
+        return list(self.remaps)
 
     def required_device_columns(self):
         return set(self.dims)
@@ -246,6 +276,12 @@ class ExpressionNode(FilterNode):
         self.luts = [lut_for_site(s, segment.dims[s[0]].dictionary.values)
                      for s in sites]
 
+    def signature(self):
+        return f"expr({self.expr!r};l{len(self.luts)})"
+
+    def aux_arrays(self):
+        return [np.asarray(self.time0, dtype=np.int64)] + list(self.luts)
+
     def required_device_columns(self):
         return set(self.expr.required_columns())
 
@@ -266,6 +302,9 @@ class _NaryNode(FilterNode):
     def required_device_columns(self):
         return set().union(*(c.required_device_columns()
                              for c in self.children))
+
+    def aux_arrays(self):
+        return [a for c in self.children for a in c.aux_arrays()]
 
 
 class AndNode(_NaryNode):
@@ -296,6 +335,9 @@ class NotNode(FilterNode):
 
     def signature(self):
         return "not(" + self.child.signature() + ")"
+
+    def aux_arrays(self):
+        return self.child.aux_arrays()
 
     def required_device_columns(self):
         return self.child.required_device_columns()
@@ -341,6 +383,11 @@ class DeviceBitmapNode(FilterNode):
     def col(self) -> str:
         return f"__fbmp{self.slot}"
 
+    def signature(self):
+        # the reduction reads only this slot's words: the full structure
+        # keys the words' pool entry (structure_sig, digest) instead
+        return f"devbmp({self.slot})"
+
     def structure_sig(self) -> str:
         def render(node):
             op = node[0]
@@ -363,7 +410,7 @@ class DeviceBitmapNode(FilterNode):
         return h.hexdigest()[:20]
 
     def build(self, cols):
-        return expand_mask_words(cols[self.col], cols["__valid"].shape[0])
+        return expand_mask_words(cols[self.col], cols["__valid"].shape[-1])
 
 
 def collect_bitmap_nodes(node: Optional[FilterNode]
@@ -454,9 +501,10 @@ def pack_mask_words(mask: torch.Tensor) -> torch.Tensor:
 
 
 def expand_mask_words(words: torch.Tensor, rows: int) -> torch.Tensor:
-    """int32 words -> the first `rows` bool rows."""
+    """int32 words [..., W] -> the first `rows` bool rows [..., rows] (a
+    batched stack of words expands slot by slot)."""
     sh = torch.arange(32, dtype=torch.int32, device=words.device)
-    return ((words[:, None] >> sh) & 1).reshape(-1)[:rows].bool()
+    return ((words[..., None] >> sh) & 1).flatten(-2)[..., :rows].bool()
 
 
 def combine_structure_words(structure, leaf_words, const_words):
@@ -889,8 +937,8 @@ def stage_device_bitmaps(segment: Segment, filter_node: Optional[FilterNode],
     """{node.col: int32 words [padded_rows / 32]} for every DeviceBitmapNode
     of the query filter and of the kernels' filter trees, cached on the
     segment under bitmap_pool_key; with `perm`, the words are in the
-    permuted row order, under their own key. Batched fill waves across
-    segments are not ported."""
+    permuted row order, under their own key. The batched path stages a
+    whole chunk's words in one wave (`stage_device_bitmaps_multi`)."""
     pdg = perm_digest(perm_key)
     out: Dict[str, torch.Tensor] = {}
     for node in item_bitmap_nodes(filter_node, kernels):
@@ -900,6 +948,61 @@ def stage_device_bitmaps(segment: Segment, filter_node: Optional[FilterNode],
         out[node.col] = segment.device_cached(
             key, lambda n=node: _fill_single(segment, n, padded_rows, device,
                                              perm, perm_key))
+    return out
+
+
+def stage_device_bitmaps_multi(items: Sequence[Tuple], padded_rows: int,
+                               device: torch.device
+                               ) -> List[Dict[str, torch.Tensor]]:
+    """The words of a whole batched chunk in one wave: one {node.col: int32
+    words [padded_rows / 32]} dict per item (segment, filter_node, kernels),
+    for the query filter's and every filtered aggregator's bitmap nodes of
+    each plan, pooled per segment under bitmap_pool_key. A resident entry
+    is a hit; a (segment, key) pair that occurs twice in the wave is built
+    once and counts as a hit the second time. The misses are built
+    together: every pending node's leaves, then each distinct structure's
+    word algebra evaluated once over its nodes' stacked leaves."""
+    out: List[Dict[str, torch.Tensor]] = [{} for _ in items]
+    pending = []                  # (slot, segment, node, key)
+    wave_dups: Dict[Tuple, List[Tuple[int, str]]] = {}
+    for i, (segment, filter_node, kernels) in enumerate(items):
+        for node in item_bitmap_nodes(filter_node, kernels):
+            key = bitmap_pool_key(node, padded_rows, None, device)
+            wkey = (id(segment), key)
+            if wkey in wave_dups:
+                _FBMP_STATS.record(True)
+                wave_dups[wkey].append((i, node.col))
+                continue
+            hit = segment.device_contains(key)
+            _FBMP_STATS.record(hit, 0 if hit else padded_rows // 8)
+            if hit:
+                # an eviction racing the probe rebuilds here, alone
+                out[i][node.col] = segment.device_cached(
+                    key, lambda s=segment, n=node: _fill_single(
+                        s, n, padded_rows, device))
+            else:
+                wave_dups[wkey] = []
+                pending.append((i, segment, node, key))
+    by_structure: Dict[Tuple, List] = {}
+    for p in pending:
+        by_structure.setdefault(p[2].structure, []).append(p)
+    for structure, group in by_structure.items():
+        leaves = [[_fill_leaf_words(seg, dim, lut, padded_rows, device,
+                                    None, None) for dim, lut in node.leaves]
+                  for _, seg, node, _ in group]
+        if len(group) == 1:
+            words = [structure_words(structure, leaves[0].__getitem__)]
+        else:
+            stacked = [torch.stack(ws) for ws in zip(*leaves)]
+            combined = structure_words(structure, stacked.__getitem__)
+            # each slot's words own their storage, so the pool's count of
+            # an entry is what evicting it frees
+            words = [w.clone() for w in combined.unbind(0)]
+        for (i, segment, node, key), w in zip(group, words):
+            resident = segment.device_cached(key, lambda w=w: w)
+            out[i][node.col] = resident
+            for j, col in wave_dups[(id(segment), key)]:
+                out[j][col] = resident
     return out
 
 

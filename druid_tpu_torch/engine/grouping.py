@@ -7,8 +7,18 @@ program serves the three aggregating engines:
   * groupBy    — key = fused dimension ids
 mask = valid AND time in the query intervals AND filter; key = fused
 (bucket, dimension ids); one grouped reduction per aggregator. PyTorch runs
-eagerly, so there is no program cache: each call runs the tensor ops on the
-segment's staged block.
+eagerly, so there is no per-segment program cache: each call runs the tensor
+ops on the segment's staged block. Planning (`plan_grouped_aggregate`: the
+group spec, the filter tree, the kernels, the virtual columns) is split from
+the run, so the batched path (engine/batching.py) plans each segment once
+and hands the plan back for the segments it runs alone.
+
+The batched path runs a chunk of K shape-compatible segments, each staged
+at one ladder rung of R rows, as one stacked run over [K, R] columns
+(`make_stacked_segment_fn`, `fuse_filter_update_stacked`): the mask, the
+buckets and the keys are computed once over the stack; "mixed" scatters
+into one [K * G] grid with the key offset by k * G, while "blocked" and
+"mm" keep a batch axis (a key offset would multiply their work by K).
 
 Before any of these, `rundomain.try_run_domain` (the reference's code-domain
 path) takes a segment whose referenced columns are constant within one shared
@@ -66,6 +76,8 @@ import torch
 from druid_tpu_torch.data import cascade as cascade_mod
 from druid_tpu_torch.data.segment import Segment
 from druid_tpu_torch.engine import megakernel, rundomain
+from druid_tpu_torch.engine.contracts import (BATCH_MAX_SEGMENTS,
+                                              BATCH_STEP_CELLS)
 from druid_tpu_torch.engine import sorted_reduce as sorted_reduce_mod
 from druid_tpu_torch.engine.filters import (ConstNode, FilterNode,
                                             assign_bitmap_slots,
@@ -73,8 +85,10 @@ from druid_tpu_torch.engine.filters import (ConstNode, FilterNode,
                                             interval_offsets, perm_digest,
                                             plan_filter, stage_device_bitmaps,
                                             time_mask)
-from druid_tpu_torch.engine.kernels import AggKernel, make_kernel
-from druid_tpu_torch.engine.mmagg import MM_GROUP_LIMIT, mm_reduce
+from druid_tpu_torch.engine.kernels import (AggKernel, count_true,
+                                            expand_batch, make_kernel)
+from druid_tpu_torch.engine.mmagg import (MM_GROUP_LIMIT, mm_reduce,
+                                          mm_reduce_stacked)
 from druid_tpu_torch.utils.expression import (lut_for_site, parse_expression,
                                               rewrite_string_sites)
 from druid_tpu_torch.utils.granularity import Granularity
@@ -441,10 +455,10 @@ def _projection_strategy(proj: Projection, kernels: Sequence[AggKernel],
     return "mixed", 0
 
 
-def _step_rows(width: int, unit: int) -> int:
+def _step_rows(width: int, unit: int, cells: int = STEP_CELLS) -> int:
     """Rows per step of a [width, rows] broadcast: the most whole `unit`s
-    within STEP_CELLS."""
-    return max(unit, STEP_CELLS // max(width, 1) // unit * unit)
+    within `cells`."""
+    return max(unit, cells // max(width, 1) // unit * unit)
 
 
 def _value_columns(arrays: Dict, kernels: Sequence[AggKernel]) -> Dict:
@@ -459,21 +473,29 @@ def _blocked_reduce(arrays: Dict, mask: torch.Tensor, key: torch.Tensor,
     """Masked broadcast-reduce over steps of rows: per step the bool
     [num_total, rows] matrix of (key == group AND mask), reduced over rows by
     each kernel's blocked step. Returns (counts int64 [num_total], per-kernel
-    states) shaped like the scatter path's. No atomics: the bits repeat."""
+    states) shaped like the scatter path's. No atomics: the bits repeat.
+
+    A batched stack ([K, R] mask, key and columns) keeps its batch axis:
+    the step is [K, num_total, rows], its rows sized so that a stack of
+    BATCH_MAX_SEGMENTS fits BATCH_STEP_CELLS (the same steps, hence the
+    same launches, whatever K), and the results are [K, num_total]."""
     cols = _value_columns(arrays, kernels)
     dev = key.device
+    batch = tuple(mask.shape[:-1])
     iota = torch.arange(num_total, dtype=key.dtype, device=dev)
-    counts = torch.zeros(num_total, dtype=torch.int64, device=dev)
+    counts = torch.zeros(batch + (num_total,), dtype=torch.int64, device=dev)
     states = [k.blocked_init(num_total, cols, dev) for k in kernels]
-    step = _step_rows(num_total, BLOCK_ROWS)
-    for s in range(0, mask.shape[0], step):
-        valid = (iota[:, None] == key[None, s:s + step]) \
-            & mask[None, s:s + step]
-        counts += torch.count_nonzero(valid, dim=-1)
-        cb = {f: c[s:s + step] for f, c in cols.items()}
+    step = _step_rows(num_total, BLOCK_ROWS) if not batch \
+        else _step_rows(BATCH_MAX_SEGMENTS * num_total, BLOCK_ROWS,
+                        BATCH_STEP_CELLS)
+    for s in range(0, mask.shape[-1], step):
+        valid = (iota[:, None] == key[..., None, s:s + step]) \
+            & mask[..., None, s:s + step]
+        counts = counts + count_true(valid)
+        cb = {f: c[..., s:s + step] for f, c in cols.items()}
         states = [k.blocked_step(st, cb, valid, num_total)
                   for k, st in zip(kernels, states)]
-    return counts, tuple(k.blocked_finish(st)
+    return counts, tuple(expand_batch(k.blocked_finish(st), batch)
                          for k, st in zip(kernels, states))
 
 
@@ -543,7 +565,7 @@ def _windowed_reduce(arrays: Dict, mask: torch.Tensor, key: torch.Tensor,
         valid = (iota[None, :, None] == (kb - base[:, None])[:, None, :]) \
             & mb[:, None, :]                           # [blocks, W, rows]
         bases.append(base)
-        cnts.append(torch.count_nonzero(valid, dim=-1))
+        cnts.append(count_true(valid))
         cb = {f: c[b:b + step] for f, c in colsb.items()}
         for i, (k, i0) in enumerate(zip(kernels, inits)):
             g = k.blocked_step(i0, cb, valid, W)
@@ -558,8 +580,8 @@ def _windowed_reduce(arrays: Dict, mask: torch.Tensor, key: torch.Tensor,
         order = torch.argsort(flat_keys, stable=True)
         runs = (order,) + tuple(torch.unique_consecutive(
             flat_keys[order], return_counts=True))
-    counts = _combine_grids(torch.cat(cnts).reshape(-1), flat_keys,
-                            num_total, "sum", 0, runs)
+    counts = _combine_grids(torch.cat(cnts).reshape(-1).to(torch.int64),
+                            flat_keys, num_total, "sum", 0, runs)
     states = []
     for k, flat in zip(kernels, flats):
         ident = 0 if k.reduce_kind == "sum" else k.ident_for(flat.dtype)
@@ -622,6 +644,23 @@ def eval_virtual_columns(arrays, time0: int, vc_plans: Tuple,
     return arrays
 
 
+def _fuse_dims(arrays, mask: torch.Tensor, key: torch.Tensor,
+               dims: Sequence[KeyDim]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mask, int64 key) with each dimension's ids fused into the key; a
+    dimension's remap maps its ids first, and a -1 drops the row."""
+    key = key.to(torch.int64)
+    for d in dims:
+        if d.column is None:
+            continue
+        ids = arrays[d.column].to(torch.int64)
+        if d.remap is not None:
+            ids = torch.from_numpy(d.remap).to(ids.device)[ids] \
+                .to(torch.int64)
+            mask = mask & (ids >= 0)
+        key = key * d.cardinality + ids.clamp_min(0)
+    return mask, key
+
+
 def fuse_filter_update(arrays: Dict[str, torch.Tensor], mask: torch.Tensor,
                        key: torch.Tensor, dims: Sequence[KeyDim],
                        filter_node: Optional[FilterNode],
@@ -634,16 +673,7 @@ def fuse_filter_update(arrays: Dict[str, torch.Tensor], mask: torch.Tensor,
     cascade.DecodedView); `packed_cols` are the packed columns that kernels
     B1/B2 read as words. A dimension's remap maps its ids first, and a -1
     drops the row. Returns (counts, per-kernel states) as device tensors."""
-    key = key.to(torch.int64)
-    for d in dims:
-        if d.column is None:
-            continue
-        ids = arrays[d.column].to(torch.int64)
-        if d.remap is not None:
-            ids = torch.from_numpy(d.remap).to(ids.device)[ids] \
-                .to(torch.int64)
-            mask = mask & (ids >= 0)
-        key = key * d.cardinality + ids.clamp_min(0)
+    mask, key = _fuse_dims(arrays, mask, key, dims)
     if strategy == "megakernel":
         # top-level mega conjuncts stay words into kernel B2; only the
         # residual tree builds a row mask
@@ -724,13 +754,69 @@ def staged_col_dtypes(segment: Segment, spec: GroupSpec,
     return col_dtypes
 
 
-def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
-                          granularity: Granularity, dims: Sequence[KeyDim],
-                          aggs: Sequence, flt, device: torch.device,
-                          virtual_columns: Sequence = ()) -> SegmentPartial:
-    """Execute the grouped aggregation for one segment on `device`; returns
-    host partials. `virtual_columns` are evaluated over the staged block on
-    `device` before the filter and every reduction."""
+_NO_NODE = object()   # "the caller did not plan the filter"
+
+
+def _value_needs(segment: Segment, aggs: Sequence, flt, virtual_columns,
+                 filter_node, kernels, vc_plans) -> set:
+    """The real columns the filter, the aggregators and the virtual columns
+    read. The PLANNED tree's and kernels' needs where given, which are
+    narrower: a bitmap node reads words, a constant sum reads nothing."""
+    needed = set()
+    if filter_node is _NO_NODE:
+        if flt is not None:
+            needed |= flt.required_columns()
+    elif filter_node is not None:
+        needed |= filter_node.required_device_columns()
+    for i, a in enumerate(aggs):
+        kc = kernels[i].required_device_columns() \
+            if kernels is not None else None
+        needed |= a.required_columns() if kc is None else kc
+    # a virtual column's inputs stage; the column itself is computed
+    if vc_plans is not None:
+        for _, expr, _, _ in vc_plans:
+            needed |= expr.required_columns()
+    else:
+        for v in virtual_columns:
+            needed |= parse_expression(v.expression).required_columns()
+    needed -= {v.name for v in virtual_columns}
+    return {c for c in needed if c in segment.dims or c in segment.metrics}
+
+
+def needed_columns(segment: Segment, kds: Sequence[KeyDim], aggs: Sequence,
+                   flt, virtual_columns: Sequence, filter_node=_NO_NODE,
+                   kernels: Optional[Sequence[AggKernel]] = None,
+                   vc_plans: Optional[Tuple] = None):
+    """(every referenced column name, the sorted subset present in the
+    segment, which is what stages). With the planned `filter_node` (None
+    counts: the filter folded away) and `kernels`, their planned needs
+    replace the raw filter's and aggregators'."""
+    needed = {d.column for d in kds if d.column is not None}
+    needed |= _value_needs(segment, aggs, flt, virtual_columns, filter_node,
+                           kernels, vc_plans)
+    present = tuple(sorted(c for c in needed
+                           if c in segment.dims or c in segment.metrics))
+    return needed, present
+
+
+@dataclass
+class GroupPlan:
+    """The host-side planning of one segment's grouped aggregate, before
+    any staging: the group spec, the planned filter tree, the kernels and
+    the virtual-column plans. Single-use: a run mutates `spec` (strategy,
+    the projection's key rewrite), so a plan serves one run."""
+    spec: GroupSpec
+    filter_node: Optional[FilterNode]
+    kernels: List[AggKernel]
+    vc_plans: Tuple
+    vc_luts: List[np.ndarray]
+
+
+def plan_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
+                           granularity: Granularity, dims: Sequence[KeyDim],
+                           aggs: Sequence, flt,
+                           virtual_columns: Sequence = ()) -> GroupPlan:
+    """Host-side planning for one segment (no staging, no device work)."""
     spec = make_group_spec(segment, intervals, granularity, dims)
     vc_plans, vc_luts = plan_virtual_columns(segment, virtual_columns)
     filter_node = plan_filter(flt, segment, virtual_columns)
@@ -738,6 +824,26 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
     # one `__fbmpN` / mega leaf namespace for the query filter's and the
     # filtered aggregators' bitmap nodes
     assign_bitmap_slots(filter_node, kernels)
+    return GroupPlan(spec=spec, filter_node=filter_node, kernels=kernels,
+                     vc_plans=vc_plans, vc_luts=vc_luts)
+
+
+def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
+                          granularity: Granularity, dims: Sequence[KeyDim],
+                          aggs: Sequence, flt, device: torch.device,
+                          virtual_columns: Sequence = (),
+                          plan: Optional[GroupPlan] = None
+                          ) -> SegmentPartial:
+    """Execute the grouped aggregation for one segment on `device`; returns
+    host partials. `virtual_columns` are evaluated over the staged block on
+    `device` before the filter and every reduction. `plan` (from
+    plan_grouped_aggregate over the same arguments) skips the planning: the
+    batched path passes the plan it built for bucketing."""
+    if plan is None:
+        plan = plan_grouped_aggregate(segment, intervals, granularity, dims,
+                                      aggs, flt, virtual_columns)
+    spec, filter_node, kernels = plan.spec, plan.filter_node, plan.kernels
+    vc_plans, vc_luts = plan.vc_plans, plan.vc_luts
 
     if isinstance(filter_node, ConstNode) and not filter_node.value:
         # constant-false filter: nothing matches, no device work
@@ -762,22 +868,8 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
                     for k, st in zip(kernels, states)},
             kernels=kernels)
 
-    base_needed = set()
-    if filter_node is not None:
-        # the PLANNED tree's columns: a bitmap node reads words, not its
-        # dimensions
-        base_needed |= filter_node.required_device_columns()
-    for a, k in zip(aggs, kernels):
-        # the planned kernel's columns where narrower: a constant sum reads
-        # none
-        kc = k.required_device_columns()
-        base_needed |= a.required_columns() if kc is None else kc
-    # a virtual column's inputs stage; the column itself is computed
-    for _, expr, _, _ in vc_plans:
-        base_needed |= expr.required_columns()
-    base_needed -= {v.name for v in virtual_columns}
-    base_needed = {c for c in base_needed
-                   if c in segment.dims or c in segment.metrics}
+    base_needed = _value_needs(segment, aggs, flt, virtual_columns,
+                               filter_node, kernels, vc_plans)
     needed = set(base_needed)
     if spec.key_mode == "dense":
         needed |= {d.column for d in spec.dims
@@ -883,3 +975,207 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
     return SegmentPartial(segment=segment, spec=spec,
                           counts=counts.cpu().numpy().astype(np.int64),
                           states=host_states, kernels=kernels)
+
+
+# ---------------------------------------------------------------------------
+# Stacked (batched) execution: one run over a chunk of K segments
+# ---------------------------------------------------------------------------
+
+def _structure_sig(spec: GroupSpec, n_intervals: int,
+                   filter_node: Optional[FilterNode],
+                   kernels: Sequence[AggKernel], vc_plans: Tuple,
+                   packs: Tuple = (), cascades: Tuple = ()) -> str:
+    """The reference's structure signature of a plan: what two segments
+    must share to run in one stacked program (values excluded: those are
+    `aux_equal`'s)."""
+    dims_sig = ",".join(
+        f"{d.column}:{'remap' if d.remap is not None else 'raw'}"
+        for d in spec.dims)
+    vc_sig = ";".join(f"{name}={expr!r}:{out_type}:l{n_luts}"
+                      for name, expr, out_type, n_luts in vc_plans)
+    return "|".join([
+        f"bucket={spec.bucket_mode}",
+        f"key={spec.key_mode}",
+        f"dims={dims_sig}",
+        f"iv={n_intervals}",
+        f"vc={vc_sig}",
+        f"filt={filter_node.signature() if filter_node else 'none'}",
+        f"aggs={';'.join(k.signature() for k in kernels)}",
+        f"total={spec.num_total}",
+        f"strat={spec.strategy}:{spec.window}",
+        f"packs={packs}",
+        f"casc={cascades}",
+    ])
+
+
+def aux_equal(a: Sequence[np.ndarray], b: Sequence[np.ndarray]) -> bool:
+    """Plan constants equal across segments (same dtypes, shapes, values)."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        x, y = np.asarray(x), np.asarray(y)
+        if x.dtype != y.dtype or x.shape != y.shape \
+                or not np.array_equal(x, y):
+            return False
+    return True
+
+
+def keydims_equal(a: Sequence[KeyDim], b: Sequence[KeyDim]) -> bool:
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if x.column != y.column or x.cardinality != y.cardinality:
+            return False
+        if (x.remap is None) != (y.remap is None):
+            return False
+        if x.remap is not None and not np.array_equal(x.remap, y.remap):
+            return False
+    return True
+
+
+@dataclass
+class StackedAux:
+    """A chunk's shared plan constants, equal across its segments by
+    construction (`batching._compatible`): the key dimensions (their
+    remaps), the planned filter tree and kernels (their LUTs and tables),
+    the virtual columns' string LUTs, and the uniform bucket period and
+    count. The per-segment origins ride the run's [K] arguments instead."""
+    kds: Tuple[KeyDim, ...]
+    filter_node: Optional[FilterNode]
+    kernels: List[AggKernel]
+    vc_luts: List[np.ndarray]
+    period: int
+    num_buckets: int
+
+
+def assemble_stacked_aux(spec: GroupSpec, kds: Sequence[KeyDim],
+                         filter_node: Optional[FilterNode],
+                         kernels: Sequence[AggKernel],
+                         granularity: Granularity,
+                         vc_luts: Sequence[np.ndarray] = ()) -> StackedAux:
+    period = int(granularity.period_ms) if spec.bucket_mode == "uniform" \
+        else 0
+    return StackedAux(tuple(kds), filter_node, list(kernels), list(vc_luts),
+                      period, spec.num_buckets)
+
+
+def make_stacked_segment_fn(spec: GroupSpec, vc_plans: Tuple, K: int,
+                            device: torch.device):
+    """The stacked run of one structure (bucket mode "all" or "uniform",
+    dense keys): fn(arrays, time0s, iv_rel, bucket_off, aux) over a chunk's
+    [K, R] columns (complex columns [K, R, width]), int64 time0s [K], int32
+    iv_rel [K, n_iv, 2] (interval bounds relative to each segment's
+    start), int64 bucket_off [K] (each segment's first bucket start less
+    its start) and a StackedAux; returns (counts int64 [K, G], per-kernel
+    states with a leading K axis). Built once per structure and cached by
+    engine/batching.py: it holds the structure and its device constants
+    (the k * G slot offsets), never a value of a plan."""
+    bucket_mode, num_total = spec.bucket_mode, spec.num_total
+    strategy, window = spec.strategy, spec.window
+    slot_base = torch.arange(K, dtype=torch.int64, device=device)[:, None] \
+        * num_total
+
+    def run(arrays: Dict[str, torch.Tensor], time0s: torch.Tensor,
+            iv_rel: torch.Tensor, bucket_off: torch.Tensor,
+            aux: StackedAux):
+        t = arrays["__time_offset"]
+        mask = arrays["__valid"]
+        if vc_plans:
+            eval_virtual_columns(arrays, time0s[:, None], vc_plans,
+                                 aux.vc_luts)
+        within = torch.zeros_like(mask)
+        for j in range(iv_rel.shape[1]):
+            within |= (t >= iv_rel[:, j, 0:1]) & (t < iv_rel[:, j, 1:2])
+        mask = mask & within
+        if bucket_mode == "all":
+            key = torch.zeros(t.shape, dtype=torch.int64, device=t.device)
+        else:
+            # int64 like the per-segment path's bucket math
+            key = (t.to(torch.int64) - bucket_off[:, None]) // aux.period
+            mask = mask & (key >= 0) & (key < aux.num_buckets)
+        return fuse_filter_update_stacked(
+            arrays, mask, key, aux.kds, aux.filter_node, aux.kernels,
+            num_total, slot_base, strategy=strategy, span=window)
+
+    return run
+
+
+def _unstack_state(state, K: int, num_total: int):
+    """A scatter state over the [K * G] grid -> [K, G, ...] (tuples
+    leafwise)."""
+    if isinstance(state, tuple):
+        return tuple(_unstack_state(s, K, num_total) for s in state)
+    return state.view((K, num_total) + tuple(state.shape[1:]))
+
+
+def fuse_filter_update_stacked(arrays: Dict[str, torch.Tensor],
+                               mask: torch.Tensor, key: torch.Tensor,
+                               dims: Sequence[KeyDim],
+                               filter_node: Optional[FilterNode],
+                               kernels: Sequence[AggKernel], num_total: int,
+                               slot_base: torch.Tensor,
+                               strategy: str = "mixed", span: int = 0):
+    """fuse_filter_update over a [K, R] stack: the dimension fusion and the
+    filter mask once over the stack, then each strategy with a number of
+    launches that does not grow with K, where its working set allows:
+    "mixed" scatters into one [K * G] grid (the key offset by `slot_base`,
+    k * G), "blocked" and the mixed hybrid's blocked part keep a batch
+    axis ([K, G, rows] steps), "mm" takes batched one-hot products
+    (mmagg.mm_reduce_stacked), and "windowed" reduces the flattened rows
+    with offset keys (each 1024-row block lies in one segment). Returns
+    (counts [K, G], per-kernel states [K, G, ...])."""
+    K = mask.shape[0]
+    mask, key = _fuse_dims(arrays, mask, key, dims)
+    if filter_node is not None:
+        mask = mask & filter_node.build(arrays)
+    key = key.clamp(0, num_total - 1)
+    if strategy == "mm":
+        col_dtypes = cascade_mod.column_dtypes(arrays)
+        plans = [k.mm_plan(col_dtypes, mask.shape[-1]) for k in kernels]
+        missing = [k.name for k, p in zip(kernels, plans) if p is None]
+        if missing:
+            raise RuntimeError(f"mm strategy selected but {missing} have no "
+                               f"mm plan at run time")
+        return mm_reduce_stacked(arrays, mask, key, kernels, plans,
+                                 num_total)
+
+    flat = None
+
+    def flattened():
+        nonlocal flat
+        if flat is None:
+            flat = ({c: v.flatten(0, 1) for c, v in arrays.items()},
+                    mask.flatten(), (key + slot_base).flatten())
+        return flat
+
+    if strategy == "windowed":
+        cols, fmask, fkey = flattened()
+        counts, states = _windowed_reduce(cols, fmask, fkey, kernels,
+                                          K * num_total, span)
+        return counts.view(K, num_total), tuple(
+            _unstack_state(st, K, num_total) for st in states)
+
+    blocked_idx = []
+    if strategy in ("blocked", "mixed") and num_total <= BLOCKED_GROUP_LIMIT:
+        col_dtypes = cascade_mod.column_dtypes(arrays)
+        blocked_idx = [i for i, k in enumerate(kernels)
+                       if k.blocked_supported(col_dtypes)]
+    blocked_states = {}
+    if blocked_idx:
+        counts, bstates = _blocked_reduce(
+            arrays, mask, key, [kernels[i] for i in blocked_idx], num_total)
+        blocked_states = dict(zip(blocked_idx, bstates))
+    else:
+        _, fmask, fkey = flattened()
+        counts = torch.zeros(K * num_total, dtype=torch.int64,
+                             device=key.device) \
+            .index_add_(0, fkey, fmask.to(torch.int64)).view(K, num_total)
+    states = []
+    for i, k in enumerate(kernels):
+        if i in blocked_states:
+            states.append(blocked_states[i])
+            continue
+        cols, fmask, fkey = flattened()
+        states.append(_unstack_state(
+            k.update(cols, fmask, fkey, K * num_total), K, num_total))
+    return counts, tuple(states)

@@ -75,9 +75,14 @@ class AggKernel:
         self.name = spec.name
 
     def signature(self) -> str:
-        """The reference's structural signature (the run domain's plan
-        carries it)."""
+        """The reference's structural signature (the run domain's plan and
+        the batched path's bucket digest carry it)."""
         raise NotImplementedError
+
+    def aux_arrays(self) -> List[np.ndarray]:
+        """The kernel's constants, in the reference's order: plans batch
+        together only where these are equal."""
+        return []
 
     def update(self, cols: Dict[str, torch.Tensor], mask: torch.Tensor,
                keys: torch.Tensor, num: int) -> torch.Tensor:
@@ -142,6 +147,22 @@ class AggKernel:
         return None
 
 
+def count_true(valid: torch.Tensor) -> torch.Tensor:
+    """int32 counts of the True entries along the last axis of a bool
+    broadcast: a sum in int32 (the cells cast to 4 bytes), where
+    count_nonzero would cast them to int64 (8 bytes). A count stays below
+    2^31: a step or block holds fewer rows."""
+    return valid.sum(-1, dtype=torch.int32)
+
+
+def expand_batch(state: torch.Tensor, batch: Tuple[int, ...]):
+    """A batched reduction's states are [*batch, G]; one that no row
+    touched (a missing column's identities) comes back [G]."""
+    if batch and state.dim() == 1:
+        return state.expand(tuple(batch) + tuple(state.shape)).contiguous()
+    return state
+
+
 class CountKernel(AggKernel):
 
     def signature(self):
@@ -170,7 +191,7 @@ class CountKernel(AggKernel):
         return torch.zeros(num, dtype=torch.int64, device=device)
 
     def blocked_step(self, carry, cols_block, valid, num):
-        return carry + torch.count_nonzero(valid, dim=-1)
+        return carry + count_true(valid)
 
     def mm_plan(self, cols_avail, padded_rows):
         if padded_rows >= 2**31:
@@ -253,6 +274,11 @@ class SumKernel(AggKernel):
         return (f"sum({self.spec.field},{self.vtype.value},{self.chunk_rows},"
                 f"mm{self.mm_limbs}:{self.mm_base}:{int(self.mm_float_ok)},"
                 f"c{int(self.const_value is not None)})")
+
+    def aux_arrays(self):
+        if self.const_value is not None:
+            return [np.asarray(self.const_value, dtype=np.int64)]
+        return []
 
     def pallas_op(self, cols_avail):
         f = self.spec.field
@@ -514,6 +540,11 @@ class FirstLastKernel(AggKernel):
         # event times) orders the rows where present, else __time does
         self.time_field = time_field
 
+    def signature(self):
+        return (f"{'last' if self.is_last else 'first'}"
+                f"({self.spec.field},{self.vtype.value},"
+                f"pt={self.time_field or ''})")
+
     @property
     def _ident(self):
         return INT64_MIN if self.is_last else INT64_MAX
@@ -580,6 +611,16 @@ class FilteredKernel(AggKernel):
         self.child = child
         self.filter_node = filter_node
         self.reduce_kind = child.reduce_kind
+
+    def signature(self):
+        f = "none" if self.filter_node is None \
+            else self.filter_node.signature()
+        return f"filtered({f},{self.child.signature()})"
+
+    def aux_arrays(self):
+        own = [] if self.filter_node is None \
+            else self.filter_node.aux_arrays()
+        return own + self.child.aux_arrays()
 
     def filter_trees(self):
         own = [] if self.filter_node is None else [self.filter_node]
@@ -657,6 +698,14 @@ class HllKernel(AggKernel):
                 self._tables.append(("numeric", f, ()))
             else:
                 self._tables.append(("missing", f, ()))
+
+    def signature(self):
+        kinds = ",".join(f"{k}:{f}" for k, f, _ in self._tables)
+        return f"hll({self.log2m},{self.by_row},{kinds})"
+
+    def aux_arrays(self):
+        return [t for kind, _, tables in self._tables
+                if kind in ("dim_hash", "dim_regrho") for t in tables]
 
     @staticmethod
     def _gather(tables, ids: torch.Tensor):

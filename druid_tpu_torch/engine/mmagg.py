@@ -30,6 +30,12 @@ a row at G = 1024, which bounds the step by bytes, not by the tensor cores.
 A step covers `step_rows(G)` rows: a one-hot of at most MM_ONEHOT_BYTES
 (1 GiB: 1,048,576 rows at G = 1024, so 12 steps for a 12.5M-row segment),
 plus its float32 copy when the plan has float rows.
+
+The batched path (`mm_reduce_stacked`) keeps a batch axis: a step's one-hot
+is [K, G, rows] (below 2^31 bytes, so its step count grows with K once
+K x G x R passes that), the int8 product runs block-diagonal
+over segments and slices at once (`stacked_int8_product`), and the float
+product is a batched matmul.
 """
 from __future__ import annotations
 
@@ -38,7 +44,8 @@ from typing import Dict, Sequence
 
 import torch
 
-from druid_tpu_torch.engine.kernels import AggKernel, MMPlan
+from druid_tpu_torch.engine.contracts import BATCH_STEP_CELLS
+from druid_tpu_torch.engine.kernels import AggKernel, MMPlan, expand_batch
 
 MM_GROUP_LIMIT = 4096        # beyond this the N x G products dominate
 MM_BLOCK = 8192              # rows per step are a multiple of this
@@ -148,6 +155,83 @@ def mm_reduce(arrays: Dict, mask: torch.Tensor, key: torch.Tensor,
         states.append(p.finish(acc8[:num_total, o8:o8 + p.n_i8].t(),
                                accf[:num_total, of:of + p.n_bf16].t(),
                                num_total))
+        o8 += p.n_i8
+        of += p.n_bf16
+    return counts, tuple(states)
+
+
+def stacked_int8_product(oh: torch.Tensor, lhs: torch.Tensor) -> torch.Tensor:
+    """int64 [K, groups, r8]: each segment's one-hot oh[k] [groups, width]
+    times its own value rows, given as `lhs` [K, S, r8, width / S]. One
+    int8 product of [K * groups * S, width / S] by [width / S, K * S * r8];
+    block ((k, s), (k, s)) of it is segment k's slice s, and the rest is
+    discarded: K x S times the operations of the blocks kept, with S
+    chosen so that K * S * r8 stays near PRODUCT_WIDTH."""
+    k, s, r8, cw = lhs.shape
+    groups = oh.shape[1]
+    p = torch._int_mm(oh.reshape(k * groups * s, cw),
+                      lhs.reshape(k * s * r8, cw).t())
+    p = p.view(k, groups, s, k, s, r8).diagonal(dim1=0, dim2=3)
+    # [groups, s, s, r8, k] -> the slices' diagonal [groups, r8, k, s]
+    return p.diagonal(dim1=1, dim2=2).sum(-1).permute(2, 0, 1)
+
+
+def mm_reduce_stacked(arrays: Dict, mask: torch.Tensor, key: torch.Tensor,
+                      kernels: Sequence[AggKernel], plans: Sequence[MMPlan],
+                      num_total: int):
+    """mm_reduce over a [K, R] stack: (counts int64 [K, num_total],
+    per-kernel states [K, num_total]). The same limbs and float splits as
+    mm_reduce; integers are exact, float sums may round in another order
+    than a segment's own run."""
+    fields = sorted({f for p in plans for f in p.fields})
+    cols = {f: arrays[f] for f in fields}
+    nseg, n = mask.shape
+    dev = key.device
+    groups = max(num_total, _INT_MM_MIN_ROWS)
+    n_i8 = 1 + sum(p.n_i8 for p in plans)       # leading row: row counts
+    n_bf = sum(p.n_bf16 for p in plans)
+    r8 = _round_up(n_i8, _INT_MM_ALIGN)
+    nsl = max(1, PRODUCT_WIDTH // (nseg * r8))
+    acc8 = torch.zeros(nseg, groups, r8, dtype=torch.int64, device=dev)
+    accf = torch.zeros(nseg, groups, max(n_bf, 1), dtype=torch.float32,
+                       device=dev)
+    # the int8 one-hot stays below 2^31 bytes, its float32 copy (float
+    # rows) likewise, so that no kernel splits its 32-bit indexing
+    cells = BATCH_STEP_CELLS if n_bf else 4 * BATCH_STEP_CELLS - 1
+    step = max(MM_BLOCK, cells // (nseg * groups) // MM_BLOCK * MM_BLOCK)
+    for s in range(0, n, step):
+        e = min(n, s + step)
+        width = _round_up(e - s, _INT_MM_ALIGN * nsl)
+        kb = _pad_cols(key[:, s:e], width)
+        mb = _pad_cols(mask[:, s:e], width)   # padding columns are masked
+        cb = {f: _pad_cols(c[:, s:e], width) for f, c in cols.items()}
+        oh = torch.zeros(nseg, groups, width, dtype=torch.int8, device=dev)
+        oh.scatter_(1, kb.view(nseg, 1, width),
+                    mb.to(torch.int8).view(nseg, 1, width))
+        lhs8 = torch.zeros(nseg, nsl, r8, width // nsl, dtype=torch.int8,
+                           device=dev)
+        lhs8[:, :, 0] = 1
+        rowsf = []
+        o = 1
+        for p in plans:
+            r8s, rfs = p.make_rows(cb, mb)
+            for r in r8s:
+                lhs8[:, :, o] = r.view(nseg, nsl, -1)
+                o += 1
+            rowsf.extend(rfs)
+        acc8 += stacked_int8_product(oh, lhs8)
+        if rowsf:
+            with _f32_matmul_precision("highest"):
+                accf += torch.bmm(oh.to(torch.float32),
+                                  torch.stack(rowsf, -1))
+    counts = acc8[:, :num_total, 0]
+    states = []
+    o8, of = 1, 0
+    for p in plans:
+        states.append(expand_batch(p.finish(
+            acc8[:, :num_total, o8:o8 + p.n_i8].permute(2, 0, 1),
+            accf[:, :num_total, of:of + p.n_bf16].permute(2, 0, 1),
+            num_total), (nseg,)))
         o8 += p.n_i8
         of += p.n_bf16
     return counts, tuple(states)

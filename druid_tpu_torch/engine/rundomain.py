@@ -124,6 +124,18 @@ def _plan_run_kernel(k: AggKernel, segment: Segment) -> Optional[_RunKernel]:
     return None
 
 
+def run_domain_probe(segment: Segment, intervals, granularity, spec,
+                     kernels: Sequence[AggKernel], flt,
+                     virtual_columns: Sequence = ()) -> bool:
+    """Whether the segment's aggregate would run in run space: batching's
+    eligibility probe (such a segment runs alone, through
+    run_grouped_aggregate, which takes the run domain first). It shares
+    `_plan_run_domain`'s memo on the (single-use) spec, so a probed
+    segment is not planned twice."""
+    return _plan_run_domain(segment, intervals, granularity, spec, kernels,
+                            flt, virtual_columns) is not None
+
+
 def _plan_run_domain(segment: Segment, intervals, granularity, spec,
                      kernels: Sequence[AggKernel], flt,
                      virtual_columns: Sequence = ()):

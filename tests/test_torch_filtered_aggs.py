@@ -33,7 +33,9 @@ from druid_tpu.utils.granularity import Granularity as RefGranularity
 from druid_tpu.utils.intervals import Interval
 
 from druid_tpu_torch.data import cascade as port_cascade
+from druid_tpu_torch.data.devicepool import device_pool
 from druid_tpu_torch.engine import QueryExecutor as PortExecutor
+from druid_tpu_torch.engine import batching as port_batching
 from druid_tpu_torch.engine import filters as port_filters
 from druid_tpu_torch.engine import grouping as port_grouping
 from druid_tpu_torch.engine import kernels as port_kernels
@@ -83,6 +85,9 @@ def mode(request, monkeypatch):
     """(megakernel, device bitmaps) in both packages; a fresh device cache,
     so the fused run does not meet a staged run's combined words."""
     mega, bitmap = MODES[request.param]
+    # the fused mode is the per-segment megakernel path, which batching
+    # bypasses for these shape-compatible segments
+    monkeypatch.setattr(port_batching, "_ENABLED", False)
     for mk, fl in ((ref_megakernel, ref_filters),
                    (port_megakernel, port_filters)):
         monkeypatch.setattr(mk, "_ENABLED", mega)
@@ -92,8 +97,7 @@ def mode(request, monkeypatch):
 
 def _both(segs, q):
     ref, port = segs
-    for s in port:
-        s._device_cache.clear()
+    device_pool().clear()
     want = RefExecutor(ref).run_json(q)
     got = PortExecutor(port, device="cpu").run_json(q)
     _compare(want, got)

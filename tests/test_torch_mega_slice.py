@@ -31,6 +31,7 @@ from druid_tpu.query import filters as F
 from druid_tpu.utils.intervals import Interval
 
 from druid_tpu_torch.engine import QueryExecutor as PortExecutor
+from druid_tpu_torch.engine import batching as port_batching
 from druid_tpu_torch.engine import filters as port_filters
 from druid_tpu_torch.engine import grouping as port_grouping
 from druid_tpu_torch.engine import megakernel as port_mk
@@ -189,7 +190,7 @@ def test_filter_only_dimension_is_not_staged(proj_segs):
          "aggregations": [{"type": "count", "name": "n"}],
          "filter": _proj_filters(seg)["in"]}
     PortExecutor([seg], device="cpu").run_json(q)
-    blocks = [k for k in seg._device_cache if k[0] == "block"]
+    blocks = [k for k in seg.device_entries() if k[0] == "block"]
     assert blocks and all("dimA" not in k[1] for k in blocks)
 
 
@@ -255,8 +256,12 @@ def _tree_query(flt):
 
 
 @pytest.mark.parametrize("i", range(12))
-def test_random_tree_matches_reference_and_numpy(tree_segs, i):
+def test_random_tree_matches_reference_and_numpy(tree_segs, i, monkeypatch):
     ref_segs, port_segs = tree_segs
+    # the per-segment megakernel path, which batching bypasses for these
+    # shape-compatible segments (tests/test_torch_batching.py runs the
+    # trees batched)
+    monkeypatch.setattr(port_batching, "_ENABLED", False)
     rng = np.random.default_rng(1000 + i)
     flt = _rand_tree(rng, ref_segs[0], depth=3 if i % 2 else 2)
     q = _tree_query(flt)

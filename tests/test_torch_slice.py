@@ -325,7 +325,7 @@ def _head_queries(seg):
 
 
 def _blocks(seg):
-    return [v for k, v in seg._device_cache.items() if k[0] == "block"]
+    return [v for k, v in seg.device_entries().items() if k[0] == "block"]
 
 
 @pytest.mark.parametrize("name", ["groupby", "topn", "timeseries",

@@ -37,6 +37,7 @@ from druid_tpu.utils.granularity import Granularity as RefGranularity
 from druid_tpu.utils.intervals import Interval
 
 from druid_tpu_torch.engine import QueryExecutor as PortExecutor
+from druid_tpu_torch.engine import batching as port_batching
 from druid_tpu_torch.engine import grouping as port_grouping
 from druid_tpu_torch.engine import kernels as port_kernels
 from druid_tpu_torch.engine import mmagg as port_mmagg
@@ -342,9 +343,14 @@ def _groupby(dims, aggs, flt=None, gran="all"):
 
 class _Spy:
     """Records which of the port's reductions ran, and the (strategy,
-    window) its selection returned."""
+    window) its selection returned. `per_segment` keeps the port's
+    segments on the per-segment path, where the counts below are one per
+    segment (batching would run shape-compatible segments as one stacked
+    run; tests/test_torch_batching.py spies on that path)."""
 
-    def __init__(self, monkeypatch):
+    def __init__(self, monkeypatch, per_segment=False):
+        if per_segment:
+            monkeypatch.setattr(port_batching, "_ENABLED", False)
         self.calls, self.selected = [], []
         for name in ("mm_reduce", "_blocked_reduce", "_windowed_reduce"):
             self._wrap(monkeypatch, name)
@@ -403,7 +409,7 @@ def test_mm_natural_matches_reference(unsorted_segs, flt, monkeypatch):
 def test_mm_negative_longs_exact(monkeypatch):
     """Longs in -4000..-1: two limbs of (v - base) and the base row."""
     segs = _segments(card_b=40, lo=-4_000, hi=-1)
-    spy = _Spy(monkeypatch)
+    spy = _Spy(monkeypatch, per_segment=True)
     monkeypatch.setattr(port_grouping, "FORCE_STRATEGY", "mm")
     monkeypatch.setattr(ref_grouping, "FORCE_STRATEGY", "mm")
     _both(segs, _groupby(["dimB"], MM_AGGS))
@@ -593,7 +599,7 @@ def test_mm_float_nonfinite_column_not_mm(bad, monkeypatch):
 
 
 def test_mm_double_sum_falls_back(unsorted_segs, monkeypatch):
-    spy = _Spy(monkeypatch)
+    spy = _Spy(monkeypatch, per_segment=True)
     _both(unsorted_segs, _groupby(["dimB"], [AGGS[0], AGGS[5], DSUM]))
     assert spy.selected == [("mixed", 0)] * 2
     assert spy.calls == [("_blocked_reduce", ("rows", "fabs"))] * 2
@@ -604,7 +610,7 @@ def test_constant_long_column_keeps_the_reference_strategy(monkeypatch):
     blocked and the projection and sum it as constant x count, with the
     same rows."""
     segs = _segments(card_b=200, lo=7, hi=7)
-    spy = _Spy(monkeypatch)
+    spy = _Spy(monkeypatch, per_segment=True)
     _both(segs, _groupby(["dimB"], MM_AGGS))
     assert spy.selected == [("mixed", 0)] * 2
     assert spy.calls == [("_blocked_reduce", ("rows", "fsum", "fabs"))] * 2
@@ -835,7 +841,7 @@ def test_blocked_long_sum_exact_past_int32(monkeypatch):
     last ragged)."""
     segs = _segments(card_a=2, card_b=3, n=80_000, lo=200_000, hi=260_000)
     monkeypatch.setattr(port_grouping, "STEP_CELLS", 8 * 10_240)
-    spy = _Spy(monkeypatch)
+    spy = _Spy(monkeypatch, per_segment=True)
     aggs = [AGGS[0], AGGS[1], AGGS[4]]
     want, _ = _both(segs, _groupby(["dimA", "dimB"], aggs))
     assert spy.selected == [("blocked", 0)] * 2
@@ -885,3 +891,68 @@ def test_max_block_span_ignores_dead_rows():
     got = port_grouping._max_block_span(keys, keys >= 0)
     assert got == 8
     assert port_grouping._max_block_span(keys, keys > 100_000) == 1
+
+
+# ---------------------------------------------------------------------------
+# (d) the batched path's selection: once per chunk, at the rung's rows
+# ---------------------------------------------------------------------------
+
+class _SelectLog:
+    """Each (strategy, window) a package's selection returns, with the row
+    count it selected at."""
+
+    def __init__(self, monkeypatch, module):
+        self.calls = []
+        orig = module.select_strategy
+
+        def select(spec, kernels, col_dtypes, padded_rows, windowed_w, *a,
+                   **k):
+            out = orig(spec, kernels, col_dtypes, padded_rows, windowed_w,
+                       *a, **k)
+            self.calls.append((out, padded_rows))
+            return out
+        monkeypatch.setattr(module, "select_strategy", select)
+
+
+@pytest.fixture(scope="module")
+def rung_segs():
+    """Two segments of 20,000 rows: each pads to 20,480 alone and to the
+    rung 32,768 in a batch. Longs from 0, so that both plan the mm limbs'
+    base 0 (a negative least value is the base, and two segments that
+    differ in it bucket apart, in both packages)."""
+    return _segments(card_a=30, card_b=200, n=40_000, lo=0)
+
+
+@pytest.mark.parametrize("dims,gran,aggs,force", [
+    ((), "hour", AGGS, None),
+    ((), "all", [AGGS[0], AGGS[5], DSUM], None),
+    (("dimA",), "all", AGGS, None),
+    (("dimA",), "hour", MM_AGGS, None),
+    (("dimB",), "all", MM_AGGS, None),
+    (("dimB",), "all", AGGS, "mm"),
+    (("dimB",), "all", MM_AGGS, "blocked"),
+    (("dimA",), "all", AGGS, "windowed"),
+    (("dimA",), "all", AGGS, "projection"),
+    (("dimB",), "all", [AGGS[0], AGGS[5], DSUM], "mixed"),
+])
+def test_batched_selection_at_the_rung_matches_reference(
+        rung_segs, dims, gran, aggs, force, monkeypatch):
+    monkeypatch.setattr(port_batching, "_ENABLED", True)
+    monkeypatch.setattr(port_grouping, "FORCE_STRATEGY", force)
+    monkeypatch.setattr(ref_grouping, "FORCE_STRATEGY", force)
+    from druid_tpu.engine import batching as ref_batching
+    monkeypatch.setattr(ref_batching, "_ENABLED", True)
+    ref_log = _SelectLog(monkeypatch, ref_grouping)
+    port_log = _SelectLog(monkeypatch, port_grouping)
+    before = port_batching.stats().snapshot()["batches"]
+    _both(rung_segs, _groupby(dims, aggs, gran=gran))
+    assert port_log.calls == ref_log.calls
+    # the chunk selects once, at the rung; a forced projection refuses the
+    # stack, and both segments then select alone at their own rows
+    rows = [r for _, r in port_log.calls]
+    if force == "projection":
+        assert rows == [32_768, 20_480, 20_480]
+        assert port_batching.stats().snapshot()["batches"] == before
+    else:
+        assert rows == [32_768]
+        assert port_batching.stats().snapshot()["batches"] == before + 1

@@ -270,12 +270,12 @@ def test_projection_reads_the_virtual_column_dense(segs, monkeypatch):
     monkeypatch.setattr(sorted_reduce, "sorted_reduce", orig)
     padded = port[0].padded_rows()
     assert seen == [(torch.float32, (padded,), ["metLong"])] * 2
-    blocks = [k for k in port[0]._device_cache if k[0] == "block"]
+    blocks = [k for k in port[0].device_entries() if k[0] == "block"]
     plain = dict(q, virtualColumns=[], aggregations=[
         _agg("count", "rows"), _agg("longSum", "lsum", "metLong"),
         _agg("floatMax", "fmax", "metFloat")])
     PortExecutor(port, device="cpu").run_json(plain)
-    assert [k for k in port[0]._device_cache if k[0] == "block"] == blocks
+    assert [k for k in port[0].device_entries() if k[0] == "block"] == blocks
 
 
 @pytest.mark.parametrize("out_type,dtype", [
