@@ -132,12 +132,29 @@ Phases, each fatal on failure:
      cells); then B-ts three times under a pool budget of half its resident
      bytes (evictions required, rows unchanged) and the default budget
      back.
-The device pool's snapshot is printed after phases 6-10, 12 and 13; at the
-default budget none may show an eviction.
+ 15. the native surface (run after phase 8, on the 8 headline segments,
+     with the B1/B2 counts set to 0 before it and read after it; a second
+     datasource headline_b re-labels two segments' arrays): N1 the headline
+     groupBy with having and(greaterThan rows, filter(bound lsum)) and a
+     limitSpec; N2 with subtotalsSpec [[dimA], [dimB], []]; N3 a groupBy
+     on dimA over a query dataSource (the headline groupBy); N4 bySegment;
+     N5 the filtered groupBy with doubleGreatest / longLeast; N6 the hourly
+     timeseries under chunkPeriod PT6H, and the headline groupBy over
+     union(bench, headline_b); N7 a scan (limit 10,000, batchSize 4096,
+     the filtered groupBy's filter) in both orders, also through
+     run_streaming; N8 two select pages of 1000; N9 search "7" over dimA
+     and dimB; N10 timeBoundary under the filter; N11 segmentMetadata,
+     merged, every analysis; N12 dataSourceMetadata. Each query
+     round-trips through to_json, runs cold and 3 times warm with its
+     B1/B2 launches per run required (N1-N4 B1 x8, N5 B2 x8, the union B1
+     x10, the rest none), and its rows hold against numpy.
+The device pool's snapshot is printed after phases 6-10, 12, 13 and 15; at
+the default budget none may show an eviction.
 `python3 chip_smoke.py batching` runs the build and phase 14 alone.
 The line before the last is the kernels JSON line (each kernel's
 `launches` counted on phase 6's path, `launches_expressions` on phase
-12's, `launches_aggregators` on phase 13's); the last line is
+12's, `launches_aggregators` on phase 13's, `launches_native_surface` on
+phase 15's); the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 import dataclasses
@@ -1088,22 +1105,23 @@ def check_timeseries(rows, ref):
             raise AssertionError(f"timeseries bucket {i}: {v}")
 
 
-def split_times(q, segments, dev):
+def split_times(q, segments, dev, reps=3):
     """Where a warm query's time goes: producing the per-segment partials
     (host planning + device work + copy back) against merging and finishing
-    them on the host, medians of 3."""
+    them on the host, medians of `reps`."""
     import torch
     from druid_tpu_torch.engine import engines, sorted_reduce as sr
+    from druid_tpu_torch.engine.executor import apply_interval_chunking
     from druid_tpu_torch.query.model import (GroupByQuery, TimeseriesQuery,
                                              query_from_json)
-    query = query_from_json(q)
+    query = apply_interval_chunking(query_from_json(q))
     finish = engines.finish_groupby if isinstance(query, GroupByQuery) \
         else engines.finish_timeseries if isinstance(query, TimeseriesQuery) \
         else engines.finish_topn
     from druid_tpu_torch.engine import megakernel as mk
     part, fin = [], []
     saved = (sr.LAUNCHES, mk.LAUNCHES)
-    for _ in range(3):
+    for _ in range(reps):
         t = time.perf_counter()
         ap = engines.make_aggregate_partials(query, segments, dev)
         torch.cuda.synchronize()
@@ -1540,6 +1558,486 @@ def phase_strategies(dev, segments, qs, ref, main_out):
         f"{mm['mm_reduce_ms_budget_16MiB']:.3f} ms")
     sr.LAUNCHES, mk.LAUNCHES = saved  # forced runs are not the main path
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the native surface (run after phase 8, on its segments)
+# ---------------------------------------------------------------------------
+
+NATIVE_WARM = 3                      # warm runs a query (p50 of 3)
+N1_MIN_ROWS, N1_LSUM, N1_LIMIT = 200, (1_000_000, 50_000_000), 5000
+SCAN_LIMIT, SCAN_BATCH = 10_000, 4096
+SCAN_COLUMNS = ["__time", "dimA", "dimB", "metLong", "metFloat"]
+SELECT_PAGE = 1000
+HEADLINE_B = 2                       # segments re-labelled as headline_b
+
+
+def relabelled(segments, n=HEADLINE_B):
+    """The first n segments' arrays as the datasource headline_b
+    (segment_from_arrays: the same numpy arrays, no copy)."""
+    from druid_tpu_torch.data.convert import segment_from_arrays
+    return [segment_from_arrays(
+        s.time_ms, {k: (c.ids, c.dictionary.values)
+                    for k, c in s.dims.items()},
+        {k: (m.type.value, m.values) for k, m in s.metrics.items()},
+        "headline_b", (s.interval.start, s.interval.end), s.id.version,
+        s.id.partition) for s in segments[:n]]
+
+
+def native_queries(qs, segments):
+    """N1-N12 as Druid JSON; N8 is two queries, its second page resuming
+    after the first page's last offset in segment 0."""
+    gb, filtered = qs["groupby"], qs["groupby_filtered"]
+    iv = gb["intervals"]
+
+    def field(name):
+        return {"type": "fieldAccess", "fieldName": name}
+    scan = {"queryType": "scan", "dataSource": "bench", "intervals": iv,
+            "columns": SCAN_COLUMNS, "limit": SCAN_LIMIT,
+            "batchSize": SCAN_BATCH, "filter": filtered["filter"]}
+    select = {"queryType": "select", "dataSource": "bench", "intervals": iv,
+              "dimensions": ["dimA", "dimB"], "metrics": ["metLong"],
+              "pagingSpec": {"threshold": SELECT_PAGE}}
+    return {
+        "n1_having": dict(gb, having={"type": "and", "havingSpecs": [
+            {"type": "greaterThan", "aggregation": "rows",
+             "value": N1_MIN_ROWS},
+            {"type": "filter", "filter": {
+                "type": "bound", "dimension": "lsum",
+                "lower": str(N1_LSUM[0]), "upper": str(N1_LSUM[1]),
+                "ordering": "numeric"}}]},
+            limitSpec={"type": "default", "limit": N1_LIMIT, "columns": [
+                {"dimension": "lsum", "direction": "descending",
+                 "dimensionOrder": "numeric"}, "dimA", "dimB"]}),
+        "n2_subtotals": dict(gb, subtotalsSpec=[["dimA"], ["dimB"], []]),
+        "n3_nested": {
+            "queryType": "groupBy",
+            "dataSource": {"type": "query", "query": gb}, "intervals": iv,
+            "granularity": "all", "dimensions": ["dimA"],
+            "aggregations": [{"type": "count", "name": "groups"},
+                             {"type": "longSum", "name": "lsum",
+                              "fieldName": "lsum"}]},
+        "n4_by_segment": dict(gb, context={"bySegment": True}),
+        "n5_greatest_least": dict(filtered, postAggregations=[
+            {"type": "doubleGreatest", "name": "g",
+             "fields": [field("lsum"), field("fmax")]},
+            {"type": "longLeast", "name": "l",
+             "fields": [field("rows"), field("lsum")]}]),
+        "n6_chunked": dict(qs["timeseries"],
+                           context={"chunkPeriod": "PT6H"}),
+        "n6_union": dict(gb, dataSource={
+            "type": "union", "dataSources": ["bench", "headline_b"]}),
+        "n7_scan_asc": dict(scan, order="ascending"),
+        "n7_scan_desc": dict(scan, order="descending"),
+        "n8_select_page1": select,
+        "n8_select_page2": dict(select, pagingSpec={
+            "threshold": SELECT_PAGE,
+            "pagingIdentifiers": {str(segments[0].id): SELECT_PAGE - 1}}),
+        "n9_search": {"queryType": "search", "dataSource": "bench",
+                      "intervals": iv, "searchDimensions": ["dimA", "dimB"],
+                      "query": {"type": "contains", "value": "7"}},
+        "n10_time_boundary": {"queryType": "timeBoundary",
+                              "dataSource": "bench", "intervals": iv,
+                              "filter": filtered["filter"]},
+        "n11_segment_metadata": {
+            "queryType": "segmentMetadata", "dataSource": "bench",
+            "intervals": iv, "merge": True,
+            "analysisTypes": ["cardinality", "size", "interval", "minmax"]},
+        "n12_datasource_metadata": {"queryType": "dataSourceMetadata",
+                                    "dataSource": "bench"},
+    }
+
+
+#: (B1, B2) launches per run; every other query launches neither
+NATIVE_LAUNCHES = {"n1_having": (SEGMENTS, 0),
+                   "n2_subtotals": (SEGMENTS, 0),
+                   "n3_nested": (SEGMENTS, 0),
+                   "n4_by_segment": (SEGMENTS, 0),
+                   "n5_greatest_least": (0, SEGMENTS),
+                   "n6_union": (SEGMENTS + HEADLINE_B, 0)}
+
+
+def filtered_rows(s, head):
+    """The filtered groupBy's filter over one segment, in numpy: dimA even
+    (`in` half its values), dimB not its head, 100 <= metLong <= 9900."""
+    ml = s.metrics["metLong"].values
+    return ((s.dims["dimA"].ids % 2) == 0) & (s.dims["dimB"].ids != head) \
+        & (ml >= 100) & (ml <= 9900)
+
+
+def segment_groupby(s):
+    """The headline groupBy over one segment, in numpy: (cnt, lsum, fmax)
+    by group dimA * 1000 + dimB."""
+    G = 100 * 1000
+    ml = s.metrics["metLong"].values
+    keep = (ml >= 100) & (ml <= 9900)
+    key = (s.dims["dimA"].ids.astype(np.int64) * 1000
+           + s.dims["dimB"].ids)[keep]
+    fmax = np.full(G, -np.inf, np.float32)
+    np.maximum.at(fmax, key, s.metrics["metFloat"].values[keep])
+    return {"cnt": np.bincount(key, minlength=G),
+            "lsum": np.bincount(key, weights=ml[keep].astype(np.float64),
+                                minlength=G).astype(np.int64),
+            "fmax": fmax}
+
+
+def native_reference(segments, ref):
+    """numpy results for N1-N12 beyond the main path's: headline_b's two
+    segments grouped alone, the filtered rows of the first and the last
+    segment, the filtered time bounds, dimA/dimB value counts, and the
+    columns' extremes."""
+    head = dimb_head(segments)
+    out = {"per_segment": [segment_groupby(s) for s in segments[:HEADLINE_B]],
+           "cnt_a": np.zeros(100, np.int64), "cnt_b": np.zeros(1000, np.int64)}
+    lo = hi = None
+    for i, s in enumerate(segments):
+        m = filtered_rows(s, head)
+        ids = np.flatnonzero(m)
+        if i == 0:
+            out["asc_ids"] = ids[:SCAN_LIMIT]
+        if i == len(segments) - 1:
+            out["desc_ids"] = ids[::-1][:SCAN_LIMIT]
+        if len(ids):
+            t = s.time_ms[ids]
+            lo = int(t.min()) if lo is None else min(lo, int(t.min()))
+            hi = int(t.max()) if hi is None else max(hi, int(t.max()))
+        out["cnt_a"] += np.bincount(s.dims["dimA"].ids, minlength=100)
+        out["cnt_b"] += np.bincount(s.dims["dimB"].ids, minlength=1000)
+    out["time_bounds"] = (lo, hi)
+    out["extremes"] = {c: (min(s.metrics[c].values.min().item()
+                               for s in segments),
+                           max(s.metrics[c].values.max().item()
+                               for s in segments))
+                       for c in ("metLong", "metFloat")}
+    union = {k: ref[k] + sum(p[k] for p in out["per_segment"])
+             for k in ("cnt", "lsum")}
+    union["fmax"] = np.maximum.reduce(
+        [ref["fmax"]] + [p["fmax"] for p in out["per_segment"]])
+    out["union"] = union
+    return out
+
+
+def _groups(rows):
+    """{group: (rows, lsum, fmax)} of headline groupBy rows."""
+    return {int(r["event"]["dimA"][1:]) * 1000 + int(r["event"]["dimB"][1:]):
+            (r["event"]["rows"], r["event"]["lsum"],
+             np.float32(r["event"]["fmax"])) for r in rows}
+
+
+def check_n1(rows, ref, nref, segments):
+    cnt, lsum, fmax = ref["cnt"], ref["lsum"], ref["fmax"]
+    sel = np.flatnonzero((cnt > N1_MIN_ROWS) & (lsum >= N1_LSUM[0])
+                         & (lsum <= N1_LSUM[1]))
+    order = sel[np.lexsort((sel % 1000, sel // 1000, -lsum[sel]))]
+    want = [(int(g), int(cnt[g]), int(lsum[g]), fmax[g])
+            for g in order[:N1_LIMIT]]
+    got = [(int(r["event"]["dimA"][1:]) * 1000 + int(r["event"]["dimB"][1:]),
+            r["event"]["rows"], r["event"]["lsum"],
+            np.float32(r["event"]["fmax"])) for r in rows]
+    if got != want:
+        raise AssertionError(f"N1: {len(got)} rows differ from numpy's "
+                             f"{len(want)}")
+
+
+def check_n2(rows, ref, nref, segments):
+    cnt, lsum, fmax = ref["cnt"], ref["lsum"], ref["fmax"]
+    n_live = int((cnt > 0).sum())
+    check_groupby(rows[:n_live], ref)
+    c2, l2, f2 = (x.reshape(100, 1000) for x in (cnt, lsum, fmax))
+    want = [({"dimA": f"v{a:08d}"}, c2[a].sum(), l2[a].sum(), f2[a].max())
+            for a in range(100) if c2[a].sum()]
+    want += [({"dimB": f"v{b:08d}"}, c2[:, b].sum(), l2[:, b].sum(),
+              f2[:, b].max()) for b in range(1000) if c2[:, b].sum()]
+    want.append(({}, cnt.sum(), lsum.sum(), fmax.max()))
+    got = [({k: v for k, v in r["event"].items() if k in ("dimA", "dimB")},
+            r["event"]["rows"], r["event"]["lsum"],
+            np.float32(r["event"]["fmax"])) for r in rows[n_live:]]
+    if [(k, int(c), int(s), np.float32(f)) for k, c, s, f in want] != got:
+        raise AssertionError(f"N2: {len(got)} subtotal rows differ from "
+                             f"numpy's {len(want)}")
+
+
+def check_n3(rows, ref, nref, segments):
+    c2, l2 = ref["cnt"].reshape(100, 1000), ref["lsum"].reshape(100, 1000)
+    want = {f"v{a:08d}": (int((c2[a] > 0).sum()), int(l2[a].sum()))
+            for a in range(100) if c2[a].sum()}
+    got = {r["event"]["dimA"]: (r["event"]["groups"], r["event"]["lsum"])
+           for r in rows}
+    if got != want or len(rows) != len(want):
+        raise AssertionError("N3: the nested groupBy differs from numpy")
+
+
+def check_n4(rows, ref, nref, segments):
+    if [r["result"]["segment"] for r in rows] != \
+            [str(s.id) for s in segments] \
+            or not all(r["bySegment"] for r in rows):
+        raise AssertionError("N4: not one entry per segment")
+    G = len(ref["cnt"])
+    cnt, lsum = np.zeros(G, np.int64), np.zeros(G, np.int64)
+    fmax = np.full(G, -np.inf, np.float32)
+    for i, r in enumerate(rows):
+        g = _groups(r["result"]["results"])
+        ks = np.fromiter(g, np.int64, len(g))
+        vals = list(g.values())
+        c = np.asarray([v[0] for v in vals], np.int64)
+        s_ = np.asarray([v[1] for v in vals], np.int64)
+        f = np.asarray([v[2] for v in vals], np.float32)
+        cnt[ks] += c
+        lsum[ks] += s_
+        fmax[ks] = np.maximum(fmax[ks], f)
+        if i < HEADLINE_B:
+            p = nref["per_segment"][i]
+            live = np.flatnonzero(p["cnt"])
+            if not (np.array_equal(np.sort(ks), live)
+                    and np.array_equal(c, p["cnt"][ks])
+                    and np.array_equal(s_, p["lsum"][ks])
+                    and np.array_equal(f, p["fmax"][ks])):
+                raise AssertionError(f"N4: segment {i} differs from numpy")
+    if not (np.array_equal(cnt, ref["cnt"]) and np.array_equal(lsum,
+                                                              ref["lsum"])
+            and np.array_equal(fmax, ref["fmax"])):
+        raise AssertionError("N4: the segments' results do not add up to "
+                             "numpy's")
+
+
+def check_n5(rows, ref, nref, segments):
+    check_filtered(rows, ref)
+    for r in rows:
+        e = r["event"]
+        if e["g"] != max(float(e["lsum"]), float(e["fmax"])) \
+                or e["l"] != min(float(e["rows"]), float(e["lsum"])):
+            raise AssertionError(f"N5: greatest/least of {e}")
+
+
+def check_n6_union(rows, ref, nref, segments):
+    check_groupby(rows, nref["union"])
+
+
+def _check_scan(rows, seg, ids, tag):
+    events = [e for b in rows for e in b["events"]]
+    sizes = [len(b["events"]) for b in rows]
+    want_sizes = [SCAN_BATCH] * (SCAN_LIMIT // SCAN_BATCH) \
+        + [SCAN_LIMIT % SCAN_BATCH]
+    vals = {c: np.asarray(seg.dims[c].dictionary.values)[seg.dims[c].ids[ids]]
+            for c in ("dimA", "dimB")}
+    want = [{"__time": t, "dimA": a, "dimB": b, "metLong": m, "metFloat": f}
+            for t, a, b, m, f in zip(
+                seg.time_ms[ids].tolist(), vals["dimA"].tolist(),
+                vals["dimB"].tolist(),
+                seg.metrics["metLong"].values[ids].tolist(),
+                seg.metrics["metFloat"].values[ids].tolist())]
+    if sizes != want_sizes or events != want \
+            or {b["segmentId"] for b in rows} != {str(seg.id)}:
+        raise AssertionError(f"{tag}: the scan's rows differ from numpy "
+                             f"(batches {sizes})")
+
+
+def check_n7_asc(rows, ref, nref, segments):
+    _check_scan(rows, segments[0], nref["asc_ids"], "N7 ascending")
+
+
+def check_n7_desc(rows, ref, nref, segments):
+    _check_scan(rows, segments[-1], nref["desc_ids"], "N7 descending")
+
+
+def _check_select(rows, segments, page):
+    seg = segments[0]
+    ids = np.arange(page * SELECT_PAGE, (page + 1) * SELECT_PAGE)
+    vals = {c: np.asarray(seg.dims[c].dictionary.values)[seg.dims[c].ids[ids]]
+            for c in ("dimA", "dimB")}
+    want = [{"segmentId": str(seg.id), "offset": int(i), "event": {
+        "__time": t, "dimA": a, "dimB": b, "metLong": m}}
+        for i, t, a, b, m in zip(ids, seg.time_ms[ids].tolist(),
+                                 vals["dimA"].tolist(), vals["dimB"].tolist(),
+                                 seg.metrics["metLong"].values[ids].tolist())]
+    res = rows[0]["result"]
+    if res["events"] != want or res["pagingIdentifiers"] != {
+            str(seg.id): int(ids[-1])}:
+        raise AssertionError(f"N8: page {page + 1} differs from numpy")
+
+
+def check_n8_select_page1(rows, ref, nref, segments):
+    _check_select(rows, segments, 0)
+
+
+def check_n8_select_page2(rows, ref, nref, segments):
+    _check_select(rows, segments, 1)
+
+
+def check_n9(rows, ref, nref, segments):
+    want = [{"dimension": d, "value": f"v{i:08d}", "count": int(c)}
+            for d, cnt in (("dimA", nref["cnt_a"]), ("dimB", nref["cnt_b"]))
+            for i, c in enumerate(cnt) if c and "7" in f"v{i:08d}"]
+    want.sort(key=lambda e: (e["value"], e["dimension"]))
+    if rows != [{"timestamp": segments[0].interval.start,
+                 "result": want[:1000]}]:
+        raise AssertionError("N9: search counts differ from numpy")
+
+
+def check_n10(rows, ref, nref, segments):
+    lo, hi = nref["time_bounds"]
+    if rows != [{"timestamp": lo, "result": {"minTime": lo,
+                                             "maxTime": hi}}]:
+        raise AssertionError(f"N10: {rows} != numpy ({lo}, {hi})")
+
+
+def check_n11(rows, ref, nref, segments):
+    (m,) = rows
+    cols = m["columns"]
+    ext = nref["extremes"]
+    ok = (m["numRows"] == ROWS
+          and m["size"] == sum(s.size_bytes() for s in segments)
+          and m["intervals"] == sorted({str(s.interval) for s in segments})
+          and cols["dimA"]["cardinality"] == 100
+          and cols["dimB"]["cardinality"] == 1000
+          and cols["__time"]["minValue"] == min(s.min_time for s in segments)
+          and cols["__time"]["maxValue"] == max(s.max_time for s in segments)
+          and all((cols[c]["minValue"], cols[c]["maxValue"]) == ext[c]
+                  for c in ext)
+          and cols["metLong"]["type"] == "LONG"
+          and cols["metFloat"]["type"] == "FLOAT")
+    if not ok:
+        raise AssertionError(f"N11: {m} differs from numpy")
+
+
+def check_n12(rows, ref, nref, segments):
+    mx = max(s.max_time for s in segments)
+    if rows != [{"timestamp": mx, "result": {"maxIngestedEventTime": mx}}]:
+        raise AssertionError(f"N12: {rows}")
+
+
+NATIVE_CHECKS = {
+    "n1_having": check_n1, "n2_subtotals": check_n2,
+    "n3_nested": check_n3, "n4_by_segment": check_n4,
+    "n5_greatest_least": check_n5,
+    "n6_chunked": lambda rows, ref, nref, segs: check_timeseries(rows, ref),
+    "n6_union": check_n6_union, "n7_scan_asc": check_n7_asc,
+    "n7_scan_desc": check_n7_desc,
+    "n8_select_page1": check_n8_select_page1,
+    "n8_select_page2": check_n8_select_page2, "n9_search": check_n9,
+    "n10_time_boundary": check_n10, "n11_segment_metadata": check_n11,
+    "n12_datasource_metadata": check_n12}
+
+
+def native_split(name, q, segments, extra, dev, ex):
+    """split_times for the aggregate queries (one run: N2's finish alone
+    takes seconds): N3 as its inner groupBy's split plus the subquery
+    segment and the outer query; N4 as the sum over its eight per-segment
+    partials and finishes."""
+    import torch
+    from druid_tpu_torch.engine import engines, executor
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    from druid_tpu_torch.query.model import query_from_json
+    if name == "n3_nested":
+        inner = q["dataSource"]["query"]
+        out = split_times(inner, segments, dev, reps=1)
+        saved = (sr.LAUNCHES, mk.LAUNCHES)
+        rows = ex.run_json(inner)
+        t = time.perf_counter()
+        seg = executor.subquery_segment(query_from_json(inner), rows)
+        out["subquery_segment_ms"] = (time.perf_counter() - t) * 1e3
+        out["subquery_rows"] = seg.n_rows
+        t = time.perf_counter()
+        ex.run(query_from_json(q), [seg])
+        torch.cuda.synchronize()
+        out["outer_ms"] = (time.perf_counter() - t) * 1e3
+        sr.LAUNCHES, mk.LAUNCHES = saved
+        return out
+    if name == "n4_by_segment":
+        saved = (sr.LAUNCHES, mk.LAUNCHES)
+        query = query_from_json(dict(q, context={}))
+        part = fin = 0.0
+        for s in segments:
+            t = time.perf_counter()
+            ap = engines.make_aggregate_partials(query, [s], dev)
+            torch.cuda.synchronize()
+            part += time.perf_counter() - t
+            t = time.perf_counter()
+            engines.finish_groupby(query, ap)
+            fin += time.perf_counter() - t
+        sr.LAUNCHES, mk.LAUNCHES = saved
+        return {"partials_ms": part * 1e3, "finish_ms": fin * 1e3}
+    if name in ("n6_union",):
+        return split_times(q, segments + extra, dev, reps=1)
+    if name in ("n1_having", "n2_subtotals", "n5_greatest_least",
+                "n6_chunked"):
+        return split_times(q, segments, dev, reps=1)
+    return {}
+
+
+def phase_native(dev, segments, qs, ref):
+    """N1-N12 over the 8 headline segments (and headline_b, two of them
+    re-labelled): each query's JSON round-trips through to_json, runs cold
+    and NATIVE_WARM times warm with its B1/B2 launches counted per run, and
+    its rows (cold and last warm) hold against numpy; N7 also through
+    run_streaming. Returns (results, (B1, B2) launches of the phase's
+    runs)."""
+    import torch
+    from druid_tpu_torch.engine import QueryExecutor
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    from druid_tpu_torch.query.model import query_from_json
+    t_phase = time.perf_counter()
+    t = time.perf_counter()
+    nref = native_reference(segments, ref)
+    extra = relabelled(segments)
+    out = {"oracle_s": time.perf_counter() - t}
+    log(f"  numpy results for N1-N12: {out['oracle_s']:.1f} s")
+    nqs = native_queries(qs, segments)
+    ex = QueryExecutor(segments + extra, device=dev)
+    base = (sr.LAUNCHES, mk.LAUNCHES)
+    sr.LAUNCHES = mk.LAUNCHES = 0
+    for name, q in nqs.items():
+        query = query_from_json(q)
+        if query_from_json(query.to_json()) != query:
+            raise AssertionError(f"{name}: does not round-trip through "
+                                 f"to_json")
+        want = NATIVE_LAUNCHES.get(name, (0, 0))
+        times = []
+        for i in range(1 + NATIVE_WARM):
+            before = (sr.LAUNCHES, mk.LAUNCHES)
+            t = time.perf_counter()
+            rows = ex.run(query)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            got = (sr.LAUNCHES - before[0], mk.LAUNCHES - before[1])
+            if got != want:
+                raise AssertionError(f"{name}: run {i} launched (B1, B2) "
+                                     f"{got} times, expected {want}")
+            if i in (0, NATIVE_WARM):
+                NATIVE_CHECKS[name](rows, ref, nref, segments)
+        if name.startswith("n7_"):
+            if list(ex.run_streaming(query)) != rows:
+                raise AssertionError(f"{name}: run_streaming differs")
+        warm = [x * 1e3 for x in times[1:]]
+        res = {"cold_s": times[0], "warm_ms": warm,
+               "p50_ms": float(np.median(warm)), "result_rows": len(rows),
+               "b1_launches_per_run": want[0],
+               "b2_launches_per_run": want[1]}
+        res.update(native_split(name, q, segments, extra, dev, ex))
+        if name in ("n9_search", "n10_time_boundary"):
+            # the card's share of the warm query: every kernel's device
+            # time (torch.profiler), against the bytes the masks read once
+            # (dimA and dimB ids, metLong and the time offsets: 16 B/row)
+            by = device_split(lambda: ex.run(query), reps=1, top=100)
+            res["device_ms"] = sum(by.values())
+            res["device_top"] = dict(list(by.items())[:4])
+            res["mask_bound_ms"] = sum(x.n_rows for x in segments) * 16 \
+                / HBM_BYTES_PER_S * 1e3
+        out[name] = res
+        split = "".join(f", {k} {v:.3f}" for k, v in res.items()
+                        if k.endswith("_ms") and k not in ("p50_ms", "warm_ms"))
+        log(f"  {name}: ok, cold {times[0]:.2f} s, warm p50 "
+            f"{res['p50_ms']:.1f} ms{split}, (B1, B2) launches/run {want}, "
+            f"{len(rows)} rows")
+    launches = {"B1": sr.LAUNCHES, "B2": mk.LAUNCHES}
+    sr.LAUNCHES, mk.LAUNCHES = base
+    del ex, extra
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase native surface took {out['phase_s']:.1f} s; B1 launched "
+        f"{launches['B1']}, B2 {launches['B2']} times in its runs")
+    return out, launches
 
 
 SORTED_SEGMENTS = 2                  # cut from 8 for time (reduced)
@@ -3277,6 +3775,11 @@ def main():
     log("phase strategies, the 8 headline segments")
     report["strategies"] = phase_strategies(dev, segments, qs, ref, captured)
     pools["strategies"] = pool_snapshot("strategies")
+
+    log("phase native surface (N1-N12), the 8 headline segments")
+    report["native_surface"], native_launches = phase_native(
+        dev, segments, qs, ref)
+    pools["native_surface"] = pool_snapshot("native surface")
     del segments, captured, ref
 
     log(f"phase sorted, {SORTED_SEGMENTS} segments in the rollup order")
@@ -3358,6 +3861,7 @@ def main():
             "replaces": replaces, "launches": launches[which],
             "launches_expressions": expr_launches[which],
             "launches_aggregators": aggr_launches[which],
+            "launches_native_surface": native_launches[which],
             "max_abs_err": max(err, parity["max_abs_err"],
                                report["packed_parity"]["max_abs_err"],
                                expr_errs[which]),

@@ -9,9 +9,13 @@ lookup table that the device applies via one gather — see engine/filters.py.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
+
+#: null and "" are one value (Druid's pre-0.13 null handling, as the
+#: reference)
+NULL = ""
 
 
 class Dictionary:
@@ -23,6 +27,11 @@ class Dictionary:
         self.values: List[str] = list(sorted_values)
         self._index = {v: i for i, v in enumerate(self.values)}
 
+    @staticmethod
+    def from_values(values: Iterable[Optional[str]]) -> "Dictionary":
+        return Dictionary(sorted({NULL if v is None else str(v)
+                                  for v in values}))
+
     @property
     def cardinality(self) -> int:
         return len(self.values)
@@ -30,6 +39,12 @@ class Dictionary:
     def id_of(self, value: Optional[str]) -> int:
         """id of value (None reads as ""), or -1 if absent."""
         return self._index.get("" if value is None else value, -1)
+
+    def encode(self, values: Iterable[Optional[str]]) -> np.ndarray:
+        """int32 ids of `values` (each must be in the dictionary)."""
+        idx = self._index
+        return np.fromiter((idx[NULL if v is None else str(v)]
+                            for v in values), dtype=np.int32)
 
     def __len__(self):
         return len(self.values)

@@ -18,20 +18,23 @@ segment keeps (`device_cached`), live in the process-wide byte-budgeted
 device pool (data/devicepool.py), keyed by the columns, row alignment,
 device, permutation and pack descriptor; the pool evicts the least recently
 used entry by bytes and drops a segment's entries when it is collected.
+
+`SegmentBuilder` makes a segment from rows or columns (the reference's, for
+a subquery's rows and for tests); its rows come out sorted by time.
 """
 from __future__ import annotations
 
 import enum
 import threading
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from druid_tpu_torch.data import cascade, packed
 from druid_tpu_torch.data.devicepool import device_pool
-from druid_tpu_torch.data.dictionary import Dictionary
+from druid_tpu_torch.data.dictionary import NULL, Dictionary
 from druid_tpu_torch.utils.intervals import Interval
 
 #: staged row counts are padded to a multiple of this
@@ -52,6 +55,15 @@ class ValueType(enum.Enum):
             ValueType.FLOAT: np.float32,
             ValueType.DOUBLE: np.float64,
         }[self]
+
+
+@dataclass(frozen=True)
+class ColumnCapabilities:
+    """What a column is (Druid's ColumnCapabilities)."""
+    type: ValueType
+    dictionary_encoded: bool = False
+    has_bitmap_index: bool = False
+    has_multiple_values: bool = False
 
 
 @dataclass(frozen=True)
@@ -168,6 +180,22 @@ class Segment:
         data (the reference's Segment takes it from its caller)."""
         return self.aux_cached(("time_ordered",), lambda: bool(
             np.all(self.time_ms[1:] >= self.time_ms[:-1])))
+
+    def column_capabilities(self, name: str) -> Optional[ColumnCapabilities]:
+        if name == "__time":
+            return ColumnCapabilities(ValueType.LONG)
+        if name in self.dims:
+            return ColumnCapabilities(ValueType.STRING,
+                                      dictionary_encoded=True,
+                                      has_bitmap_index=True)
+        m = self.metrics.get(name)
+        return None if m is None else ColumnCapabilities(m.type)
+
+    def size_bytes(self) -> int:
+        """Host bytes of the rows: time, dimension ids and metric values."""
+        return int(self.time_ms.nbytes
+                   + sum(d.ids.nbytes for d in self.dims.values())
+                   + sum(m.values.nbytes for m in self.metrics.values()))
 
     def padded_rows(self, row_align: int = DEFAULT_ROW_ALIGN) -> int:
         return max(row_align, -(-self.n_rows // row_align) * row_align)
@@ -320,3 +348,78 @@ class Segment:
 
     def __repr__(self):
         return f"Segment({self.id}, rows={self.n_rows})"
+
+
+class SegmentBuilder:
+    """Builds a Segment from rows or from columns, as the reference's
+    SegmentBuilder: dimension values as strings (None reads as ""), a
+    metric LONG while every value is an int and DOUBLE from the first float,
+    and the rows sorted by time (stable) when built."""
+
+    def __init__(self, datasource: str, interval: Interval,
+                 version: str = "v0", partition: int = 0):
+        self.segment_id = SegmentId(datasource, interval, version, partition)
+        self._time: List[int] = []
+        self._dim_values: Dict[str, List[str]] = {}
+        self._metric_values: Dict[str, list] = {}
+        self._metric_types: Dict[str, ValueType] = {}
+        self._n = 0
+
+    def add_row(self, ts_ms: int, dims: Dict[str, Optional[str]],
+                metrics: Dict[str, float]):
+        for name in dims:
+            if name not in self._dim_values:
+                self._dim_values[name] = [NULL] * self._n
+        for name in metrics:
+            if name not in self._metric_values:
+                self._metric_values[name] = [0] * self._n
+                self._metric_types.setdefault(
+                    name, ValueType.LONG if isinstance(metrics[name], int)
+                    else ValueType.DOUBLE)
+            elif (self._metric_types.get(name) == ValueType.LONG
+                  and isinstance(metrics.get(name), float)):
+                # a float arriving later widens the column, rather than
+                # truncating at build time
+                self._metric_types[name] = ValueType.DOUBLE
+        self._time.append(int(ts_ms))
+        for name, vals in self._dim_values.items():
+            v = dims.get(name)
+            vals.append(NULL if v is None else str(v))
+        for name, vals in self._metric_values.items():
+            vals.append(metrics.get(name, 0))
+        self._n += 1
+
+    def add_columns(self, time_ms: np.ndarray,
+                    dims: Dict[str, Sequence[str]],
+                    metrics: Dict[str, np.ndarray],
+                    metric_types: Optional[Dict[str, ValueType]] = None):
+        if self._n:
+            raise ValueError("add_columns on non-empty builder unsupported")
+        self._time = list(np.asarray(time_ms, dtype=np.int64))
+        for k, v in dims.items():
+            self._dim_values[k] = [NULL if x is None else str(x) for x in v]
+        for k, v in metrics.items():
+            arr = np.asarray(v)
+            self._metric_values[k] = arr
+            if metric_types and k in metric_types:
+                self._metric_types[k] = metric_types[k]
+            else:
+                self._metric_types[k] = (
+                    ValueType.LONG if np.issubdtype(arr.dtype, np.integer)
+                    else ValueType.DOUBLE if arr.dtype == np.float64
+                    else ValueType.FLOAT)
+        self._n = len(self._time)
+
+    def build(self) -> Segment:
+        time_ms = np.asarray(self._time, dtype=np.int64)
+        order = np.argsort(time_ms, kind="stable")
+        dims: Dict[str, StringDimColumn] = {}
+        for name, values in self._dim_values.items():
+            d = Dictionary.from_values(values)
+            dims[name] = StringDimColumn(d.encode(values)[order], d)
+        metrics: Dict[str, NumericColumn] = {}
+        for name, values in self._metric_values.items():
+            vtype = self._metric_types[name]
+            arr = np.asarray(values, dtype=vtype.numpy_dtype)[order]
+            metrics[name] = NumericColumn(arr, vtype)
+        return Segment(self.segment_id, time_ms[order], dims, metrics)

@@ -1,7 +1,9 @@
-"""Per-query-type engines over the grouped-aggregate program.
+"""Per-query-type engines: the grouped-aggregate program and the six
+non-aggregate engines.
 
-The port's counterpart of the reference package's `engine/engines.py` for
-timeseries, topN and groupBy. Dimension specs become KeyDims here
+The port's counterpart of the reference package's `engine/engines.py`. For
+timeseries, topN and groupBy (with having, subtotals and bySegment),
+dimension specs become KeyDims here
 (`_keydim_for`: extraction and listFiltered remaps, numeric and expression
 dimensions as query-time dictionaries, unified across the query's segments
 by `unify_query_dims`). Partials come from `_make_partials`: batching
@@ -10,11 +12,18 @@ small segments), then one grouped-aggregate run per segment for whatever it
 returns None for (no sharding: the mesh is not ported). They merge on the
 host (engine/merge.py) and finish into the reference's JSON row shapes
 (timestamps as epoch millis ints).
+
+Scan, select, search and timeBoundary mask each segment on the device
+(`filters.host_mask` and the interval test); only the surviving row ids,
+or search's value counts (`torch.bincount`) and timeBoundary's masked
+min/max, come back to the host, which decodes rows as the reference does.
+segmentMetadata and dataSourceMetadata read host metadata.
 """
 from __future__ import annotations
 
 import hashlib
 import json
+from dataclasses import replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -22,13 +31,17 @@ import torch
 
 from druid_tpu_torch.data.segment import Segment
 from druid_tpu_torch.engine import batching
-from druid_tpu_torch.engine.filters import _bind_string_dims
+from druid_tpu_torch.engine.filters import (_bind_string_dims,
+                                            _dictionary_lut, masked_columns)
 from druid_tpu_torch.engine.grouping import KeyDim, run_grouped_aggregate
 from druid_tpu_torch.engine.merge import merge_partials
-from druid_tpu_torch.query.model import (DefaultLimitSpec, DimensionSpec,
+from druid_tpu_torch.query.model import (DataSourceMetadataQuery,
+                                         DefaultLimitSpec, DimensionSpec,
                                          ExpressionDimensionSpec,
                                          GroupByQuery,
-                                         ListFilteredDimensionSpec,
+                                         ListFilteredDimensionSpec, ScanQuery,
+                                         SearchQuery, SegmentMetadataQuery,
+                                         SelectQuery, TimeBoundaryQuery,
                                          TimeseriesQuery, TopNQuery)
 from druid_tpu_torch.query.postaggs import compute_postaggs
 from druid_tpu_torch.utils.expression import parse_expression
@@ -379,6 +392,26 @@ def make_aggregate_partials_multi(items, device: torch.device,
     return out
 
 
+def run_by_segment(query, segments: Sequence[Segment],
+                   device: torch.device) -> List[dict]:
+    """The bySegment context: each segment's unmerged result, wrapped with
+    the segment's identity (Druid's BySegmentQueryRunner)."""
+    inner = replace(query, context=tuple(
+        (k, v) for k, v in query.context_map.items() if k != "bySegment"))
+    finish = finish_timeseries if isinstance(query, TimeseriesQuery) \
+        else finish_topn if isinstance(query, TopNQuery) else finish_groupby
+    out: List[dict] = []
+    for s in _segments_for(segments, condense(query.intervals)):
+        rows = finish(inner, make_aggregate_partials(inner, [s], device))
+        out.append({
+            "timestamp": rows[0]["timestamp"] if rows else None,
+            "result": {"results": rows, "segment": str(s.id),
+                       "interval": str(s.interval)},
+            "bySegment": True,
+        })
+    return out
+
+
 def run_timeseries(query: TimeseriesQuery, segments: Sequence[Segment],
                    device: torch.device) -> List[dict]:
     return finish_timeseries(query, make_aggregate_partials(query, segments,
@@ -502,6 +535,11 @@ def finish_groupby(query: GroupByQuery, ap: AggregatePartials) -> List[dict]:
     out_names = [d.output_name for d in query.dimensions]
     rows = _emit_groupby_rows(starts, buckets, dim_vals, arrays, live, out_names,
                               kernels, query)
+    if query.subtotals:
+        rows = rows + _subtotal_rows(query, starts, buckets, dim_vals, counts,
+                                     states, kernels)
+    if query.having is not None:
+        rows = [r for r in rows if query.having.evaluate(r["event"])]
     rows = _apply_limit_spec(rows, query.limit_spec, out_names)
     return rows
 
@@ -529,6 +567,47 @@ def _emit_groupby_rows(starts, buckets, dim_vals, arrays, live, out_names,
     return rows
 
 
+def _subtotal_rows(query, starts, buckets, dim_vals, counts, states,
+                   kernels) -> List[dict]:
+    """The rows of each subtotal spec: the merged groups re-grouped by the
+    spec's dimensions, their states folded with `AggKernel.combine`
+    (Druid's GroupByStrategyV2.processSubtotalsSpec), in the reference's
+    order."""
+    out_names = [d.output_name for d in query.dimensions]
+    rows = []
+    live = np.flatnonzero(counts > 0)
+    for subset in query.subtotals:
+        keep = [i for i, n in enumerate(out_names) if n in subset]
+        groups: Dict[tuple, dict] = {}
+        for gi in live:
+            key = (int(buckets[gi]),) + tuple(dim_vals[i][gi] for i in keep)
+            g = groups.get(key)
+            if g is None:
+                groups[key] = {k.name: _state_at(states[k.name], gi)
+                               for k in kernels}
+            else:
+                for k in kernels:
+                    g[k.name] = k.combine(g[k.name],
+                                          _state_at(states[k.name], gi))
+        for key, g in sorted(groups.items(), key=lambda kv: str(kv[0])):
+            event = {out_names[i]: key[1 + j] for j, i in enumerate(keep)}
+            vals = {k.name: _scalar(k.finalize_array(g[k.name])[0])
+                    for k in kernels}
+            event.update(compute_postaggs(query.post_aggregations, vals))
+            rows.append({"version": "v1",
+                         "timestamp": int(starts[key[0]]) if len(starts)
+                         else 0,
+                         "event": event})
+    return rows
+
+
+def _state_at(state, gi):
+    """Group `gi`'s state, as a state of one group."""
+    if isinstance(state, dict):
+        return {k: _state_at(v, gi) for k, v in state.items()}
+    return np.asarray(state)[gi:gi + 1]
+
+
 def _apply_limit_spec(rows: List[dict], limit_spec: Optional[DefaultLimitSpec],
                       dim_names: List[str]) -> List[dict]:
     if limit_spec is None:
@@ -553,3 +632,295 @@ def _apply_limit_spec(rows: List[dict], limit_spec: Optional[DefaultLimitSpec],
     start = limit_spec.offset
     end = None if limit_spec.limit is None else start + limit_spec.limit
     return rows[start:end]
+
+
+# ---------------------------------------------------------------------------
+# Scan / select: raw rows, masked on the device, decoded on the host
+# ---------------------------------------------------------------------------
+
+def _query_mask(segment: Segment, query, device: torch.device,
+                columns: Sequence[str] = ()):
+    """(mask, staged columns): the rows in the query's intervals that pass
+    its filter, on `device`."""
+    return masked_columns(query.filter, segment,
+                          getattr(query, "virtual_columns", ()), device,
+                          condense(query.intervals), columns)
+
+
+def _masked_row_ids(segment: Segment, query,
+                    device: torch.device) -> np.ndarray:
+    """The ascending row ids that pass the query; only they reach the
+    host."""
+    mask, _ = _query_mask(segment, query, device)
+    return torch.nonzero(mask).flatten().cpu().numpy()
+
+
+def _decode_rows(segment: Segment, row_ids: np.ndarray,
+                 columns: Sequence[str]) -> List[dict]:
+    cols: Dict[str, np.ndarray] = {}
+    for c in columns:
+        if c == "__time":
+            cols[c] = segment.time_ms[row_ids]
+        elif c in segment.dims:
+            col = segment.dims[c]
+            vals = np.asarray(col.dictionary.values, dtype=object)
+            cols[c] = vals[col.ids[row_ids]] if col.cardinality else \
+                np.full(len(row_ids), "", dtype=object)
+        elif c in segment.metrics:
+            cols[c] = segment.metrics[c].values[row_ids]
+    return [{c: _scalar(v[i]) for c, v in cols.items()}
+            for i in range(len(row_ids))]
+
+
+def iter_scan(query: ScanQuery, segments: Sequence[Segment],
+              device: torch.device):
+    """A lazy scan: one batch of at most `batch_size` events at a time; a
+    segment is masked and decoded only when its batch is pulled, so a
+    limit stops the scan early (Druid's ScanQueryEngine sequence)."""
+    intervals = condense(query.intervals)
+    segs = sorted(_segments_for(segments, intervals),
+                  key=lambda s: s.min_time,
+                  reverse=query.order == "descending")
+    remaining = query.limit
+    to_skip = query.offset
+    batch = max(int(query.batch_size), 1)
+    for s in segs:
+        if remaining is not None and remaining <= 0:
+            return
+        row_ids = _masked_row_ids(s, query, device)
+        if query.order == "descending":
+            row_ids = row_ids[::-1]
+        if to_skip:
+            if to_skip >= len(row_ids):
+                to_skip -= len(row_ids)
+                continue
+            row_ids = row_ids[to_skip:]
+            to_skip = 0
+        if remaining is not None:
+            row_ids = row_ids[:remaining]
+            remaining -= len(row_ids)
+        columns = list(query.columns) or (
+            ["__time"] + list(s.dims.keys()) + list(s.metrics.keys()))
+        for i in range(0, len(row_ids), batch):
+            events = _decode_rows(s, row_ids[i:i + batch], columns)
+            if events:
+                yield {"segmentId": str(s.id), "columns": columns,
+                       "events": events}
+
+
+def run_scan(query: ScanQuery, segments: Sequence[Segment],
+             device: torch.device) -> List[dict]:
+    return list(iter_scan(query, segments, device))
+
+
+def run_select(query: SelectQuery, segments: Sequence[Segment],
+               device: torch.device) -> List[dict]:
+    """Druid's paged select: `threshold` events a page, resumed after each
+    segment's offset in `paging_spec`."""
+    intervals = condense(query.intervals)
+    segs = sorted(_segments_for(segments, intervals),
+                  key=lambda s: s.min_time, reverse=query.descending)
+    paging = dict(query.paging_spec)
+    threshold = query.threshold
+    events = []
+    new_paging: Dict[str, int] = {}
+    for s in segs:
+        if threshold <= 0:
+            break
+        row_ids = _masked_row_ids(s, query, device)
+        if query.descending:
+            row_ids = row_ids[::-1]
+        start = paging.get(str(s.id), -1) + 1
+        row_ids = row_ids[start:start + threshold]
+        threshold -= len(row_ids)
+        columns = (["__time"] + (list(query.dimensions) or list(s.dims.keys()))
+                   + (list(query.metrics) or list(s.metrics.keys())))
+        for off, ev in zip(range(start, start + len(row_ids)),
+                           _decode_rows(s, row_ids, columns)):
+            events.append({"segmentId": str(s.id), "offset": off, "event": ev})
+            new_paging[str(s.id)] = off
+    ts = int(min((s.min_time for s in segs), default=0))
+    return [{"timestamp": ts,
+             "result": {"pagingIdentifiers": new_paging, "events": events}}]
+
+
+# ---------------------------------------------------------------------------
+# Search
+# ---------------------------------------------------------------------------
+
+def run_search(query: SearchQuery, segments: Sequence[Segment],
+               device: torch.device) -> List[dict]:
+    """Dimension values containing the search string, with the count of
+    the query's rows holding each: the values are matched once per
+    dictionary on the host, and each dimension's masked ids are counted on
+    the device (`torch.bincount`)."""
+    intervals = condense(query.intervals)
+    segs = _segments_for(segments, intervals)
+    if not segs:
+        return []
+    needle = query.value if query.case_sensitive else query.value.lower()
+
+    def matches(v: str) -> bool:
+        h = v if query.case_sensitive else v.lower()
+        return needle in h
+
+    hits: Dict[Tuple[str, str], int] = {}
+    for s in segs:
+        dims = [d for d in (list(query.search_dimensions) or list(s.dims))
+                if d in s.dims]
+        luts = {d: _dictionary_lut(s.dims[d].dictionary, matches)
+                for d in dims}
+        dims = [d for d in dims if luts[d].any()]
+        if not dims:
+            continue
+        mask, cols = _query_mask(s, query, device, dims)
+        for d in dims:
+            card = s.dims[d].cardinality
+            # masked-out rows count in an extra bin past the dictionary
+            cnt = torch.bincount(torch.where(mask, cols[d], card),
+                                 minlength=card + 1)[:card].cpu().numpy()
+            values = s.dims[d].dictionary.values
+            for vid in np.flatnonzero((cnt > 0) & luts[d]):
+                key = (d, values[vid])
+                hits[key] = hits.get(key, 0) + int(cnt[vid])
+
+    entries = [{"dimension": d, "value": v, "count": c}
+               for (d, v), c in hits.items()]
+    if query.sort == "strlen":
+        entries.sort(key=lambda e: (len(e["value"]), e["value"],
+                                    e["dimension"]))
+    else:
+        entries.sort(key=lambda e: (e["value"], e["dimension"]))
+    entries = entries[: query.limit]
+    ts = int(min(iv.start for iv in intervals))
+    return [{"timestamp": ts, "result": entries}]
+
+
+# ---------------------------------------------------------------------------
+# TimeBoundary / SegmentMetadata / DataSourceMetadata
+# ---------------------------------------------------------------------------
+
+_I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
+
+
+def run_time_boundary(query: TimeBoundaryQuery, segments: Sequence[Segment],
+                      device: torch.device) -> List[dict]:
+    """The least and greatest time of the query's rows: a segment inside
+    the one interval of an unfiltered query answers from its metadata; any
+    other is masked on the device, which reduces the masked time offsets to
+    their min and max."""
+    intervals = condense(query.intervals)
+    segs = _segments_for(segments, intervals)
+    min_t, max_t = None, None
+    for s in segs:
+        if query.filter is None and len(intervals) == 1 \
+                and intervals[0].contains_interval(
+                    Interval(s.min_time, s.max_time + 1)):
+            lo, hi = s.min_time, s.max_time
+        else:
+            mask, cols = _query_mask(s, query, device)
+            off = cols["__time_offset"]
+            any_, lo, hi = torch.stack([
+                mask.any().to(torch.int64),
+                torch.where(mask, off, _I32_MAX).amin().to(torch.int64),
+                torch.where(mask, off, _I32_MIN).amax().to(torch.int64),
+            ]).tolist()
+            if not any_:
+                continue
+            lo, hi = lo + s.interval.start, hi + s.interval.start
+        min_t = lo if min_t is None else min(min_t, lo)
+        max_t = hi if max_t is None else max(max_t, hi)
+    if min_t is None:
+        return []
+    result = {}
+    if query.bound in (None, "minTime"):
+        result["minTime"] = min_t
+    if query.bound in (None, "maxTime"):
+        result["maxTime"] = max_t
+    ts = min_t if query.bound != "maxTime" else max_t
+    return [{"timestamp": ts, "result": result}]
+
+
+def _analyze_segment(segment: Segment, query: SegmentMetadataQuery) -> dict:
+    """One segment's analysis (Druid's SegmentAnalyzer), from host
+    metadata."""
+    cols = {}
+    names = list(query.to_include) or (
+        ["__time"] + list(segment.dims.keys()) + list(segment.metrics.keys()))
+    want = set(query.analysis_types)
+    for c in names:
+        info: Dict[str, object] = {"hasMultipleValues": False,
+                                   "errorMessage": None}
+        if c == "__time":
+            info["type"] = "LONG"
+            if "size" in want:
+                info["size"] = int(segment.time_ms.nbytes)
+            if "minmax" in want:
+                info["minValue"] = segment.min_time
+                info["maxValue"] = segment.max_time
+        elif c in segment.dims:
+            col = segment.dims[c]
+            info["type"] = "STRING"
+            if "cardinality" in want:
+                info["cardinality"] = col.cardinality
+            if "size" in want:
+                info["size"] = int(col.ids.nbytes)
+            if "minmax" in want and col.cardinality:
+                info["minValue"] = col.dictionary.values[0]
+                info["maxValue"] = col.dictionary.values[-1]
+        elif c in segment.metrics:
+            m = segment.metrics[c]
+            info["type"] = m.type.value.upper()
+            if "size" in want:
+                info["size"] = int(m.values.nbytes)
+            if "minmax" in want and segment.n_rows:
+                info["minValue"] = _scalar(m.values.min())
+                info["maxValue"] = _scalar(m.values.max())
+        else:
+            continue
+        cols[c] = info
+    return {"id": str(segment.id),
+            "intervals": [str(segment.interval)] if "interval" in want
+            else None,
+            "columns": cols,
+            "size": segment.size_bytes(),
+            "numRows": segment.n_rows}
+
+
+def run_segment_metadata(query: SegmentMetadataQuery,
+                         segments: Sequence[Segment]) -> List[dict]:
+    intervals = condense(query.intervals)
+    analyses = [_analyze_segment(s, query)
+                for s in _segments_for(segments, intervals)]
+    if not query.merge or not analyses:
+        return analyses
+    merged = analyses[0]
+    for a in analyses[1:]:
+        merged["size"] += a["size"]
+        merged["numRows"] += a["numRows"]
+        if merged["intervals"] is not None and a["intervals"]:
+            merged["intervals"] = sorted(set(merged["intervals"]
+                                             + a["intervals"]))
+        for c, info in a["columns"].items():
+            if c not in merged["columns"]:
+                merged["columns"][c] = info
+                continue
+            tgt = merged["columns"][c]
+            if "size" in info and "size" in tgt:
+                tgt["size"] += info["size"]
+            if "cardinality" in info and "cardinality" in tgt:
+                tgt["cardinality"] = max(tgt["cardinality"],
+                                         info["cardinality"])
+            if "minValue" in info and "minValue" in tgt:
+                tgt["minValue"] = min(tgt["minValue"], info["minValue"])
+                tgt["maxValue"] = max(tgt["maxValue"], info["maxValue"])
+    merged["id"] = "merged"
+    return [merged]
+
+
+def run_datasource_metadata(query: DataSourceMetadataQuery,
+                            segments: Sequence[Segment]) -> List[dict]:
+    if not segments:
+        return []
+    mx = max(s.max_time for s in segments)
+    return [{"timestamp": mx, "result": {"maxIngestedEventTime": mx}}]

@@ -18,6 +18,12 @@ evaluates on the device (utils/expression.py), its string-dimension
 comparisons rewritten to dictionary LUT gathers. Constants are folded out
 of the tree before any device work.
 
+The non-aggregate engines (scan, select, search, timeBoundary) take their
+row mask from `host_mask`, which keeps the reference's host semantics leaf
+by leaf (they differ from plan_filter's in places) as a bool tensor on the
+query's device; having specs test result rows with
+`evaluate_filter_on_row`.
+
 Word layout, everywhere in the port: int32 words, LSB first — row r is bit
 r % 32 of word r // 32 (the reference's staged filter-word layout,
 `druid_tpu/data/bitmap.py` to_words32).
@@ -583,6 +589,9 @@ def _string_predicate(flt: F.DimFilter):
             out = _ex.apply(v)
             return _base("" if out is None else out)
         return extracted
+    # a filter that tests each value itself (spatial) says how
+    if hasattr(flt, "value_predicate"):
+        return flt.value_predicate()
     if isinstance(flt, F.SelectorFilter):
         target = "" if flt.value is None else flt.value
         return lambda v: v == target
@@ -627,6 +636,8 @@ def _string_predicate(flt: F.DimFilter):
             return lambda v: flt.value in v
         needle = flt.value.lower()
         return lambda v: needle in v.lower()
+    if isinstance(flt, F.JavaScriptFilter):
+        return flt.predicate
     return None
 
 
@@ -1016,3 +1027,231 @@ def _bind_string_dims(expr, segment: Segment, bindings: Dict) -> None:
             col = segment.dims[c]
             vals = np.asarray(list(col.dictionary.values), dtype=object)
             bindings[c] = vals[col.ids]
+
+
+# ---------------------------------------------------------------------------
+# Row-level evaluation (having specs over result rows)
+# ---------------------------------------------------------------------------
+
+def evaluate_filter_on_row(flt: F.DimFilter, row: Dict[str, object]) -> bool:
+    """A filter over one result row: every leaf tests the row's value as a
+    string (None reads as "")."""
+    if isinstance(flt, F.TrueFilter):
+        return True
+    if isinstance(flt, F.FalseFilter):
+        return False
+    if isinstance(flt, F.AndFilter):
+        return all(evaluate_filter_on_row(f, row) for f in flt.fields)
+    if isinstance(flt, F.OrFilter):
+        return any(evaluate_filter_on_row(f, row) for f in flt.fields)
+    if isinstance(flt, F.NotFilter):
+        return not evaluate_filter_on_row(flt.field, row)
+    pred = _string_predicate(flt)
+    if pred is None:
+        raise ValueError(f"cannot row-evaluate {flt!r}")
+    v = row.get(flt.dimension)
+    return pred("" if v is None else str(v))
+
+
+# ---------------------------------------------------------------------------
+# The row mask of the non-aggregate engines (scan, select, search,
+# timeBoundary), with the reference's host_mask semantics leaf by leaf
+# ---------------------------------------------------------------------------
+
+_CMP = {"==": torch.eq, "<": torch.lt, "<=": torch.le, ">": torch.gt,
+        ">=": torch.ge}
+
+
+def compare_scalar(vals: torch.Tensor, op: str, c) -> torch.Tensor:
+    """`vals <op> c` for a Python number `c`. An integer column compares
+    exactly whatever c's range (torch wraps a scalar outside the dtype);
+    a float column compares in its own dtype, as numpy does with a Python
+    float."""
+    if not vals.is_floating_point():
+        info = torch.iinfo(vals.dtype)
+        if not info.min <= c <= info.max:
+            above = c > info.max
+            const = {"==": False, "<": above, "<=": above, ">": not above,
+                     ">=": not above}[op]
+            return torch.full(vals.shape, const, dtype=torch.bool,
+                              device=vals.device)
+    return _CMP[op](vals, c)
+
+
+def _host_bindings(segment: Segment) -> Dict[str, np.ndarray]:
+    """An expression's host bindings: `__time` and every metric's values."""
+    bindings = {"__time": segment.time_ms}
+    for name, m in segment.metrics.items():
+        bindings[name] = m.values
+    return bindings
+
+
+def host_mask(flt: Optional[F.DimFilter], segment: Segment,
+              virtual_columns: Sequence = (),
+              device: torch.device = torch.device("cpu"),
+              intervals: Optional[Sequence] = None) -> torch.Tensor:
+    """The rows of `segment` that pass `flt` (and, where given, lie in
+    `intervals`), a bool [n_rows] tensor on `device`."""
+    return masked_columns(flt, segment, virtual_columns, device,
+                          intervals)[0]
+
+
+def masked_columns(flt: Optional[F.DimFilter], segment: Segment,
+                   virtual_columns: Sequence = (),
+                   device: torch.device = torch.device("cpu"),
+                   intervals: Optional[Sequence] = None,
+                   columns: Sequence[str] = ()):
+    """(mask, cols): host_mask's mask, and the staged `__time_offset` and
+    `columns` it was computed beside ({name: [n_rows] tensor}), from one
+    staged block.
+
+    The mask has the reference's host_mask semantics leaf by leaf. String
+    leaves gather a dictionary LUT by the staged id column; numeric leaves
+    compare the staged column (`__time` as its int32 offset); and/or/not
+    combine tensors. Virtual columns and expression filters are evaluated
+    on the host with numpy over the segment's host columns (int64 longs,
+    string dimensions decoded by `_bind_string_dims`), as the reference
+    evaluates them, and what they give is copied to the device once."""
+    n = segment.n_rows
+    vc_arrays: Dict[str, np.ndarray] = {}
+    if flt is not None:
+        flt = flt.optimize()
+        if virtual_columns:
+            bindings = _host_bindings(segment)
+            for v in virtual_columns:
+                expr = parse_expression(v.expression)
+                _bind_string_dims(expr, segment, bindings)
+                arr = np.broadcast_to(np.asarray(expr.evaluate(bindings)),
+                                      (n,))
+                vc_arrays[v.name] = bindings[v.name] = arr
+    staged = set(columns)
+    if flt is not None:
+        staged |= _staged_columns(flt, segment, vc_arrays)
+    block = segment.device_block(sorted(staged), device)
+    cols = {c: block.arrays[c][:n] for c in sorted(staged) + ["__time_offset"]}
+    mask = torch.ones(n, dtype=torch.bool, device=device) if flt is None \
+        else _host_mask(flt, segment, cols, vc_arrays, device)
+    if intervals is not None:
+        mask &= _in_intervals(cols["__time_offset"], segment.interval.start,
+                              intervals)
+    return mask, cols
+
+
+def _in_intervals(off: torch.Tensor, t0: int, intervals) -> torch.Tensor:
+    """Rows whose time (`t0` + int32 offset) lies in any interval."""
+    inside = torch.zeros(off.shape, dtype=torch.bool, device=off.device)
+    for iv in intervals:
+        inside |= compare_scalar(off, ">=", iv.start - t0) \
+            & compare_scalar(off, "<", iv.end - t0)
+    return inside
+
+
+def _staged_columns(flt: F.DimFilter, segment: Segment,
+                    vc_arrays: Dict[str, np.ndarray]) -> Set[str]:
+    """The segment columns `_host_mask` reads on the device."""
+    if isinstance(flt, (F.AndFilter, F.OrFilter)):
+        return set().union(*(_staged_columns(f, segment, vc_arrays)
+                             for f in flt.fields))
+    if isinstance(flt, F.NotFilter):
+        return _staged_columns(flt.field, segment, vc_arrays)
+    if isinstance(flt, F.ColumnComparisonFilter):
+        return set(flt.dimensions)
+    if isinstance(flt, F.IntervalFilter):
+        return set()
+    dim = getattr(flt, "dimension", None)
+    return {dim} if dim in segment.dims or dim in segment.metrics else set()
+
+
+def _host_mask(flt: F.DimFilter, segment: Segment,
+               cols: Dict[str, torch.Tensor],
+               vc_arrays: Dict[str, np.ndarray],
+               device: torch.device) -> torch.Tensor:
+    n = segment.n_rows
+
+    def const(value: bool) -> torch.Tensor:
+        return torch.full((n,), value, dtype=torch.bool, device=device)
+
+    def rec(f):
+        return _host_mask(f, segment, cols, vc_arrays, device)
+
+    if isinstance(flt, (F.TrueFilter, F.FalseFilter)):
+        return const(isinstance(flt, F.TrueFilter))
+    if isinstance(flt, (F.AndFilter, F.OrFilter)):
+        out = rec(flt.fields[0])
+        for f in flt.fields[1:]:
+            out = out & rec(f) if isinstance(flt, F.AndFilter) \
+                else out | rec(f)
+        return out
+    if isinstance(flt, F.NotFilter):
+        return ~rec(flt.field)
+    t0 = segment.interval.start
+    if isinstance(flt, F.IntervalFilter):
+        return _in_intervals(cols["__time_offset"], t0, flt.intervals)
+    if isinstance(flt, F.ColumnComparisonFilter):
+        dicts = [segment.dims[d].dictionary for d in flt.dimensions]
+        _, remaps = merge_dictionaries(dicts)
+        merged = [torch.from_numpy(r).to(device)[cols[d].long()]
+                  for d, r in zip(flt.dimensions, remaps)]
+        out = const(True)
+        for other in merged[1:]:
+            out &= merged[0] == other
+        return out
+    if isinstance(flt, F.ExpressionFilter):
+        expr = parse_expression(flt.expression)
+        bindings = _host_bindings(segment)
+        _bind_string_dims(expr, segment, bindings)
+        bindings.update(vc_arrays)
+        out = np.broadcast_to(np.asarray(expr.evaluate(bindings), dtype=bool),
+                              (n,))
+        return torch.from_numpy(np.array(out)).to(device)
+
+    dim = getattr(flt, "dimension", None)
+    if dim in segment.dims:
+        pred = _string_predicate(flt)
+        if pred is None:
+            raise ValueError(f"cannot host-evaluate {flt!r}")
+        lut = torch.from_numpy(_dictionary_lut(segment.dims[dim].dictionary,
+                                               pred)).to(device)
+        return lut[cols[dim].long()]
+    if dim == "__time":
+        vals, shift, conv = cols["__time_offset"], t0, int
+    elif dim in segment.metrics:
+        vals, shift = cols[dim], 0
+        conv = int if segment.metrics[dim].type == ValueType.LONG else float
+    elif dim in vc_arrays:
+        # a virtual column's host values, copied once (a bool result
+        # compares as numbers, as numpy promotes it)
+        arr = vc_arrays[dim]
+        conv = int if np.issubdtype(arr.dtype, np.integer) else float
+        vals, shift = torch.from_numpy(np.array(
+            arr, dtype=np.float64 if arr.dtype == bool else arr.dtype)
+        ).to(device), 0
+    else:
+        # missing column: a selector of null matches every row, else none
+        return const(isinstance(flt, F.SelectorFilter)
+                     and flt.value in (None, ""))
+    if isinstance(flt, F.SelectorFilter):
+        if flt.value is None:
+            return const(False)
+        return compare_scalar(vals, "==", conv(flt.value) - shift)
+    if isinstance(flt, F.InFilter):
+        targets = [conv(v) - shift for v in flt.values if v is not None]
+        if vals.is_floating_point():
+            # numpy's isin compares a float32 column in float64
+            return torch.isin(vals.to(torch.float64),
+                              torch.tensor(targets, dtype=torch.float64,
+                                           device=device))
+        info = torch.iinfo(vals.dtype)
+        targets = [t for t in targets if info.min <= t <= info.max]
+        return torch.isin(vals, torch.tensor(targets, dtype=vals.dtype,
+                                             device=device))
+    if isinstance(flt, F.BoundFilter):
+        out = const(True)
+        if flt.lower is not None:
+            out &= compare_scalar(vals, ">" if flt.lower_strict else ">=",
+                                  conv(flt.lower) - shift)
+        if flt.upper is not None:
+            out &= compare_scalar(vals, "<" if flt.upper_strict else "<=",
+                                  conv(flt.upper) - shift)
+        return out
+    raise ValueError(f"cannot host-evaluate {type(flt).__name__} on numeric")

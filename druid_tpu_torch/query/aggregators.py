@@ -3,7 +3,8 @@
 The port's copy of the reference package's `query/aggregators.py`: count,
 the long/double/float sum, min, max, first and last, filtered, hyperUnique
 and cardinality. An unknown type raises ValueError, as in the reference;
-the extension registry is not ported. The device side of each spec is an
+the extension registry is not ported. `to_json` gives the reference's wire
+form. The device side of each spec is an
 AggKernel in engine/kernels.py.
 """
 from __future__ import annotations
@@ -28,16 +29,26 @@ class AggregatorSpec:
     def finalize(self, value):
         return value
 
+    def to_json(self) -> dict:
+        raise NotImplementedError
+
 
 @dataclass(frozen=True)
 class CountAggregator(AggregatorSpec):
     name: str = "count"
+
+    def to_json(self):
+        return {"type": "count", "name": self.name}
 
 
 @dataclass(frozen=True)
 class _FieldAggregator(AggregatorSpec):
     name: str
     field: str
+
+    def to_json(self):
+        return {"type": _FIELD_TYPE_NAMES[type(self)], "name": self.name,
+                "fieldName": self.field}
 
 
 class LongSumAggregator(_FieldAggregator):
@@ -83,6 +94,7 @@ _FIELD_TYPES = {
     "doubleMax": DoubleMaxAggregator, "floatMin": FloatMinAggregator,
     "floatMax": FloatMaxAggregator,
 }
+_FIELD_TYPE_NAMES = {cls: t for t, cls in _FIELD_TYPES.items()}
 
 
 @dataclass(frozen=True)
@@ -98,6 +110,10 @@ class FirstAggregator(AggregatorSpec):
         # pair column __ft_<field>, which then orders the rows
         return {self.field, f"__ft_{self.field}"}
 
+    def to_json(self):
+        return {"type": f"{self.kind}First", "name": self.name,
+                "fieldName": self.field}
+
 
 @dataclass(frozen=True)
 class LastAggregator(AggregatorSpec):
@@ -108,6 +124,10 @@ class LastAggregator(AggregatorSpec):
 
     def required_columns(self):
         return {self.field, f"__ft_{self.field}"}
+
+    def to_json(self):
+        return {"type": f"{self.kind}Last", "name": self.name,
+                "fieldName": self.field}
 
 
 @dataclass(frozen=True)
@@ -121,6 +141,11 @@ class FilteredAggregator(AggregatorSpec):
         return self.delegate.required_columns() \
             | self.filter.required_columns()
 
+    def to_json(self):
+        return {"type": "filtered", "name": self.name,
+                "aggregator": self.delegate.to_json(),
+                "filter": self.filter.to_json()}
+
 
 @dataclass(frozen=True)
 class HyperUniqueAggregator(AggregatorSpec):
@@ -130,6 +155,11 @@ class HyperUniqueAggregator(AggregatorSpec):
     field: str
     log2m: int = 11
     round: bool = False
+
+    def to_json(self):
+        return {"type": "hyperUnique", "name": self.name,
+                "fieldName": self.field, "log2m": self.log2m,
+                "round": self.round}
 
 
 @dataclass(frozen=True)
@@ -144,6 +174,11 @@ class CardinalityAggregator(AggregatorSpec):
 
     def required_columns(self):
         return set(self.fields)
+
+    def to_json(self):
+        return {"type": "cardinality", "name": self.name,
+                "fields": list(self.fields), "byRow": self.by_row,
+                "log2m": self.log2m, "round": self.round}
 
 
 def agg_from_json(j: dict) -> AggregatorSpec:

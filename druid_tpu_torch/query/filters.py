@@ -3,9 +3,12 @@
 The port's copy of the reference package's `query/filters.py`: selector,
 in, bound, like, regex and search (each with an optional extractionFn),
 interval, columnComparison, expression, and/or/not and the constant
-true/false. The spatial and javascript filters are not ported and raise
-NotImplementedError; an unknown type raises ValueError, as in the
-reference. Planning a filter into a row mask lives in engine/filters.py.
+true/false, and spatial (rectangular, radius and polygon bounds over a
+dimension of "x,y[,...]" coordinate strings). JavaScriptFilter takes a
+Python callable over dimension values; no JSON reaches it, and
+"javascript", like any unknown type, raises ValueError, as in the
+reference. `to_json` gives the reference's wire form. Planning a filter
+into a row mask lives in engine/filters.py.
 """
 from __future__ import annotations
 
@@ -26,15 +29,26 @@ class DimFilter:
     def optimize(self) -> "DimFilter":
         return self
 
+    def to_json(self) -> dict:
+        raise NotImplementedError
+
 
 @dataclass(frozen=True)
 class TrueFilter(DimFilter):
-    pass
+    def to_json(self):
+        return {"type": "true"}
 
 
 @dataclass(frozen=True)
 class FalseFilter(DimFilter):
-    pass
+    def to_json(self):
+        return {"type": "false"}
+
+
+def _with_exfn(j: dict, fn) -> dict:
+    if fn is not None:
+        j["extractionFn"] = fn.to_json()
+    return j
 
 
 @dataclass(frozen=True)
@@ -49,6 +63,10 @@ class SelectorFilter(DimFilter):
     def required_columns(self):
         return {self.dimension}
 
+    def to_json(self):
+        return _with_exfn({"type": "selector", "dimension": self.dimension,
+                           "value": self.value}, self.extraction_fn)
+
 
 @dataclass(frozen=True)
 class InFilter(DimFilter):
@@ -59,6 +77,10 @@ class InFilter(DimFilter):
 
     def required_columns(self):
         return {self.dimension}
+
+    def to_json(self):
+        return _with_exfn({"type": "in", "dimension": self.dimension,
+                           "values": list(self.values)}, self.extraction_fn)
 
     def optimize(self):
         if len(self.values) == 1:
@@ -81,6 +103,14 @@ class BoundFilter(DimFilter):
 
     def required_columns(self):
         return {self.dimension}
+
+    def to_json(self):
+        return _with_exfn(
+            {"type": "bound", "dimension": self.dimension,
+             "lower": self.lower, "upper": self.upper,
+             "lowerStrict": self.lower_strict,
+             "upperStrict": self.upper_strict,
+             "ordering": self.ordering}, self.extraction_fn)
 
 
 @dataclass(frozen=True)
@@ -113,6 +143,11 @@ class LikeFilter(DimFilter):
     def required_columns(self):
         return {self.dimension}
 
+    def to_json(self):
+        return _with_exfn({"type": "like", "dimension": self.dimension,
+                           "pattern": self.pattern, "escape": self.escape},
+                          self.extraction_fn)
+
 
 @dataclass(frozen=True)
 class RegexFilter(DimFilter):
@@ -123,6 +158,10 @@ class RegexFilter(DimFilter):
 
     def required_columns(self):
         return {self.dimension}
+
+    def to_json(self):
+        return _with_exfn({"type": "regex", "dimension": self.dimension,
+                           "pattern": self.pattern}, self.extraction_fn)
 
 
 @dataclass(frozen=True)
@@ -137,6 +176,13 @@ class SearchFilter(DimFilter):
     def required_columns(self):
         return {self.dimension}
 
+    def to_json(self):
+        return _with_exfn(
+            {"type": "search", "dimension": self.dimension,
+             "query": {"type": "contains", "value": self.value,
+                       "caseSensitive": self.case_sensitive}},
+            self.extraction_fn)
+
 
 @dataclass(frozen=True)
 class IntervalFilter(DimFilter):
@@ -146,6 +192,10 @@ class IntervalFilter(DimFilter):
 
     def required_columns(self):
         return {self.dimension}
+
+    def to_json(self):
+        return {"type": "interval", "dimension": self.dimension,
+                "intervals": [str(iv) for iv in self.intervals]}
 
 
 @dataclass(frozen=True)
@@ -157,6 +207,9 @@ class ColumnComparisonFilter(DimFilter):
     def required_columns(self):
         return set(self.dimensions)
 
+    def to_json(self):
+        return {"type": "columnComparison", "dimensions": list(self.dimensions)}
+
 
 @dataclass(frozen=True)
 class ExpressionFilter(DimFilter):
@@ -166,6 +219,25 @@ class ExpressionFilter(DimFilter):
 
     def required_columns(self):
         return set(parse_expression(self.expression).required_columns())
+
+    def to_json(self):
+        return {"type": "expression", "expression": self.expression}
+
+
+@dataclass(frozen=True)
+class JavaScriptFilter(DimFilter):
+    """The reference's stand-in for Druid's JavaScript filter: a Python
+    callable over dimension values, evaluated on the host into the
+    dimension's LUT. No JSON reaches it."""
+    dimension: str
+    predicate: object  # Callable[[str], bool]
+
+    def required_columns(self):
+        return {self.dimension}
+
+    def to_json(self):
+        return {"type": "javascript", "dimension": self.dimension,
+                "function": "<python-callable>"}
 
 
 def _flatten(fields, cls, absorbing, neutral):
@@ -197,6 +269,9 @@ class AndFilter(DimFilter):
     def optimize(self):
         return _flatten(self.fields, AndFilter, FalseFilter, TrueFilter)
 
+    def to_json(self):
+        return {"type": "and", "fields": [f.to_json() for f in self.fields]}
+
 
 @dataclass(frozen=True)
 class OrFilter(DimFilter):
@@ -208,6 +283,9 @@ class OrFilter(DimFilter):
     def optimize(self):
         return _flatten(self.fields, OrFilter, TrueFilter, FalseFilter)
 
+    def to_json(self):
+        return {"type": "or", "fields": [f.to_json() for f in self.fields]}
+
 
 @dataclass(frozen=True)
 class NotFilter(DimFilter):
@@ -215,6 +293,9 @@ class NotFilter(DimFilter):
 
     def required_columns(self):
         return self.field.required_columns()
+
+    def to_json(self):
+        return {"type": "not", "field": self.field.to_json()}
 
     def optimize(self):
         f = self.field.optimize()
@@ -227,14 +308,126 @@ class NotFilter(DimFilter):
         return NotFilter(f)
 
 
+class SpatialBound:
+    """A region of a spatial filter (Druid's spatial search Bound)."""
+
+    @staticmethod
+    def from_json(j: dict) -> "SpatialBound":
+        t = j["type"]
+        if t == "rectangular":
+            return RectangularBound(tuple(j["minCoords"]),
+                                    tuple(j["maxCoords"]))
+        if t == "radius":
+            return RadiusBound(tuple(j["coords"]), float(j["radius"]))
+        if t == "polygon":
+            return PolygonBound(tuple(j["abscissa"]), tuple(j["ordinate"]))
+        raise ValueError(f"unknown spatial bound type {t!r}")
+
+    def to_json(self) -> dict:
+        raise NotImplementedError
+
+    def contains(self, coords) -> bool:
+        raise NotImplementedError
+
+
+@dataclass(frozen=True)
+class RectangularBound(SpatialBound):
+    """An axis-aligned box in any number of dimensions."""
+    min_coords: tuple
+    max_coords: tuple
+
+    def to_json(self):
+        return {"type": "rectangular", "minCoords": list(self.min_coords),
+                "maxCoords": list(self.max_coords)}
+
+    def contains(self, coords):
+        if len(coords) != len(self.min_coords):
+            return False
+        return all(lo <= c <= hi for c, lo, hi in
+                   zip(coords, self.min_coords, self.max_coords))
+
+
+@dataclass(frozen=True)
+class RadiusBound(SpatialBound):
+    """A Euclidean ball."""
+    coords: tuple
+    radius: float
+
+    def to_json(self):
+        return {"type": "radius", "coords": list(self.coords),
+                "radius": self.radius}
+
+    def contains(self, coords):
+        if len(coords) != len(self.coords):
+            return False
+        return sum((c - o) ** 2 for c, o in
+                   zip(coords, self.coords)) <= self.radius ** 2
+
+
+@dataclass(frozen=True)
+class PolygonBound(SpatialBound):
+    """A 2-D polygon, by even-odd ray casting."""
+    abscissa: tuple    # x of each vertex
+    ordinate: tuple    # y of each vertex
+
+    def to_json(self):
+        return {"type": "polygon", "abscissa": list(self.abscissa),
+                "ordinate": list(self.ordinate)}
+
+    def contains(self, coords):
+        if len(coords) != 2:
+            return False
+        x, y = coords
+        n = len(self.abscissa)
+        inside = False
+        j = n - 1
+        for i in range(n):
+            xi, yi = self.abscissa[i], self.ordinate[i]
+            xj, yj = self.abscissa[j], self.ordinate[j]
+            if (yi > y) != (yj > y) and \
+                    x < (xj - xi) * (y - yi) / (yj - yi) + xi:
+                inside = not inside
+            j = i
+        return inside
+
+
+@dataclass(frozen=True)
+class SpatialFilter(DimFilter):
+    """A spatial filter (Druid's SpatialDimFilter). The dimension holds
+    joined "x,y[,...]" coordinate strings; the bound is tested once per
+    dictionary value (`value_predicate`), so the filter plans to the same
+    dictionary LUT as any string leaf."""
+    dimension: str
+    bound: SpatialBound
+
+    def required_columns(self):
+        return {self.dimension}
+
+    def to_json(self):
+        return {"type": "spatial", "dimension": self.dimension,
+                "bound": self.bound.to_json()}
+
+    def value_predicate(self):
+        bound = self.bound
+
+        def pred(v) -> bool:
+            try:
+                coords = tuple(float(p) for p in str(v).split(","))
+            except (TypeError, ValueError):
+                return False
+            return bound.contains(coords)
+        return pred
+
+
 def filter_from_json(j: Optional[dict]) -> Optional[DimFilter]:
     """JSON-polymorphic deserialization, as the reference's filter_from_json
     (Jackson @JsonSubTypes on DimFilter)."""
     if j is None:
         return None
     t = j["type"]
-    if t in ("spatial", "javascript"):
-        raise NotImplementedError(f"filter type {t!r}")
+    if t == "spatial":
+        return SpatialFilter(j["dimension"],
+                             SpatialBound.from_json(j["bound"]))
     exfn = None
     if j.get("extractionFn") is not None:
         # lazy: extraction fns live in query.model, which imports this module

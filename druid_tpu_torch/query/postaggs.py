@@ -1,10 +1,11 @@
 """Post-aggregators: arithmetic over finalized aggregate values.
 
-The port's copy of the reference package's `query/postaggs.py`, cut to
-arithmetic, fieldAccess, finalizingFieldAccess, hyperUniqueCardinality and
-constant. Any other type
-raises NotImplementedError. Evaluated on the host over result rows, per row
-(scalars) or per column (numpy arrays).
+The port's copy of the reference package's `query/postaggs.py`:
+arithmetic, fieldAccess, finalizingFieldAccess, hyperUniqueCardinality,
+constant and the double/long greatest and least. An unknown type raises
+ValueError, as in the reference; the extension registry is not ported.
+Evaluated on the host over result rows, per row (scalars) or per column
+(numpy arrays); `to_json` gives the reference's wire form.
 """
 from __future__ import annotations
 
@@ -21,6 +22,9 @@ class PostAggregator:
     def compute(self, row: Dict[str, object]) -> object:
         raise NotImplementedError
 
+    def to_json(self) -> dict:
+        raise NotImplementedError
+
 
 @dataclass(frozen=True)
 class FieldAccessPostAgg(PostAggregator):
@@ -29,6 +33,25 @@ class FieldAccessPostAgg(PostAggregator):
 
     def compute(self, row):
         return row.get(self.field)
+
+    def to_json(self):
+        return {"type": "fieldAccess", "name": self.name,
+                "fieldName": self.field}
+
+
+@dataclass(frozen=True)
+class FinalizingFieldAccessPostAgg(PostAggregator):
+    """Aggregators finalize before post-aggregation, so this reads the
+    field."""
+    name: str
+    field: str
+
+    def compute(self, row):
+        return row.get(self.field)
+
+    def to_json(self):
+        return {"type": "finalizingFieldAccess", "name": self.name,
+                "fieldName": self.field}
 
 
 @dataclass(frozen=True)
@@ -41,6 +64,10 @@ class HyperUniqueFinalizingPostAgg(PostAggregator):
     def compute(self, row):
         return row.get(self.field)
 
+    def to_json(self):
+        return {"type": "hyperUniqueCardinality", "name": self.name,
+                "fieldName": self.field}
+
 
 @dataclass(frozen=True)
 class ConstantPostAgg(PostAggregator):
@@ -49,6 +76,9 @@ class ConstantPostAgg(PostAggregator):
 
     def compute(self, row):
         return self.value
+
+    def to_json(self):
+        return {"type": "constant", "name": self.name, "value": self.value}
 
 
 def _safe_div(a, b, zero):
@@ -85,21 +115,80 @@ class ArithmeticPostAgg(PostAggregator):
             out = op(out, v)
         return out
 
+    def to_json(self):
+        return {"type": "arithmetic", "name": self.name, "fn": self.fn,
+                "fields": [f.to_json() for f in self.fields]}
+
+
+def _extreme(fields, row, pick, pick_arrays):
+    """The greatest or least of the fields' values, a null read as 0.0 and
+    every value as a float (the reference's rule). Over a row of scalars
+    this is the reference's own code; where a field is a column (the
+    vectorized finish of groupBy and topN, where the reference raises),
+    it is the same rule element by element."""
+    vals = [f.compute(row) for f in fields]
+    if not any(isinstance(v, np.ndarray) for v in vals):
+        return pick(float(v or 0.0) for v in vals)
+    cols = [np.asarray(v, dtype=np.float64) if isinstance(v, np.ndarray)
+            else np.float64(v or 0.0) for v in vals]
+    return pick_arrays.reduce(np.broadcast_arrays(*cols))
+
+
+@dataclass(frozen=True)
+class GreatestPostAgg(PostAggregator):
+    name: str
+    fields: Tuple[PostAggregator, ...]
+    kind: str = "double"
+
+    def compute(self, row):
+        return _extreme(self.fields, row, max, np.maximum)
+
+    def to_json(self):
+        return {"type": f"{self.kind}Greatest", "name": self.name,
+                "fields": [f.to_json() for f in self.fields]}
+
+
+@dataclass(frozen=True)
+class LeastPostAgg(PostAggregator):
+    name: str
+    fields: Tuple[PostAggregator, ...]
+    kind: str = "double"
+
+    def compute(self, row):
+        return _extreme(self.fields, row, min, np.minimum)
+
+    def to_json(self):
+        return {"type": f"{self.kind}Least", "name": self.name,
+                "fields": [f.to_json() for f in self.fields]}
+
 
 def postagg_from_json(j: dict) -> PostAggregator:
     t = j["type"]
-    if t in ("fieldAccess", "finalizingFieldAccess"):
-        return FieldAccessPostAgg(j.get("name", j["fieldName"]), j["fieldName"])
+    # "name" is optional on the nested fields of arithmetic/greatest/least
+    if t == "fieldAccess":
+        return FieldAccessPostAgg(j.get("name", j["fieldName"]),
+                                  j["fieldName"])
+    if t == "finalizingFieldAccess":
+        return FinalizingFieldAccessPostAgg(j.get("name", j["fieldName"]),
+                                            j["fieldName"])
     if t == "hyperUniqueCardinality":
         return HyperUniqueFinalizingPostAgg(j["name"], j["fieldName"])
     if t == "constant":
         return ConstantPostAgg(j.get("name", "const"), j["value"])
     if t == "arithmetic":
         if j["fn"] not in _OPS:
-            raise NotImplementedError(f"arithmetic fn {j['fn']!r}")
+            raise ValueError(f"unknown arithmetic fn {j['fn']!r}")
         return ArithmeticPostAgg(j["name"], j["fn"],
-                                 tuple(postagg_from_json(f) for f in j["fields"]))
-    raise NotImplementedError(f"post-aggregator type {t!r}")
+                                 tuple(postagg_from_json(f)
+                                       for f in j["fields"]))
+    for kind in ("double", "long"):
+        if t == f"{kind}Greatest":
+            return GreatestPostAgg(j["name"], tuple(
+                postagg_from_json(f) for f in j["fields"]), kind)
+        if t == f"{kind}Least":
+            return LeastPostAgg(j["name"], tuple(
+                postagg_from_json(f) for f in j["fields"]), kind)
+    raise ValueError(f"unknown post-aggregator type {t!r}")
 
 
 def compute_postaggs(postaggs, row: Dict[str, object]) -> Dict[str, object]:

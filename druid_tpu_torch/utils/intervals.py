@@ -93,6 +93,9 @@ class Interval:
             return None
         return Interval(s, e)
 
+    def contains_interval(self, other: "Interval") -> bool:
+        return self.start <= other.start and other.end <= self.end
+
     @property
     def width(self) -> int:
         return self.end - self.start
@@ -111,6 +114,50 @@ def condense(intervals: Iterable[Interval]) -> List[Interval]:
         else:
             out.append(Interval(iv.start, iv.end))
     return out
+
+
+_PERIOD_RE = re.compile(
+    r"^P(?:(?P<y>\d+)Y)?(?:(?P<mo>\d+)M)?(?:(?P<w>\d+)W)?(?:(?P<d>\d+)D)?"
+    r"(?:T(?:(?P<h>\d+)H)?(?:(?P<m>\d+)M)?(?:(?P<s>\d+)S)?)?$")
+
+#: chunk-count ceiling for split_by_period: beyond it splitting is pure
+#: overhead (an eternity-scale interval would try ~10^11 edges)
+MAX_PERIOD_CHUNKS = 4096
+
+
+def parse_period_ms(period) -> int:
+    """ISO-8601 duration ('P1D', 'PT6H', 'P1W', 'P1M') or plain millis ->
+    milliseconds. Calendar units approximate (month = 30 d, year = 365 d):
+    the only consumer sizes chunks, and results do not depend on where a
+    query's intervals are split."""
+    if isinstance(period, bool):
+        raise TypeError("bool is not a period")
+    if isinstance(period, (int, float)):
+        return int(period)
+    m = _PERIOD_RE.match(str(period).strip().upper())
+    if not m or not any(m.groups()):
+        raise ValueError(f"cannot parse period {period!r}")
+    g = {k: int(v) if v else 0 for k, v in m.groupdict().items()}
+    days = g["y"] * 365 + g["mo"] * 30 + g["w"] * 7 + g["d"]
+    return ((days * 24 + g["h"]) * 60 + g["m"]) * 60_000 + g["s"] * 1000
+
+
+def split_by_period(interval: Interval, period_ms: int,
+                    origin_ms: int = 0) -> List[Interval]:
+    """Split one interval at period boundaries aligned to `origin_ms` (the
+    reference's IntervalChunkingQueryRunner). An interval that would give
+    more than MAX_PERIOD_CHUNKS chunks (eternity) passes through whole."""
+    if period_ms <= 0 or interval.width <= period_ms \
+            or interval.width // period_ms > MAX_PERIOD_CHUNKS:
+        return [interval]
+    edges = [interval.start]
+    b = ((interval.start - origin_ms) // period_ms + 1) * period_ms \
+        + origin_ms
+    while b < interval.end:
+        edges.append(b)
+        b += period_ms
+    edges.append(interval.end)
+    return [Interval(a, b) for a, b in zip(edges, edges[1:]) if b > a]
 
 
 def normalize_intervals(spec) -> List[Interval]:

@@ -29,7 +29,9 @@ def test_import_pulls_in_neither_jax_nor_druid_tpu():
             "druid_tpu_torch.data.generator, druid_tpu_torch.data.convert, "
             "druid_tpu_torch.data.packed, druid_tpu_torch.data.cascade, "
             "druid_tpu_torch.utils.expression, druid_tpu_torch.query.lookup, "
-            "druid_tpu_torch.engine.hll, druid_tpu_torch.engine.executor; "
+            "druid_tpu_torch.engine.hll, druid_tpu_torch.engine.executor, "
+            "druid_tpu_torch.query.model, druid_tpu_torch.engine.filters, "
+            "druid_tpu_torch.engine.engines, druid_tpu_torch.data.segment; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'druid_tpu' "
             "or m.startswith('druid_tpu.')); print(bad)")
@@ -66,6 +68,17 @@ def test_executor_without_device_needs_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         device.resolve("cuda")
     assert device.resolve("cpu").type == "cpu"
+
+
+def test_every_query_type_needs_cuda_without_a_device(monkeypatch):
+    """No entry point falls back to the CPU: an executor asked for the
+    default device without a card raises before any query runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for q in ({"queryType": "scan", "dataSource": "x"},
+              {"queryType": "timeBoundary", "dataSource": "x"},
+              {"queryType": "segmentMetadata", "dataSource": "x"}):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            QueryExecutor().run_json(q)
 
 
 def test_cuda_wrapper_refuses_cpu_tensors_without_building(monkeypatch):

@@ -343,6 +343,11 @@ def test_value_errors_match_reference(unsorted, j, where):
 
 
 def test_unported_filter_types_raise():
-    for t in ("spatial", "javascript"):
-        with pytest.raises(NotImplementedError):
-            port_filter_json({"type": t, "dimension": "dimA"})
+    """Spatial parses as the reference's; "javascript" has no JSON branch in
+    either package (a ValueError, as any unknown type)."""
+    j = {"type": "spatial", "dimension": "dimA",
+         "bound": {"type": "radius", "coords": [1.0, 2.0], "radius": 3.0}}
+    assert port_filter_json(j).to_json() == ref_filter_json(j).to_json()
+    for parse in (ref_filter_json, port_filter_json):
+        with pytest.raises(ValueError):
+            parse({"type": "javascript", "dimension": "dimA"})
