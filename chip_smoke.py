@@ -148,17 +148,38 @@ Phases, each fatal on failure:
      round-trips through to_json, runs cold and 3 times warm with its
      B1/B2 launches per run required (N1-N4 B1 x8, N5 B2 x8, the union B1
      x10, the rest none), and its rows hold against numpy.
-The device pool's snapshot is printed after phases 6-10, 12, 13 and 15; at
-the default budget none may show an eviction.
-`python3 chip_smoke.py batching` runs the build and phase 14 alone.
+ 16. the extension aggregators (druid_tpu_torch.ext, run after phase 15 on
+     its 8 headline segments, B1/B2 counts set to 0 before it and read
+     after it; both must stay 0): E1 an hourly timeseries with variance
+     (sample) and stddev, quantilesDoublesSketch(metFloat) with p50 and
+     p90/p99, timeMin and timeMax; E2 a groupBy on dimA with two filtered
+     thetaSketch(dimB) (metLong < 5000, metFloat > 100; shouldFinalize
+     false), their INTERSECT and estimates, and HLLSketchBuild(dimB, lgK
+     12) with HLLSketchToEstimate; E3 a topN of dimA by distinctCount(dimB),
+     threshold 10, with approxHistogram(metFloat, 0..200, 64) and its 0.95
+     quantile; E4 a groupBy on dimA under a bloom filter of 100 dimB values
+     (built here; its false positives over the dictionary counted) with a
+     bloom aggregator on dimB. Each runs cold and 3 times warm against
+     numpy (exact: counts, sketch states, minima, bits, estimates,
+     quantiles; variance and stddev within 1e-9 relative, its merged sums
+     within 1e-12 sum|v| and 1e-12 sum v^2), with its strategy per segment
+     (mixed), split_times, and each ext update's device time on segment 0
+     beside its bytes bound. E5, after phase 14 on its segments: E1 over
+     the 49 hourly segments, batched and alone, each against numpy and the
+     two against each other.
+The device pool's snapshot is printed after phases 6-10, 12, 13, 15 and
+16; at the default budget none may show an eviction.
+`python3 chip_smoke.py batching` runs the build and phase 14 alone;
+`python3 chip_smoke.py extensions` the build and phase 16 with E5.
 The line before the last is the kernels JSON line (each kernel's
 `launches` counted on phase 6's path, `launches_expressions` on phase
 12's, `launches_aggregators` on phase 13's, `launches_native_surface` on
-phase 15's); the last line is
+phase 15's, `launches_extensions` on phase 16's); the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -3564,11 +3585,12 @@ def run_batching_query(ex, name, q, segments, dev, check, batched):
                   **split_times(q, segments, dev)}
 
 
-def phase_batching(dev):
+def phase_batching(dev, extra=None):
     """B-ts, B-topN and B-gb over 48 hourly segments and a straggler,
     batched and alone, against numpy and each other; float bits, launches
     per stacked run at K = 16 and 32, and the pool under a budget of half
-    B-ts's resident bytes."""
+    B-ts's resident bytes. `extra(segments)`, when given, runs last on the
+    same segments; its result is out["extra"]."""
     import torch
     from druid_tpu_torch.data.devicepool import device_pool
     from druid_tpu_torch.engine import QueryExecutor, batching
@@ -3700,8 +3722,638 @@ def phase_batching(dev):
     launches = {"B1": sr.LAUNCHES, "B2": mk.LAUNCHES}
     if any(launches.values()):
         raise AssertionError(f"phase 14 launched B1/B2: {launches}")
+    if extra is not None:
+        log("phase extensions E5 (E1 on these segments)")
+        out["extra"] = extra(segments)
     del ex, segments
     torch.cuda.synchronize()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the extension aggregators
+# ---------------------------------------------------------------------------
+
+EXT_WARM = 3                         # warm runs a query (p50 of 3)
+BLOOM_VALUES = 100                   # dimB values E4's filter is built from
+THETA_SIZE = 4096
+QG_LOG = math.log(1.05)              # the quantiles sketch's log(gamma)
+QE = 512                             # its exponent range, +-QE
+QP = 2 * QE + 1                      # its buckets a sign
+QN = 2 * QP + 1                      # its buckets in all
+HIST = (0.0, 200.0, 64)              # E3's approxHistogram limits, buckets
+
+
+def np_bit_positions(value, m_bits, k=7):
+    """A bloom filter's k bit positions of a string: md5's two 64-bit
+    halves, double hashed (Kirsch-Mitzenmacher)."""
+    import hashlib
+    d = hashlib.md5(value.encode()).digest()
+    h1 = int.from_bytes(d[:8], "big")
+    h2 = int.from_bytes(d[8:], "big") | 1
+    return [(h1 + i * h2) % m_bits for i in range(k)]
+
+
+def np_bloom_m_bits(entries, fpp=0.01):
+    return max(64, int(np.ceil(-entries * np.log(fpp) / np.log(2) ** 2)))
+
+
+def np_theta_tables(values, size):
+    """(bucket, fraction) per string: the hash's uint64 remainder by
+    `size`, and its top 32 bits over 2^32 (at least 1e-12)."""
+    h = np_hash_strings(values)
+    frac = (h >> np.uint64(32)).astype(np.float64) / float(2 ** 32)
+    return (h % np.uint64(size)).astype(np.int64), np.maximum(frac, 1e-12)
+
+
+def np_theta_estimate(mins):
+    """The min-hash estimate: invert sum(mins) / B = (1 - e^-l) / l for l
+    by bisection; n = l * B (0 for an empty sketch)."""
+    b = float(len(mins))
+    r = float(mins.sum()) / b
+    if r >= 1.0 - 1e-12:
+        return 0.0
+    lo, hi = 1e-9, 1e9
+    for _ in range(100):
+        mid = (lo + hi) / 2 if hi < 1e8 else min(lo * 2, hi)
+        if (1.0 - np.exp(-mid)) / mid > r:
+            lo = mid
+        else:
+            hi = mid
+        if hi - lo < 1e-9 * max(1.0, lo):
+            break
+    return lo * b
+
+
+def np_theta_intersect(a, b):
+    """Jaccard of the non-empty buckets times the union's estimate."""
+    both = (a < 1.0) | (b < 1.0)
+    if not both.any():
+        return 0.0
+    jac = float(((a == b) & both).sum()) / float(both.sum())
+    return jac * np_theta_estimate(np.minimum(a, b))
+
+
+def np_theta_mins(presence, btab, ftab, size):
+    """[G, size] bucket minima of the ids present in each group (the state
+    depends only on the (group, id) pairs); 1.0 where none landed."""
+    g, ids = np.nonzero(presence)
+    mins = np.ones((presence.shape[0], size))
+    np.minimum.at(mins, (g, btab[ids]), ftab[ids])
+    return mins
+
+
+def np_quantile_bucket(x):
+    """The quantiles sketch's bucket of each float64: round(log|x| /
+    log gamma) half to even, clipped to +-QE, mirrored by sign; zero and
+    NaN in the middle bucket."""
+    with np.errstate(invalid="ignore", divide="ignore"):
+        idx = np.clip(np.rint(np.log(np.maximum(np.abs(x), 1e-300))
+                              / QG_LOG), -QE, QE)
+    idx = np.nan_to_num(idx).astype(np.int64)
+    return np.where(x > 0, QP + 1 + idx + QE,
+                    np.where(x < 0, QP - 1 - idx - QE, QP))
+
+
+def np_quantile_values():
+    exps = np.exp(np.arange(-QE, QE + 1) * QG_LOG)
+    out = np.zeros(QN)
+    out[QP + 1:] = exps
+    out[:QP] = -exps[::-1]
+    return out
+
+
+def np_sketch_quantile(counts, q):
+    total = counts.sum()
+    if total == 0:
+        return float("nan")
+    i = int(np.searchsorted(np.cumsum(counts), q * (total - 1),
+                            side="right"))
+    return float(np_quantile_values()[min(i, QN - 1)])
+
+
+def np_hist_bucket(x, lo, hi, b):
+    """trunc((x - lo) / width) clipped to the grid, NaN to bucket 0."""
+    q = np.nan_to_num((x - lo) / ((hi - lo) / b), nan=0.0)
+    return np.clip(np.clip(q, -1.0, float(b)).astype(np.int64), 0, b - 1)
+
+
+def np_hist_quantile(counts, mn, mx, lo, hi, q):
+    total = counts.sum()
+    if total == 0:
+        return float("nan")
+    b = len(counts)
+    width = (hi - lo) / b
+    target = q * total
+    cdf = np.concatenate([[0], np.cumsum(counts)])
+    i = max(1, min(int(np.searchsorted(cdf, target, side="left")), b))
+    prev, cur = cdf[i - 1], cdf[i]
+    frac = 0.0 if cur == prev else (target - prev) / (cur - prev)
+    return float(np.clip(lo + (i - 1 + frac) * width, mn, mx))
+
+
+def _fa(name):
+    return {"type": "fieldAccess", "fieldName": name}
+
+
+def bloom_filter_json(segments):
+    """E4's filter: a bloom filter of BLOOM_VALUES dimB values (every
+    tenth of the dictionary), serialized as the bloom extension does."""
+    import base64
+    vals = segments[0].dims["dimB"].dictionary.values[::10][:BLOOM_VALUES]
+    m = np_bloom_m_bits(BLOOM_VALUES)
+    bits = np.zeros(m, np.uint8)
+    for v in vals:
+        bits[np_bit_positions(v, m)] = 1
+    return {"type": "bloom", "dimension": "dimB", "mBits": m,
+            "bloomKFilter": base64.b64encode(np.packbits(bits).tobytes())
+            .decode()}, bits, vals
+
+
+def e1_query(iv, ds):
+    """E1: the percentile-latency panel, hourly."""
+    return {"queryType": "timeseries", "dataSource": ds, "intervals": [iv],
+            "granularity": "hour", "aggregations": [
+                {"type": "count", "name": "rows"},
+                {"type": "variance", "name": "var", "fieldName": "metFloat",
+                 "estimator": "sample"},
+                {"type": "quantilesDoublesSketch", "name": "qs",
+                 "fieldName": "metFloat"},
+                {"type": "timeMin", "name": "tmin"},
+                {"type": "timeMax", "name": "tmax"}],
+            "postAggregations": [
+                {"type": "stddev", "name": "sd", "fieldName": "var"},
+                {"type": "quantilesDoublesSketchToQuantile", "name": "p50",
+                 "field": _fa("qs"), "fraction": 0.5},
+                {"type": "quantilesDoublesSketchToQuantiles", "name": "ps",
+                 "field": _fa("qs"), "fractions": [0.9, 0.99]}]}
+
+
+def extension_queries(segments):
+    iv = f"{DAY[0]}/{DAY[1]}"
+    base = {"dataSource": "bench", "intervals": [iv], "granularity": "all"}
+
+    def theta(name, flt):
+        return {"type": "filtered", "name": name, "filter": flt,
+                "aggregator": {"type": "thetaSketch", "name": name,
+                               "fieldName": "dimB", "size": THETA_SIZE,
+                               "shouldFinalize": False}}
+    e2 = dict(base, queryType="groupBy", dimensions=["dimA"], aggregations=[
+        {"type": "count", "name": "rows"},
+        theta("lo", {"type": "bound", "dimension": "metLong",
+                     "upper": "5000", "upperStrict": True,
+                     "ordering": "numeric"}),
+        theta("hi", {"type": "bound", "dimension": "metFloat",
+                     "lower": "100", "lowerStrict": True,
+                     "ordering": "numeric"}),
+        {"type": "HLLSketchBuild", "name": "u", "fieldName": "dimB",
+         "lgK": 12}],
+        postAggregations=[
+            {"type": "thetaSketchSetOp", "name": "both", "func": "INTERSECT",
+             "fields": [_fa("lo"), _fa("hi")]},
+            {"type": "thetaSketchEstimate", "name": "loe", "field": _fa("lo")},
+            {"type": "thetaSketchEstimate", "name": "hie", "field": _fa("hi")},
+            {"type": "HLLSketchToEstimate", "name": "ue", "field": _fa("u")}])
+    e3 = dict(base, queryType="topN", dimension="dimA", metric="dc",
+              threshold=10, aggregations=[
+                  {"type": "count", "name": "rows"},
+                  {"type": "distinctCount", "name": "dc", "fieldName": "dimB"},
+                  {"type": "approxHistogram", "name": "h",
+                   "fieldName": "metFloat", "lowerLimit": HIST[0],
+                   "upperLimit": HIST[1], "numBuckets": HIST[2]}],
+              postAggregations=[{"type": "quantile", "name": "h95",
+                                 "field": _fa("h"), "probability": 0.95}])
+    e4 = dict(base, queryType="groupBy", dimensions=["dimA"],
+              filter=bloom_filter_json(segments)[0], aggregations=[
+                  {"type": "count", "name": "rows"},
+                  {"type": "bloom", "name": "b", "fieldName": "dimB"}])
+    return {"e1": e1_query(iv, "bench"), "e2": e2, "e3": e3, "e4": e4}
+
+
+def _hourly_e1(segments, t_start, n_buckets):
+    """E1's numpy result over `segments`: per hour bucket from t_start,
+    the row count, n / sum / sumsq (and sum|v|, sum v^2 for the bounds),
+    quantile-sketch counts, and the time min and max."""
+    acc = {"rows": np.zeros(n_buckets, np.int64),
+           "sum": np.zeros(n_buckets), "abs": np.zeros(n_buckets),
+           "sumsq": np.zeros(n_buckets),
+           "qs": np.zeros((n_buckets, QN), np.int64),
+           "tmin": np.full(n_buckets, np.iinfo(np.int64).max),
+           "tmax": np.full(n_buckets, np.iinfo(np.int64).min)}
+    for s in segments:
+        h = (s.time_ms - t_start) // HOUR_MS
+        x = s.metrics["metFloat"].values.astype(np.float64)
+        acc["rows"] += np.bincount(h, minlength=n_buckets)
+        acc["sum"] += np.bincount(h, x, n_buckets)
+        acc["abs"] += np.bincount(h, np.abs(x), n_buckets)
+        acc["sumsq"] += np.bincount(h, x * x, n_buckets)
+        acc["qs"] += np.bincount(h * QN + np_quantile_bucket(x),
+                                 minlength=n_buckets * QN).reshape(-1, QN)
+        np.minimum.at(acc["tmin"], h, s.time_ms)
+        np.maximum.at(acc["tmax"], h, s.time_ms)
+    n = acc["rows"].astype(np.float64)
+    acc["var"] = np.where(n > 0, np.maximum(
+        acc["sumsq"] - acc["sum"] ** 2 / np.maximum(n, 1.0), 0.0)
+        / np.maximum(n - 1.0, 1.0), 0.0)
+    return acc
+
+
+def extension_reference(segments):
+    """Independent numpy results for E1-E4 (dictionaries shared by the
+    segments, as the generator makes them)."""
+    dim_a = segments[0].dims["dimA"].dictionary.values
+    dim_b = segments[0].dims["dimB"].dictionary.values
+    for s in segments:
+        if s.dims["dimA"].dictionary.values != dim_a \
+                or s.dims["dimB"].dictionary.values != dim_b:
+            raise AssertionError("extensions: segments' dictionaries differ")
+    ga, gb = len(dim_a), len(dim_b)
+    ref = {"e1": _hourly_e1(segments, segments[0].interval.start, 24)}
+    _, fbits, fvals = bloom_filter_json(segments)
+    fm = len(fbits)
+    passes = np.asarray([bool(fbits[np_bit_positions(v, fm)].all())
+                         for v in dim_b])
+    agg_m = np_bloom_m_bits(1500)
+    lo_p = np.zeros((ga, gb), bool)
+    hi_p = np.zeros((ga, gb), bool)
+    all_p = np.zeros((ga, gb), bool)
+    bl_p = np.zeros((ga, gb), bool)
+    dc = np.zeros(ga, np.int64)
+    rows = np.zeros(ga, np.int64)
+    bl_rows = np.zeros(ga, np.int64)
+    hcounts = np.zeros((ga, HIST[2]), np.int64)
+    hmin = np.full(ga, np.finfo(np.float64).max)
+    hmax = np.full(ga, -np.finfo(np.float64).max)
+    for s in segments:
+        a, b = s.dims["dimA"].ids.astype(np.int64), \
+            s.dims["dimB"].ids.astype(np.int64)
+        pair = a * gb + b
+        ml = s.metrics["metLong"].values
+        x = s.metrics["metFloat"].values.astype(np.float64)
+        seg_p = np.bincount(pair, minlength=ga * gb).reshape(ga, gb) > 0
+        all_p |= seg_p
+        dc += seg_p.sum(1)
+        rows += np.bincount(a, minlength=ga)
+        lo_p |= np.bincount(pair[ml < 5000], minlength=ga * gb) \
+            .reshape(ga, gb) > 0
+        # metFloat > 100 compares the float32 value with 100 (exact)
+        hi_p |= np.bincount(pair[s.metrics["metFloat"].values > 100],
+                            minlength=ga * gb).reshape(ga, gb) > 0
+        keep = passes[b]
+        bl_p |= np.bincount(pair[keep], minlength=ga * gb) \
+            .reshape(ga, gb) > 0
+        bl_rows += np.bincount(a[keep], minlength=ga)
+        hcounts += np.bincount(a * HIST[2] + np_hist_bucket(x, *HIST),
+                               minlength=ga * HIST[2]).reshape(ga, -1)
+        np.minimum.at(hmin, a, x)
+        np.maximum.at(hmax, a, x)
+    btab, ftab = np_theta_tables(dim_b, THETA_SIZE)
+    reg, rho = np_register_table(np_hash_strings(dim_b), HLL_LOG2M)
+    g, ids = np.nonzero(all_p)
+    regs = np_registers(g, reg[ids], rho[ids], ga, HLL_LOG2M)
+    ref["e2"] = {"rows": rows,
+                 "lo": np_theta_mins(lo_p, btab, ftab, THETA_SIZE),
+                 "hi": np_theta_mins(hi_p, btab, ftab, THETA_SIZE),
+                 "u": np_estimate(regs, HLL_LOG2M)}
+    ref["e3"] = {"rows": rows, "dc": dc, "counts": hcounts, "min": hmin,
+                 "max": hmax}
+    pos = np.asarray([np_bit_positions(v, agg_m) for v in dim_b])
+    bits = np.zeros((ga, agg_m), np.uint8)
+    g, ids = np.nonzero(bl_p)
+    bits[g[:, None], pos[ids]] = 1
+    ref["e4"] = {"rows": bl_rows, "bits": bits, "passes": int(passes.sum()),
+                 "false_positives": int(passes.sum()) - len(fvals),
+                 "m_bits": agg_m}
+    return ref
+
+
+def _close_rel(got, want, rel, what):
+    if not abs(got - want) <= rel * abs(want):
+        raise AssertionError(f"{what}: {got} against {want} (rel {rel})")
+
+
+def check_e1(rows, want, states=None, tag="e1"):
+    """Counts, quantile counts, time min/max and the quantiles exact;
+    variance and stddev within 1e-9 relative; with the merged states, n
+    exact and sum / sumsq within 1e-12 sum|v| and 1e-12 sum v^2."""
+    live = np.flatnonzero(want["rows"])
+    if len(rows) != len(live):
+        raise AssertionError(f"{tag}: {len(rows)} buckets, want {len(live)}")
+    for row, i in zip(rows, live):
+        r = row["result"]
+        c = want["qs"][i]
+        exact = {"rows": int(want["rows"][i]), "tmin": int(want["tmin"][i]),
+                 "tmax": int(want["tmax"][i]),
+                 "p50": np_sketch_quantile(c, 0.5),
+                 "ps": [np_sketch_quantile(c, q) for q in (0.9, 0.99)]}
+        for k, v in exact.items():
+            if r[k] != v:
+                raise AssertionError(f"{tag} bucket {i}: {k} {r[k]} != {v}")
+        if not np.array_equal(r["qs"].counts, c):
+            raise AssertionError(f"{tag} bucket {i}: quantile counts differ")
+        _close_rel(r["var"], want["var"][i], 1e-9, f"{tag} {i} var")
+        _close_rel(r["sd"], np.sqrt(want["var"][i]), 1e-9, f"{tag} {i} sd")
+    if states is not None:
+        buckets, _, _, st, _ = states
+        v = st["var"]
+        idx = np.asarray(buckets, dtype=np.int64)
+        if not np.array_equal(v["n"], want["rows"][idx]):
+            raise AssertionError(f"{tag}: variance n differs")
+        if not (np.all(np.abs(v["sum"] - want["sum"][idx])
+                       <= 1e-12 * want["abs"][idx])
+                and np.all(np.abs(v["sumsq"] - want["sumsq"][idx])
+                           <= 1e-12 * want["sumsq"][idx])):
+            raise AssertionError(f"{tag}: variance sums past the bound")
+
+
+def _by_dim_a(rows):
+    return {int(r["event"]["dimA"][1:]): r["event"] for r in rows}
+
+
+def check_e2(rows, ref):
+    want = ref["e2"]
+    got = _by_dim_a(rows)
+    if sorted(got) != list(np.flatnonzero(want["rows"])):
+        raise AssertionError(f"e2: groups {sorted(got)[:5]}...")
+    for g, ev in got.items():
+        lo, hi = want["lo"][g], want["hi"][g]
+        if ev["rows"] != want["rows"][g]:
+            raise AssertionError(f"e2 {g}: rows")
+        if not (np.array_equal(ev["lo"].mins, lo)
+                and np.array_equal(ev["hi"].mins, hi)):
+            raise AssertionError(f"e2 {g}: theta bucket minima differ")
+        exact = {"loe": np_theta_estimate(lo), "hie": np_theta_estimate(hi),
+                 "both": np_theta_intersect(lo, hi), "u": want["u"][g],
+                 "ue": float(want["u"][g])}
+        for k, v in exact.items():
+            if ev[k] != v:
+                raise AssertionError(f"e2 {g}: {k} {ev[k]} != {v}")
+
+
+def check_e3(rows, ref):
+    want = ref["e3"]
+    order = np.argsort(-want["dc"].astype(np.float64), kind="stable")[:10]
+    res = rows[0]["result"] if len(rows) == 1 else None
+    if res is None or [int(e["dimA"][1:]) for e in res] != list(order):
+        raise AssertionError(f"e3: top 10 {res and [e['dimA'] for e in res]}"
+                             f", want ids {list(order)}")
+    for e, g in zip(res, order):
+        h = e["h"]
+        q95 = np_hist_quantile(want["counts"][g], want["min"][g],
+                               want["max"][g], HIST[0], HIST[1], 0.95)
+        if not (e["dc"] == want["dc"][g] and e["rows"] == want["rows"][g]
+                and np.array_equal(h.counts, want["counts"][g])
+                and h.min == want["min"][g] and h.max == want["max"][g]
+                and e["h95"] == q95):
+            raise AssertionError(f"e3 {g}: dc {e['dc']}/{want['dc'][g]}, "
+                                 f"h95 {e['h95']}/{q95}")
+
+
+def check_e4(rows, ref):
+    want = ref["e4"]
+    got = _by_dim_a(rows)
+    if sorted(got) != list(np.flatnonzero(want["rows"])):
+        raise AssertionError("e4: groups differ")
+    for g, ev in got.items():
+        if ev["rows"] != want["rows"][g] \
+                or not np.array_equal(ev["b"].bits, want["bits"][g]):
+            raise AssertionError(f"e4 {g}: rows or bloom bits differ")
+
+
+EXT_CHECKS = {"e1": lambda rows, ref, st=None: check_e1(rows, ref["e1"], st),
+              "e2": lambda rows, ref, st=None: check_e2(rows, ref),
+              "e3": lambda rows, ref, st=None: check_e3(rows, ref),
+              "e4": lambda rows, ref, st=None: check_e4(rows, ref)}
+
+
+class ExtCapture:
+    """Keeps, while active, the first `update` call's inputs of each
+    extension kernel (and HllKernel, HLLSketchBuild's) by aggregator name:
+    segment 0's, since the headline segments run one at a time."""
+
+    def __enter__(self):
+        from druid_tpu_torch.engine import kernels
+        from druid_tpu_torch.ext import (bloom, distinctcount, histogram,
+                                         sketches, stats, time_minmax)
+        self.classes = [time_minmax.TimeMinMaxKernel, stats.VarianceKernel,
+                        sketches.QuantilesKernel, sketches.ThetaKernel,
+                        histogram.HistogramKernel,
+                        distinctcount.DistinctCountKernel, bloom.BloomKernel,
+                        kernels.HllKernel]
+        self.orig = {c: c.update for c in self.classes}
+        self.first = {}
+
+        def wrap(orig):
+            def update(k, cols, mask, keys, num):
+                self.first.setdefault(k.name, (k, cols, mask, keys, num))
+                return orig(k, cols, mask, keys, num)
+            return update
+        for c in self.classes:
+            c.update = wrap(self.orig[c])
+        return self
+
+    def __exit__(self, *exc):
+        for c, f in self.orig.items():
+            c.update = f
+
+
+def _nbytes(state):
+    if isinstance(state, tuple):
+        return sum(_nbytes(s) for s in state)
+    return state.numel() * state.element_size()
+
+
+def ext_update_time(cap):
+    """One ext update on segment 0: CUDA-event ms, torch.profiler device
+    ms by kernel, and the bytes bound: the columns it reads, the mask and
+    the keys read once, its state written once, at the HBM rate. Also its
+    CUDA-event ms with the contended scatters' grid copies capped at 64
+    (`SCATTER_CELLS` 0) and with none (one copy)."""
+    from druid_tpu_torch.engine import kernels
+    k, cols, mask, keys, num = cap
+    saved = (kernels.SCATTER_COPIES, kernels.SCATTER_CELLS)
+    copies = {}
+    try:
+        for tag, setting in (("copies64_ms", (64, 0)),
+                             ("one_copy_ms", (1, 0))):
+            kernels.SCATTER_COPIES, kernels.SCATTER_CELLS = setting
+            copies[tag] = cuda_ms(lambda: k.update(cols, mask, keys, num), 5)
+    finally:
+        kernels.SCATTER_COPIES, kernels.SCATTER_CELLS = saved
+    fields = getattr(k, "fields", None) or (getattr(k, "field", None),)
+    names = {"__time_offset" if f in (None, "__time") else f for f in fields}
+    nbytes = sum(cols[f].numel() * cols[f].element_size() for f in names
+                 if f in cols) + mask.numel() \
+        + keys.numel() * keys.element_size() \
+        + _nbytes(k.update(cols, mask, keys, num))
+    by = device_split(lambda: k.update(cols, mask, keys, num), reps=3,
+                      top=20)
+    return {"kernel": type(k).__name__, "ms": cuda_ms(
+                lambda: k.update(cols, mask, keys, num), 5),
+            "device_ms": sum(by.values()), "device_by_kernel": by,
+            "rows": int(mask.shape[0]), "groups": num, "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, **copies}
+
+
+def run_ext_query(ex, name, q, segs, dev, check, timing=True):
+    """One E-query: a cold run (rows and merged states against numpy, the
+    strategy of every segment), EXT_WARM warm runs (rows checked after the
+    last), B1/B2 launches (none) and split_times."""
+    import torch
+    from druid_tpu_torch.engine import batching
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    base = (sr.LAUNCHES, mk.LAUNCHES)
+    before = batching.stats().snapshot()
+    t = time.perf_counter()
+    with StrategyLog() as slog, MergeLog() as mlog:
+        rows = ex.run_json(q)
+        torch.cuda.synchronize()
+    cold = time.perf_counter() - t
+    after = batching.stats().snapshot()
+    check(rows, mlog.first)
+    if slog.names() != ["mixed"] * len(segs):
+        raise AssertionError(f"{name}: strategies {slog.strategies}")
+    warm = []
+    for _ in range(EXT_WARM):
+        t = time.perf_counter()
+        rows = ex.run_json(q)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t) * 1e3)
+    check(rows)
+    launches = (sr.LAUNCHES - base[0], mk.LAUNCHES - base[1])
+    if any(launches):
+        raise AssertionError(f"{name}: launched (B1, B2) {launches}")
+    res = {"segments": len(segs), "cold_s": cold, "warm_ms": warm,
+           "p50_ms": float(np.median(warm)), "result_rows": len(rows),
+           "strategies": sorted(set(slog.names())),
+           "b1_b2_launches": list(launches),
+           "stacked_runs": after["batches"] - before["batches"],
+           "stacked_segments": after["batchedSegments"]
+           - before["batchedSegments"]}
+    if timing:
+        res.update(split_times(q, segs, dev))
+    return rows, res
+
+
+def check_edge_buckets(dev):
+    """The histogram's and the quantiles sketch's buckets of edge values on
+    the card against numpy: NaN, +-inf, past int32, subnormal, zeros."""
+    import torch
+    from druid_tpu_torch.ext import histogram, sketches
+    x = np.asarray([np.nan, np.inf, -np.inf, 1e14, -1e14, 3e9, -3e9, -0.5,
+                    -1.0, 63.99, 64.0, 0.0, -0.0, 1e-320, -1e-320, 1e300])
+    t = torch.from_numpy(x).to(dev)
+    hist = histogram.bucket_of(t, 0.0, 1.0, 64).cpu().numpy()
+    quant = sketches.quantile_bucket(t).cpu().numpy()
+    with np.errstate(invalid="ignore"):
+        want_h = np_hist_bucket(x, 0.0, 64.0, 64)
+    if not (np.array_equal(hist, want_h)
+            and np.array_equal(quant, np_quantile_bucket(x))):
+        raise AssertionError(f"edge buckets: histogram {hist.tolist()}, "
+                             f"quantiles {quant.tolist()}")
+    return {"histogram": hist.tolist(), "quantiles": quant.tolist()}
+
+
+def phase_extensions(dev, segments):
+    """E1-E4 on the 8 headline segments, each against numpy, with each ext
+    update's device time on segment 0 beside its bytes bound. Returns
+    (report, {"B1": launches, "B2": launches})."""
+    import torch
+    import druid_tpu_torch.ext  # noqa: F401  (registers the extensions)
+    from druid_tpu_torch.engine import QueryExecutor
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    t_phase = time.perf_counter()
+    ref = extension_reference(segments)
+    out = {"oracle_s": time.perf_counter() - t_phase,
+           "bloom_filter": {"values": BLOOM_VALUES,
+                            "passing_values": ref["e4"]["passes"],
+                            "false_positives": ref["e4"]["false_positives"]}}
+    log(f"  numpy results for E1-E4: {out['oracle_s']:.1f} s; E4's bloom "
+        f"filter passes {ref['e4']['passes']} dimB values "
+        f"({ref['e4']['false_positives']} false positives)")
+    out["edge_buckets"] = check_edge_buckets(dev)
+    log(f"  edge buckets on the card equal numpy's: histogram "
+        f"{out['edge_buckets']['histogram']}, quantiles "
+        f"{out['edge_buckets']['quantiles']}")
+    ex = QueryExecutor(segments, device=dev)
+    base = (sr.LAUNCHES, mk.LAUNCHES)
+    sr.LAUNCHES = mk.LAUNCHES = 0
+    for name, q in extension_queries(segments).items():
+        with ExtCapture() as cap:
+            rows, res = run_ext_query(
+                ex, name, q, segments, dev,
+                lambda r, st=None, n=name: EXT_CHECKS[n](r, ref, st))
+        res["updates_segment0"] = {
+            agg: ext_update_time(c) for agg, c in cap.first.items()}
+        sp = res["device_split_segment0"] = query_device_split(
+            q, segments[0], dev)
+        out[name] = res
+        log(f"  {name}: ok on {len(segments)} segments, "
+            f"{res['result_rows']} rows, strategies {res['strategies']}, "
+            f"(B1, B2) launches {res['b1_b2_launches']}, cold "
+            f"{res['cold_s']:.2f} s, warm p50 {res['p50_ms']:.1f} ms, "
+            f"partials {res['partials_ms']:.1f} ms, merge+finish "
+            f"{res['finish_ms']:.1f} ms; segment 0 alone: device "
+            f"{sp['device_ms']:.3f} ms a run (torch.profiler); largest: "
+            + ", ".join(f"{k[:50]} {v:.3f}" for k, v in sp["top"].items()))
+        for agg, u in res["updates_segment0"].items():
+            log(f"    {agg} ({u['kernel']}) on segment 0 ({u['rows']} rows, "
+                f"G = {u['groups']}): {u['ms']:.3f} ms (CUDA events; "
+                f"{u['copies64_ms']:.3f} with at most 64 grid copies, "
+                f"{u['one_copy_ms']:.3f} with one), "
+                f"device {u['device_ms']:.3f} ms, bound {u['bound_ms']:.4f} "
+                f"ms ({u['bytes']} B); " + ", ".join(
+                    f"{k[:40]} {v:.3f}" for k, v in
+                    list(u["device_by_kernel"].items())[:3]))
+    launches = {"B1": sr.LAUNCHES, "B2": mk.LAUNCHES}
+    sr.LAUNCHES, mk.LAUNCHES = base
+    if any(launches.values()):
+        raise AssertionError(f"extensions launched B1/B2: {launches}")
+    del ex
+    torch.cuda.synchronize()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase extensions took {out['phase_s']:.1f} s")
+    return out, launches
+
+
+def phase_extensions_e5(dev, segments):
+    """E5: E1 over phase 14's hourly segments, batched and alone, each
+    against numpy and the two against each other."""
+    import druid_tpu_torch.ext  # noqa: F401  (registers the extensions)
+    from druid_tpu_torch.engine import QueryExecutor
+    from druid_tpu_torch.utils.intervals import Interval
+    t = time.perf_counter()
+    iv = Interval.parse(BATCH_IV)
+    want = _hourly_e1(segments, iv.start, BATCH_HOURS + 1)
+    out = {"oracle_s": time.perf_counter() - t}
+    q = e1_query(BATCH_IV, "hourly")
+    ex = QueryExecutor(segments, device=dev)
+    rows = {}
+    for tag, batched in (("batched", True), ("alone", False)):
+        qq = dict(q, context={"batchSegments": batched})
+        rows[tag], res = run_ext_query(
+            ex, f"e5 {tag}", qq, segments, dev,
+            lambda r, st=None, tg=tag: check_e1(r, want, st, f"e5 {tg}"))
+        if batched != (res["stacked_segments"] > 0):
+            raise AssertionError(f"e5 {tag}: {res['stacked_segments']} "
+                                 f"segments ran batched")
+        out[tag] = res
+        log(f"  e5 {tag}: ok on {len(segments)} segments, "
+            f"{res['result_rows']} rows, {res['stacked_runs']} stacked runs "
+            f"a query ({res['stacked_segments']} segments), cold "
+            f"{res['cold_s']:.2f} s, warm p50 {res['p50_ms']:.1f} ms, "
+            f"partials {res['partials_ms']:.1f} ms, merge+finish "
+            f"{res['finish_ms']:.1f} ms")
+    for a, b in zip(rows["batched"], rows["alone"]):
+        ra, rb = a["result"], b["result"]
+        for k in ("rows", "tmin", "tmax", "p50", "ps"):
+            if ra[k] != rb[k]:
+                raise AssertionError(f"e5: batched and alone differ in {k}")
+        if not np.array_equal(ra["qs"].counts, rb["qs"].counts):
+            raise AssertionError("e5: batched and alone counts differ")
+        _close_rel(ra["var"], rb["var"], 1e-9, "e5 batched/alone var")
     return out
 
 
@@ -3745,6 +4397,18 @@ def main():
         log("phase batching and the pool")
         phase_batching(dev)
         return 0
+    if sys.argv[1:] == ["extensions"]:
+        # the build and phase 16 alone, E5 on phase 14's segments made here
+        # (a quicker check of that phase; its numbers are in the log)
+        log("phase extensions (E1-E4), the 8 headline segments")
+        ext, _ = phase_extensions(dev, headline_segments())
+        log("phase extensions E5 (E1 on phase 14's hourly segments)")
+        ext["e5"] = phase_extensions_e5(dev, hourly_segments())
+        os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(root, "chiprun_out",
+                               "chip_smoke_extensions.json"), "w") as f:
+            json.dump(ext, f, indent=1, default=float)
+        return 0
 
     log("phase B1 parity, synthetic projections")
     b1 = phase_b1(dev)
@@ -3780,6 +4444,10 @@ def main():
     report["native_surface"], native_launches = phase_native(
         dev, segments, qs, ref)
     pools["native_surface"] = pool_snapshot("native surface")
+
+    log("phase extensions (E1-E4), the 8 headline segments")
+    report["extensions"], ext_launches = phase_extensions(dev, segments)
+    pools["extensions"] = pool_snapshot("extensions")
     del segments, captured, ref
 
     log(f"phase sorted, {SORTED_SEGMENTS} segments in the rollup order")
@@ -3808,7 +4476,9 @@ def main():
     log(f"phase batching and the pool ({BATCH_HOURS} hourly segments and a "
         f"straggler)")
     t = time.perf_counter()
-    report["batching"] = phase_batching(dev)
+    report["batching"] = phase_batching(
+        dev, extra=lambda segs: phase_extensions_e5(dev, segs))
+    report["extensions"]["e5"] = report["batching"].pop("extra")
     report["batching"]["phase_s"] = time.perf_counter() - t
     log(f"  phase 14 took {report['batching']['phase_s']:.1f} s")
     sr.LAUNCHES, mk.LAUNCHES = saved
@@ -3862,6 +4532,7 @@ def main():
             "launches_expressions": expr_launches[which],
             "launches_aggregators": aggr_launches[which],
             "launches_native_surface": native_launches[which],
+            "launches_extensions": ext_launches[which],
             "max_abs_err": max(err, parity["max_abs_err"],
                                report["packed_parity"]["max_abs_err"],
                                expr_errs[which]),

@@ -1177,5 +1177,6 @@ def fuse_filter_update_stacked(arrays: Dict[str, torch.Tensor],
             continue
         cols, fmask, fkey = flattened()
         states.append(_unstack_state(
-            k.update(cols, fmask, fkey, K * num_total), K, num_total))
+            k.update_stacked(cols, fmask, fkey, K, num_total), K,
+            num_total))
     return counts, tuple(states)

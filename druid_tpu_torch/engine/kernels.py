@@ -15,7 +15,11 @@ the blocked and windowed strategies (engine/grouping.py), and `mm_plan` the
 one-hot matmul of the mm strategy (engine/mmagg.py). Every eligibility rule
 is the reference's, so both packages choose the same strategy for the same
 plan: a first/last, filtered or HLL kernel has neither an mm plan nor a
-blocked step, so a plan holding one is "mixed".
+blocked step, so a plan holding one is "mixed". Extension kernels
+(druid_tpu_torch/ext/) register by spec class through `register_kernel`;
+`make_kernel` looks the exact class up first, as in the reference. They
+build on `_seg_sum`, `_seg_min` and `_seg_max`, the port's
+segment_sum/min/max.
 """
 from __future__ import annotations
 
@@ -88,6 +92,14 @@ class AggKernel:
                keys: torch.Tensor, num: int) -> torch.Tensor:
         """Per-group partial state [num]; `keys` int64 in [0, num)."""
         raise NotImplementedError
+
+    def update_stacked(self, cols: Dict[str, torch.Tensor],
+                       mask: torch.Tensor, keys: torch.Tensor, K: int,
+                       num: int):
+        """`update` over the rows of K stacked segments, flattened, with
+        segment k's keys offset by k * num: the state of K * num groups.
+        A kernel whose limits are per segment checks them against `num`."""
+        return self.update(cols, mask, keys, K * num)
 
     def filter_trees(self) -> List[FilterNode]:
         """The planned filter trees this kernel owns (a FilteredKernel
@@ -503,25 +515,88 @@ class MinMaxKernel(AggKernel):
         return np.full(n, self.identity, dtype=dt)
 
 
-#: copies of the grid a first/last scatter-max/min writes: row r updates
-#: copy r % SCATTER_COPIES, so the rows of one group spread over that many
-#: addresses instead of contending for one, and the copies reduce after
+#: copies of the grid a contended scatter writes: at most SCATTER_COPIES,
+#: or as many as fill SCATTER_CELLS cells where the groups are few
 SCATTER_COPIES = 64
+SCATTER_CELLS = 1 << 18
+
+
+def _copies(rows: int, num: int) -> int:
+    """Copies of a [num] grid that a scatter of `rows` rows writes: row r
+    updates copy r % copies, so the rows of one group spread over that
+    many addresses instead of contending for one, and the copies reduce
+    after. Never more copies than rows per group."""
+    num = max(num, 1)
+    return max(1, min(rows // num, max(SCATTER_COPIES,
+                                       SCATTER_CELLS // num)))
+
+
+def _spread(keys: torch.Tensor, num: int, copies: int) -> torch.Tensor:
+    """Each row's cell in `copies` stacked copies of a [num] grid."""
+    if copies == 1:
+        return keys
+    return keys + torch.arange(keys.shape[0], device=keys.device) \
+        % copies * num
 
 
 def _seg_reduce(values: torch.Tensor, keys: torch.Tensor, num: int,
                 red: str) -> torch.Tensor:
     """Per-group max ("amax") or min ("amin") over the rows, as
     jax.ops.segment_max/min: a group without rows holds the dtype's least
-    (max) or greatest (min) value."""
-    info = torch.iinfo(values.dtype)
-    copies = SCATTER_COPIES
-    cell = keys + torch.arange(keys.shape[0], device=keys.device) \
-        % copies * num
-    out = torch.full((copies * num,), info.min if red == "amax" else info.max,
-                     dtype=values.dtype, device=values.device)
-    out = out.scatter_reduce_(0, cell, values, red).view(copies, num)
+    (max) or greatest (min) value, -inf or +inf for a float. Scattered
+    into `_copies` copies of the grid, then reduced."""
+    if values.dtype.is_floating_point:
+        ident = -float("inf") if red == "amax" else float("inf")
+    else:
+        info = torch.iinfo(values.dtype)
+        ident = info.min if red == "amax" else info.max
+    copies = _copies(keys.shape[0], num)
+    out = torch.full((copies * num,), ident, dtype=values.dtype,
+                     device=values.device)
+    out = out.scatter_reduce_(0, _spread(keys, num, copies), values, red) \
+        .view(copies, num)
     return out.amax(0) if red == "amax" else out.amin(0)
+
+
+def _seg_max(values: torch.Tensor, keys: torch.Tensor,
+             num: int) -> torch.Tensor:
+    return _seg_reduce(values, keys, num, "amax")
+
+
+def _seg_min(values: torch.Tensor, keys: torch.Tensor,
+             num: int) -> torch.Tensor:
+    return _seg_reduce(values, keys, num, "amin")
+
+
+def _seg_sum(values: torch.Tensor, keys: torch.Tensor,
+             num: int) -> torch.Tensor:
+    """Per-group sums in the values' dtype, as jax.ops.segment_sum:
+    `index_add_` into `_copies` copies of the grid, then summed. Integer
+    sums are exact; a float sum's order of additions is not fixed either
+    way."""
+    copies = _copies(keys.shape[0], num)
+    out = torch.zeros(copies * num, dtype=values.dtype,
+                      device=values.device)
+    out = out.index_add_(0, _spread(keys, num, copies), values)
+    return out.view(copies, num).sum(0, dtype=values.dtype)
+
+
+#: cells past a presence grid that masked rows write instead of the grid,
+#: so that no one address takes every masked row's store
+SPARE_CELLS = 1024
+
+
+def _presence(cell: torch.Tensor, mask: torch.Tensor, cells: int,
+              dtype: torch.dtype) -> torch.Tensor:
+    """A [cells] grid of 0 and 1 in `dtype`: 1 where a live row's `cell`
+    (int64, any shape; `mask` broadcasts to it) points. Every write is a 1,
+    so no order of writes changes the grid; a masked row writes one of
+    SPARE_CELLS cells past it instead, chosen by the row's position."""
+    spare = cells + torch.arange(cell.numel(), device=cell.device) \
+        .view(cell.shape) % SPARE_CELLS
+    idx = torch.where(mask, cell, spare).flatten()
+    return torch.zeros(cells + SPARE_CELLS, dtype=dtype,
+                       device=cell.device).index_fill_(0, idx, 1)[:cells]
 
 
 class FirstLastKernel(AggKernel):
@@ -776,12 +851,23 @@ class HllKernel(AggKernel):
         return est
 
 
+# extension kernels: spec class -> factory(spec, segment)
+_EXTENSION_KERNELS: Dict[type, Callable] = {}
+
+
+def register_kernel(spec_cls: type, factory: Callable) -> None:
+    _EXTENSION_KERNELS[spec_cls] = factory
+
+
 def make_kernel(spec: A.AggregatorSpec, segment: Segment,
                 device_bitmap: Optional[bool] = None) -> AggKernel:
     """`device_bitmap` plans a filtered aggregator's filter: None follows
     the process default (filters.device_bitmap_enabled), so its
     bitmap-eligible subtrees read staged or fused words like the query
     filter's."""
+    factory = _EXTENSION_KERNELS.get(type(spec))
+    if factory is not None:
+        return factory(spec, segment)
     if isinstance(spec, A.CountAggregator):
         return CountKernel(spec)
     sums = {A.LongSumAggregator: ValueType.LONG,

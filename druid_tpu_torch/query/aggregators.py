@@ -2,10 +2,10 @@
 
 The port's copy of the reference package's `query/aggregators.py`: count,
 the long/double/float sum, min, max, first and last, filtered, hyperUnique
-and cardinality. An unknown type raises ValueError, as in the reference;
-the extension registry is not ported. `to_json` gives the reference's wire
-form. The device side of each spec is an
-AggKernel in engine/kernels.py.
+and cardinality, and the extension registry that `druid_tpu_torch.ext`
+fills (consulted first, as in the reference). An unknown type raises
+ValueError, as in the reference. `to_json` gives the reference's wire
+form. The device side of each spec is an AggKernel in engine/kernels.py.
 """
 from __future__ import annotations
 
@@ -181,8 +181,18 @@ class CardinalityAggregator(AggregatorSpec):
                 "log2m": self.log2m, "round": self.round}
 
 
+# extension aggregator types: type name -> from_json (druid_tpu_torch/ext/)
+_EXTENSION_AGGS: dict = {}
+
+
+def register_aggregator(type_name: str, from_json) -> None:
+    _EXTENSION_AGGS[type_name] = from_json
+
+
 def agg_from_json(j: dict) -> AggregatorSpec:
     t = j["type"]
+    if t in _EXTENSION_AGGS:
+        return _EXTENSION_AGGS[t](j)
     if t == "count":
         return CountAggregator(j["name"])
     cls = _FIELD_TYPES.get(t)

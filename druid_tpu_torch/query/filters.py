@@ -7,8 +7,9 @@ true/false, and spatial (rectangular, radius and polygon bounds over a
 dimension of "x,y[,...]" coordinate strings). JavaScriptFilter takes a
 Python callable over dimension values; no JSON reaches it, and
 "javascript", like any unknown type, raises ValueError, as in the
-reference. `to_json` gives the reference's wire form. Planning a filter
-into a row mask lives in engine/filters.py.
+reference. Extension filter types (the bloom filter) register through
+`register_filter` and are consulted first. `to_json` gives the reference's
+wire form. Planning a filter into a row mask lives in engine/filters.py.
 """
 from __future__ import annotations
 
@@ -419,12 +420,22 @@ class SpatialFilter(DimFilter):
         return pred
 
 
+# extension filter types: type name -> from_json (druid_tpu_torch/ext/)
+_EXTENSION_FILTERS: dict = {}
+
+
+def register_filter(type_name: str, from_json) -> None:
+    _EXTENSION_FILTERS[type_name] = from_json
+
+
 def filter_from_json(j: Optional[dict]) -> Optional[DimFilter]:
     """JSON-polymorphic deserialization, as the reference's filter_from_json
     (Jackson @JsonSubTypes on DimFilter)."""
     if j is None:
         return None
     t = j["type"]
+    if t in _EXTENSION_FILTERS:
+        return _EXTENSION_FILTERS[t](j)
     if t == "spatial":
         return SpatialFilter(j["dimension"],
                              SpatialBound.from_json(j["bound"]))

@@ -2,8 +2,9 @@
 
 The port's copy of the reference package's `query/postaggs.py`:
 arithmetic, fieldAccess, finalizingFieldAccess, hyperUniqueCardinality,
-constant and the double/long greatest and least. An unknown type raises
-ValueError, as in the reference; the extension registry is not ported.
+constant and the double/long greatest and least, and the extension
+registry that `druid_tpu_torch.ext` fills (consulted first, as in the
+reference). An unknown type raises ValueError, as in the reference.
 Evaluated on the host over result rows, per row (scalars) or per column
 (numpy arrays); `to_json` gives the reference's wire form.
 """
@@ -162,8 +163,18 @@ class LeastPostAgg(PostAggregator):
                 "fields": [f.to_json() for f in self.fields]}
 
 
+# extension post-aggregator types: type name -> from_json
+_EXTENSION_POSTAGGS: dict = {}
+
+
+def register_postagg(type_name: str, from_json) -> None:
+    _EXTENSION_POSTAGGS[type_name] = from_json
+
+
 def postagg_from_json(j: dict) -> PostAggregator:
     t = j["type"]
+    if t in _EXTENSION_POSTAGGS:
+        return _EXTENSION_POSTAGGS[t](j)
     # "name" is optional on the nested fields of arithmetic/greatest/least
     if t == "fieldAccess":
         return FieldAccessPostAgg(j.get("name", j["fieldName"]),

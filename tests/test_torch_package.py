@@ -31,7 +31,8 @@ def test_import_pulls_in_neither_jax_nor_druid_tpu():
             "druid_tpu_torch.utils.expression, druid_tpu_torch.query.lookup, "
             "druid_tpu_torch.engine.hll, druid_tpu_torch.engine.executor, "
             "druid_tpu_torch.query.model, druid_tpu_torch.engine.filters, "
-            "druid_tpu_torch.engine.engines, druid_tpu_torch.data.segment; "
+            "druid_tpu_torch.engine.engines, druid_tpu_torch.data.segment, "
+            "druid_tpu_torch.ext; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'druid_tpu' "
             "or m.startswith('druid_tpu.')); print(bad)")
