@@ -127,9 +127,11 @@ Phases, each fatal on failure:
      warm p50, split_times and cold time; the batched runs, segments per
      run, fill ratio and stragglers (`batching.stats()`); B-ts and B-topN
      with a floatSum twice batched (the same bits required) and alone
-     (bit equality reported); each stacked run's device kernels at K = 16
-     and K = 32 (torch.profiler; equal required for the mixed and blocked
-     cells); then B-ts three times under a pool budget of half its resident
+     (bit equality reported); each stacked run's launch calls and the
+     device kernels they launched at K = 16 and K = 32 (torch.profiler;
+     for the mixed and blocked cells the launches must be equal, and the
+     kernels too where neither trace dropped a record); then B-ts three
+     times under a pool budget of half its resident
      bytes (evictions required, rows unchanged) and the default budget
      back.
  15. the native surface (run after phase 8, on the 8 headline segments,
@@ -167,15 +169,38 @@ Phases, each fatal on failure:
      beside its bytes bound. E5, after phase 14 on its segments: E1 over
      the 49 hourly segments, batched and alone, each against numpy and the
      two against each other.
-The device pool's snapshot is printed after phases 6-10, 12, 13, 15 and
-16; at the default budget none may show an eviction.
+ 17. serving (druid_tpu_torch.cluster, run after phase 16 on its 8 headline
+     segments, B1/B2 counts set to 0 before the broker's runs and read
+     after them): 3 DataNodes on the card, the segments round-robin with
+     replica 2, announced on one InventoryView, one Broker (hedging off:
+     the nodes share one card). The four main-path queries through
+     Broker.run_json, 1 run and 3 warm, each against numpy and the
+     executor's rows (float sums within 1e-9 of their magnitude), with B1
+     x8 a groupBy run and B2 x8 a filtered-groupBy run, the warm p50
+     beside the executor's and the trace's time by span (broker/scatter,
+     broker/node, engine/partials, broker/merge); the groupBy with an
+     LruCache on each node (8 misses and B1 x8, then 8 hits and B1 x0, the
+     same rows), with the broker's result cache (the second run served
+     with no node call), and with node0 dead (the same rows, B1 x8, failed
+     calls on node0 only; no other sub-phase may show a failed call or a
+     partial result); the seven monitors ticked once (pool bytes,
+     dispatches and megakernel runs > 0; the pool no larger than after
+     phase 16: replicas share one segment's entries). Its cross-query
+     fusion runs in phase 14: two B-ts through one node's
+     run_partials_group, a stacked run holding both queries, each equal to
+     the query alone, B1/B2 0.
+The device pool's snapshot is printed after phases 6-10, 12, 13 and
+15-17; at the default budget none may show an eviction.
 `python3 chip_smoke.py batching` runs the build and phase 14 alone;
-`python3 chip_smoke.py extensions` the build and phase 16 with E5.
+`python3 chip_smoke.py extensions` the build and phase 16 with E5;
+`python3 chip_smoke.py serving` the build and phase 17 (the executor
+warms the headline segments first) with its fusion on phase 14's segments.
 The line before the last is the kernels JSON line (each kernel's
 `launches` counted on phase 6's path, `launches_expressions` on phase
 12's, `launches_aggregators` on phase 13's, `launches_native_surface` on
-phase 15's, `launches_extensions` on phase 16's); the last line is
-{"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
+phase 15's, `launches_extensions` on phase 16's, `launches_serving` on
+phase 17's); the last line is {"ok": true, "device": {...}}. Details go to
+chiprun_out/chip_smoke.json.
 """
 import dataclasses
 import json
@@ -3461,11 +3486,13 @@ def pool_snapshot(tag, require_no_evictions=True):
 
 
 def stacked_launches(q, segments, dev, K):
-    """One warm stacked run of K compatible segments of `q`: the device
-    kernels it launched (copies excluded) and the runtime launch calls,
-    from torch.profiler over the run's own range (a few warm-up kernels
-    open the trace first: counted over the whole trace, a long process's
-    later traces lost kernels); the tensor ops dispatched to the card (a
+    """One warm stacked run of K compatible segments of `q`: the runtime
+    launch calls this thread made inside the run's range and the device
+    kernels they launched (matched by correlation id, copies excluded),
+    from torch.profiler (a few warm-up kernels open the trace first:
+    counted over the whole trace, a long process's later traces lost
+    kernels; counted by device timestamp alone, kernels not of this run
+    once landed in its range); the tensor ops dispatched to the card (a
     host-side count); and the run's time by CUDA events. The runs are
     measurement; they add to `batching.stats()` outside the query runs."""
     import torch
@@ -3532,23 +3559,34 @@ def stacked_launches(q, segments, dev, K):
     events = prof.events()
     region = [e for e in events if e.name == "stacked run"][0]
     t0, t1 = region.time_range.start, region.time_range.end
-    kernels = runtime = 0
+    # the run's launch calls: this thread's, inside the run's range; its
+    # kernels: the device events of those calls (one correlation id per
+    # launch), so that a kernel whose device timestamp lands in the range
+    # without this run having launched it is not counted
+    launches = {e.id for e in events
+                if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                              "cudaLaunchKernelExC", "cuLaunchKernelEx")
+                and e.thread == region.thread
+                and t0 <= e.time_range.start <= t1}
+    kernels = in_range = 0
     by_kernel = {}
     for e in events:
-        if not (t0 <= e.time_range.start <= t1):
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or "Memcpy" in e.name or "Memset" in e.name \
+                or e.name.startswith(("aten::", "cuda", "Activity")):
             continue
-        if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
-                      "cudaLaunchKernelExC", "cuLaunchKernelEx"):
-            runtime += 1
-        elif e.device_type == torch.autograd.DeviceType.CUDA \
-                and "Memcpy" not in e.name and "Memset" not in e.name \
-                and not e.name.startswith(("aten::", "cuda", "Activity")):
+        in_range += t0 <= e.time_range.start <= t1
+        if e.id in launches:
             kernels += 1
             key = e.name[:300]
             by_kernel[key] = by_kernel.get(key, 0) + 1
+    if launches and not kernels:
+        raise AssertionError("stacked run: no device kernel carries the "
+                             "correlation id of one of its launch calls")
     return {"K": K, "strategy": plans[0].spec.strategy,
-            "device_kernels": kernels, "launch_calls": runtime,
-            "device_ops": ops.n, "by_kernel": by_kernel, "ms": ms}
+            "device_kernels": kernels, "device_kernels_in_range": in_range,
+            "launch_calls": len(launches), "device_ops": ops.n,
+            "by_kernel": by_kernel, "ms": ms}
 
 
 def run_batching_query(ex, name, q, segments, dev, check, batched):
@@ -3659,10 +3697,19 @@ def phase_batching(dev, extra=None):
             n32 = l32["by_kernel"].get(kname, 0)
             if n16 != n32:
                 log(f"    {kname[:160]}: {n16} at K = 16, {n32} at 32")
+        # the run's launch calls are counted on the host, whole; a long
+        # process's traces drop some kernel records (fewer device kernels
+        # than launches), so kernels compare only where both are whole
+        whole = all(la["device_kernels"] == la["launch_calls"]
+                    for la in (l16, l32))
         if want_strategy[name] != "mm" \
-                and l16["device_kernels"] != l32["device_kernels"]:
-            raise AssertionError(f"{name}: {l16['device_kernels']} kernels "
-                                 f"at K = 16, {l32['device_kernels']} at 32")
+                and (l16["launch_calls"] != l32["launch_calls"]
+                     or whole and l16["device_kernels"]
+                     != l32["device_kernels"]):
+            raise AssertionError(
+                f"{name}: {l16['launch_calls']} launches "
+                f"({l16['device_kernels']} kernels traced) at K = 16, "
+                f"{l32['launch_calls']} ({l32['device_kernels']}) at 32")
         out[name] = res
         log(f"  {name}: {strategies}, batched: cold {res_b['cold_s']:.2f} s, "
             f"warm p50 {res_b['p50_ms']:.1f} ms (partials "
@@ -3680,7 +3727,8 @@ def phase_batching(dev, extra=None):
                in res else ""))
         for la in res["launches"]:
             log(f"    stacked run at K = {la['K']} ({la['strategy']}): "
-                f"{la['device_kernels']} device kernels, "
+                f"{la['device_kernels']} device kernels "
+                f"({la['device_kernels_in_range']} by device timestamp), "
                 f"{la['launch_calls']} launch calls (torch.profiler), "
                 f"{la['device_ops']} tensor ops on the card; "
                 f"{la['ms']:.3f} ms (CUDA events)")
@@ -4357,6 +4405,326 @@ def phase_extensions_e5(dev, segments):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the in-process serving path (Broker -> InventoryView -> DataNode)
+# ---------------------------------------------------------------------------
+
+SERVING_WARM = 3                     # warm runs a query (p50 of 3)
+SERVING_NODES, SERVING_REPLICAS = 3, 2
+
+
+def serving_cluster(segments, dev):
+    """tests/test_cluster.py's cluster fixture on the card: SERVING_NODES
+    data nodes on `dev`, the segments round-robin with SERVING_REPLICAS
+    replicas, announced on one InventoryView, and one Broker; no cache yet.
+    Each node counts its run_partials calls. Hedging is off: every node
+    shares the one card, so a hedge would only run a straggler's segments
+    again on it (and add B1/B2 launches to the run)."""
+    from druid_tpu_torch.cluster import (Broker, DataNode, InventoryView,
+                                         ResiliencePolicy, descriptor_for)
+
+    class CountingNode(DataNode):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.calls = 0
+
+        def run_partials(self, query, segment_ids, check=None):
+            self.calls += 1
+            return super().run_partials(query, segment_ids, check)
+
+    view = InventoryView()
+    nodes = [CountingNode(f"node{i}", device=dev)
+             for i in range(SERVING_NODES)]
+    for n in nodes:
+        view.register(n)
+    for i, s in enumerate(segments):
+        for j in range(SERVING_REPLICAS):
+            node = nodes[(i + j) % SERVING_NODES]
+            node.load_segment(s)
+            view.announce(node.name, descriptor_for(s))
+    return view, nodes, Broker(
+        view, device=dev,
+        resilience_policy=ResiliencePolicy(hedge_enabled=False))
+
+
+def serving_run(broker, q, qid):
+    """One broker run of `q` under query id `qid`: (rows, ms, the trace's
+    time by span name). A PartialResult fails the run."""
+    import torch
+    from druid_tpu_torch.cluster import PartialResult
+    from druid_tpu_torch.obs import trace
+    t = time.perf_counter()
+    rows = broker.run_json(dict(q, context=dict(q.get("context", {}),
+                                                queryId=qid)))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    if isinstance(rows, PartialResult):
+        raise AssertionError(f"{qid}: a partial result, missing "
+                             f"{rows.missing_segments}")
+    return rows, ms, trace.phase_breakdown(trace.trace_store().spans(qid))
+
+
+def _failed_calls(broker):
+    return broker.resilience.circuits.failures_by_server()
+
+
+def phase_serving(dev, segments, qs, ref, pool_before):
+    """Phase 17 on the 8 headline segments: the four main-path queries
+    through Broker.run_json against numpy and the executor, the segment
+    cache, the result cache, a dead node, and the seven monitors; the pool
+    may not grow past `pool_before` (phase 16's snapshot; None: the one
+    after the executor's runs here). Returns (report, {"B1": launches,
+    "B2": launches}) of the broker's runs."""
+    import torch
+    from druid_tpu_torch.cluster import LruCache, ResilienceMetricsMonitor
+    from druid_tpu_torch.data.cascade import CodeDomainMonitor
+    from druid_tpu_torch.data.devicepool import (DevicePoolMonitor,
+                                                 device_pool)
+    from druid_tpu_torch.engine import QueryExecutor
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    from druid_tpu_torch.engine.batching import BatchMetricsMonitor
+    from druid_tpu_torch.engine.filters import FilterBitmapMonitor
+    from druid_tpu_torch.engine.megakernel import MegakernelMonitor
+    from druid_tpu_torch.obs.dispatch import DispatchMonitor
+    from druid_tpu_torch.utils.emitter import InMemoryEmitter, ServiceEmitter
+    t_phase = time.perf_counter()
+    view, nodes, broker = serving_cluster(segments, dev)
+    monitors = [DevicePoolMonitor(), BatchMetricsMonitor(),
+                CodeDomainMonitor(), FilterBitmapMonitor(),
+                MegakernelMonitor(), DispatchMonitor(),
+                ResilienceMetricsMonitor(broker.resilience)]
+    checks = {"groupby": check_groupby, "topn": check_topn,
+              "timeseries": check_timeseries,
+              "groupby_filtered": check_filtered}
+    wants = {"groupby": (SEGMENTS, 0), "groupby_filtered": (0, SEGMENTS)}
+    ex = QueryExecutor(segments, device=dev)
+    base = (sr.LAUNCHES, mk.LAUNCHES)
+
+    def launches():
+        return (sr.LAUNCHES, mk.LAUNCHES)
+    out = {"nodes": SERVING_NODES, "replicas": SERVING_REPLICAS}
+    # the yardstick first: the executor's rows and warm p50 (its launches
+    # are not the serving path's)
+    ex_rows, ex_ms = {}, {}
+    for name, q in qs.items():
+        ex_ms[name] = []
+        for _ in range(1 + SERVING_WARM):
+            t = time.perf_counter()
+            ex_rows[name] = ex.run_json(q)
+            torch.cuda.synchronize()
+            ex_ms[name].append((time.perf_counter() - t) * 1e3)
+    if pool_before is None:
+        pool_before = pool_snapshot("the executor's runs")
+    sr.LAUNCHES = mk.LAUNCHES = 0
+    for name, q in qs.items():
+        want = wants.get(name, (0, 0))
+        runs = []
+        for i in range(1 + SERVING_WARM):
+            before = launches()
+            rows, ms, spans = serving_run(broker, q, f"serving-{name}-{i}")
+            got = tuple(a - b for a, b in zip(launches(), before))
+            if got != want:
+                raise AssertionError(f"serving {name}: (B1, B2) launched "
+                                     f"{got} times a run, expected {want}")
+            checks[name](rows, ref)
+            if not same_rows(rows, ex_rows[name]):
+                raise AssertionError(f"serving {name}: broker rows differ "
+                                     f"from the executor's")
+            runs.append((ms, spans))
+        warm = [ms for ms, _ in runs[1:]]
+        names = sorted({k for _, sp in runs[1:] for k in sp})
+        split = {k: float(np.median([sp.get(k, 0.0) for _, sp in runs[1:]]))
+                 for k in names}
+        res = out[name] = {
+            "cold_ms": runs[0][0], "warm_ms": warm,
+            "p50_ms": float(np.median(warm)),
+            "executor_p50_ms": float(np.median(ex_ms[name][1:])),
+            "b1_b2_launches_per_run": list(want), "span_ms": split,
+            "result_rows": len(rows)}
+        log(f"  {name}: broker rows equal numpy and the executor's; warm "
+            f"p50 {res['p50_ms']:.1f} ms (executor {res['executor_p50_ms']:.1f}"
+            f" ms), first {res['cold_ms']:.1f} ms, (B1, B2) {want} a run; "
+            f"trace: " + ", ".join(f"{k} {split[k]:.1f}" for k in (
+                "broker/plan", "broker/scatter", "broker/node",
+                "engine/partials", "broker/merge") if k in split))
+    if _failed_calls(broker):
+        raise AssertionError(f"failed node calls: {_failed_calls(broker)}")
+
+    # the segment cache: 8 misses, then 8 hits and no B1 launch; the
+    # broker's replica picks are reseeded before each run, so that each
+    # segment goes to the node that cached it (a node's cache is its own)
+    q = qs["groupby"]
+    for n in nodes:
+        n.cache = LruCache()
+    seg = {}
+    for tag, want_b1 in (("miss", SEGMENTS), ("hit", 0)):
+        broker.rng.seed(SEED)
+        c0 = [(n.cache.stats.hits, n.cache.stats.misses) for n in nodes]
+        before = launches()
+        rows, ms, spans = serving_run(broker, q, f"serving-segcache-{tag}")
+        got = tuple(a - b for a, b in zip(launches(), before))
+        hits = sum(n.cache.stats.hits - h for n, (h, _) in zip(nodes, c0))
+        misses = sum(n.cache.stats.misses - m
+                     for n, (_, m) in zip(nodes, c0))
+        want = (0, SEGMENTS) if tag == "miss" else (SEGMENTS, 0)
+        if (hits, misses) != want or got != (want_b1, 0) \
+                or not same_rows(rows, ex_rows["groupby"]):
+            raise AssertionError(f"segment cache {tag}: {hits} hits, "
+                                 f"{misses} misses, (B1, B2) {got}")
+        seg[tag] = {"ms": ms, "hits": hits, "misses": misses,
+                    "b1_launches": got[0], "span_ms": spans}
+    out["segment_cache"] = seg
+    log(f"  segment cache: groupBy {seg['miss']['ms']:.1f} ms with 8 misses "
+        f"(B1 x8), {seg['hit']['ms']:.1f} ms with 8 hits (B1 x0), the same "
+        f"rows; merge {seg['hit']['span_ms'].get('broker/merge', 0):.1f} ms")
+
+    # the result cache: the second run is served without a node call
+    broker.cache = LruCache()
+    res_c = {}
+    for tag in ("miss", "hit"):
+        calls = sum(n.calls for n in nodes)
+        h0 = broker.cache.stats.hits
+        rows, ms, _ = serving_run(broker, q, f"serving-rescache-{tag}")
+        called = sum(n.calls for n in nodes) - calls
+        hit = broker.cache.stats.hits - h0
+        if (tag == "hit") != (hit == 1 and called == 0) \
+                or not same_rows(rows, ex_rows["groupby"]):
+            raise AssertionError(f"result cache {tag}: {hit} hits, "
+                                 f"{called} node calls")
+        res_c[tag] = {"ms": ms, "node_calls": called}
+    out["result_cache"] = res_c
+    log(f"  result cache: groupBy {res_c['miss']['ms']:.1f} ms "
+        f"({res_c['miss']['node_calls']} node calls), then a hit in "
+        f"{res_c['hit']['ms']:.3f} ms with no node call")
+    broker.cache = None
+    for n in nodes:
+        n.cache = None
+    if _failed_calls(broker):
+        raise AssertionError(f"failed node calls: {_failed_calls(broker)}")
+
+    # failover: node0 dead; every run still launches B1 8 times
+    nodes[0].alive = False
+    fail = {"runs_ms": []}
+    for i in range(4):
+        before = launches()
+        rows, ms, _ = serving_run(broker, q, f"serving-failover-{i}")
+        got = tuple(a - b for a, b in zip(launches(), before))
+        if got != (SEGMENTS, 0) or not same_rows(rows, ex_rows["groupby"]):
+            raise AssertionError(f"failover: (B1, B2) {got}")
+        fail["runs_ms"].append(ms)
+        if _failed_calls(broker).get("node0"):
+            break
+    nodes[0].alive = True
+    failed = _failed_calls(broker)
+    if set(failed) != {"node0"}:
+        raise AssertionError(f"failover: failed calls {failed}")
+    fail["failed_calls"] = failed
+    fail["circuits"] = broker.resilience.circuits.snapshot()
+    out["failover"] = fail
+    log(f"  failover (node0 dead): {len(fail['runs_ms'])} groupBy runs "
+        f"{[round(x, 1) for x in fail['runs_ms']]} ms, rows unchanged, B1 "
+        f"x8 each; failed calls {failed}, circuits {fail['circuits']}")
+
+    # the seven monitors, one tick each
+    sink = InMemoryEmitter()
+    emitter = ServiceEmitter("broker", "chip", sink)
+    for m in monitors:
+        m.do_monitor(emitter)
+    metrics = {}
+    for e in sink.metrics():
+        metrics.setdefault(e.metric, []).append(e.value)
+    out["monitors"] = metrics
+    log("  monitors: " + ", ".join(
+        f"{k} {v[0] if len(v) == 1 else v}" for k, v in sorted(
+            metrics.items())))
+    after = device_pool().snapshot().resident_bytes
+    if metrics["segment/devicePool/residentBytes"][0] <= 0 \
+            or metrics["query/dispatch/count"][0] <= 0 \
+            or metrics["query/megakernel/hits"][0] <= 0:
+        raise AssertionError("monitors: pool bytes, dispatches and "
+                             "megakernel runs must be > 0")
+    if after > pool_before["resident_bytes"]:
+        raise AssertionError(
+            f"serving raised the pool from {pool_before['resident_bytes']} "
+            f"to {after} B")
+    out["pool"] = {"before": pool_before["resident_bytes"], "after": after}
+    log(f"  pool {after} B resident after serving, "
+        f"{pool_before['resident_bytes']} B before: replicas staged nothing "
+        f"twice")
+    counted = {"B1": sr.LAUNCHES, "B2": mk.LAUNCHES}
+    sr.LAUNCHES, mk.LAUNCHES = base
+    broker.stop()
+    del ex, broker, nodes, view
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase serving took {out['phase_s']:.1f} s; (B1, B2) launched "
+        f"{counted}")
+    return out, counted
+
+
+def serving_fusion(dev, segments):
+    """Phase 17's cross-query fusion, on phase 14's hourly segments: two
+    timeseries through one data node's run_partials_group, each against
+    the same query through run_partials alone; the stacked runs fuse the
+    two queries. B1/B2 must not launch."""
+    import torch
+    from druid_tpu_torch.cluster import DataNode
+    from druid_tpu_torch.engine import batching, engines
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    from druid_tpu_torch.engine.batching import BatchMetricsMonitor
+    from druid_tpu_torch.query.model import query_from_json
+    from druid_tpu_torch.utils.emitter import InMemoryEmitter, ServiceEmitter
+    node = DataNode("fusion", device=dev)
+    for s in segments:
+        node.load_segment(s)
+    sids = [str(s.id) for s in segments]
+    ts = batching_queries(segments)["B-ts"]
+    qs = [query_from_json(dict(ts, context={"queryId": f"fused-{i}"}))
+          for i in range(2)]
+    base = (sr.LAUNCHES, mk.LAUNCHES)
+    monitor = BatchMetricsMonitor()
+    monitor.do_monitor(ServiceEmitter("historical", "chip",
+                                      InMemoryEmitter()))   # drain
+    fused = []
+    s0 = batching.stats().snapshot()
+    t = time.perf_counter()
+    got = node.run_partials_group(
+        [(q, sids, None) for q in qs],
+        on_batch=lambda nq, ns, fill: fused.append((nq, ns, fill)))
+    torch.cuda.synchronize()
+    fused_ms = (time.perf_counter() - t) * 1e3
+    s1 = batching.stats().snapshot()
+    sink = InMemoryEmitter()
+    monitor.do_monitor(ServiceEmitter("historical", "chip", sink))
+    t = time.perf_counter()
+    alone = [node.run_partials(q, sids)[0] for q in qs]
+    torch.cuda.synchronize()
+    alone_ms = (time.perf_counter() - t) * 1e3
+    for q, g, a in zip(qs, got, alone):
+        if isinstance(g, BaseException):
+            raise g
+        if not same_rows(engines.finish_timeseries(q, g[0]),
+                         engines.finish_timeseries(q, a)):
+            raise AssertionError("fusion: a fused query's rows differ from "
+                                 "the query alone")
+    if (sr.LAUNCHES, mk.LAUNCHES) != base:
+        raise AssertionError("fusion launched B1/B2")
+    if not any(nq == 2 for nq, _, _ in fused):
+        raise AssertionError(f"fusion: no stacked run held both queries: "
+                             f"{fused}")
+    out = {"fused_ms": fused_ms, "alone_ms": alone_ms,
+           "stacked_runs": [list(f) for f in fused],
+           "batches": s1["batches"] - s0["batches"],
+           "batch_metrics": [(e.metric, e.value) for e in sink.metrics()]}
+    log(f"  fusion: two B-ts through run_partials_group in {fused_ms:.1f} ms "
+        f"({out['batches']} stacked runs: (queries, segments, fill) "
+        f"{[(a, b, round(c, 4)) for a, b, c in fused]}), each equal to the "
+        f"query alone ({alone_ms:.1f} ms for both); BatchMetricsMonitor "
+        f"emitted {len(out['batch_metrics'])} metrics")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4396,6 +4764,24 @@ def main():
         # numbers are in the log)
         log("phase batching and the pool")
         phase_batching(dev)
+        return 0
+    if sys.argv[1:] == ["serving"]:
+        # the build and phase 17 alone: the executor warms the headline
+        # segments, then the broker path; the fusion sub-phase on phase
+        # 14's hourly segments made here
+        log("phase serving, the 8 headline segments")
+        segments = headline_segments()
+        qs = queries(segments)
+        out, counted = phase_serving(dev, segments, qs,
+                                     numpy_reference(segments), None)
+        del segments
+        log("phase serving: cross-query fusion on phase 14's segments")
+        out["fusion"] = serving_fusion(dev, hourly_segments())
+        out["launches"] = counted
+        os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(root, "chiprun_out",
+                               "chip_smoke_serving.json"), "w") as f:
+            json.dump(out, f, indent=1, default=float)
         return 0
     if sys.argv[1:] == ["extensions"]:
         # the build and phase 16 alone, E5 on phase 14's segments made here
@@ -4448,6 +4834,12 @@ def main():
     log("phase extensions (E1-E4), the 8 headline segments")
     report["extensions"], ext_launches = phase_extensions(dev, segments)
     pools["extensions"] = pool_snapshot("extensions")
+
+    log(f"phase serving: a Broker over {SERVING_NODES} data nodes (replica "
+        f"{SERVING_REPLICAS}), the 8 headline segments")
+    report["serving"], serving_launches = phase_serving(
+        dev, segments, qs, ref, pools["extensions"])
+    pools["serving"] = pool_snapshot("serving")
     del segments, captured, ref
 
     log(f"phase sorted, {SORTED_SEGMENTS} segments in the rollup order")
@@ -4477,8 +4869,11 @@ def main():
         f"straggler)")
     t = time.perf_counter()
     report["batching"] = phase_batching(
-        dev, extra=lambda segs: phase_extensions_e5(dev, segs))
-    report["extensions"]["e5"] = report["batching"].pop("extra")
+        dev, extra=lambda segs: {"e5": phase_extensions_e5(dev, segs),
+                                 "fusion": serving_fusion(dev, segs)})
+    extra = report["batching"].pop("extra")
+    report["extensions"]["e5"] = extra["e5"]
+    report["serving"]["fusion"] = extra["fusion"]
     report["batching"]["phase_s"] = time.perf_counter() - t
     log(f"  phase 14 took {report['batching']['phase_s']:.1f} s")
     sr.LAUNCHES, mk.LAUNCHES = saved
@@ -4533,6 +4928,7 @@ def main():
             "launches_aggregators": aggr_launches[which],
             "launches_native_surface": native_launches[which],
             "launches_extensions": ext_launches[which],
+            "launches_serving": serving_launches[which],
             "max_abs_err": max(err, parity["max_abs_err"],
                                report["packed_parity"]["max_abs_err"],
                                expr_errs[which]),

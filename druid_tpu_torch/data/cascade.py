@@ -39,6 +39,7 @@ import numpy as np
 
 from druid_tpu_torch.data import packed as packed_mod
 from druid_tpu_torch.engine.contracts import CASCADE_MAX_RUNS
+from druid_tpu_torch.utils.emitter import Monitor
 
 #: RLE is planned only when its run arrays are at least this many times
 #: smaller than the packed or decoded column
@@ -354,3 +355,18 @@ _CODE_STATS = CodeDomainStats()
 
 def code_domain_stats() -> CodeDomainStats:
     return _CODE_STATS
+
+
+class CodeDomainMonitor(Monitor):
+    """Emits query/codeDomain/{hits,rows} per tick (deltas over the tick
+    window, the FilterBitmapMonitor discipline)."""
+
+    def __init__(self, source: Optional[CodeDomainStats] = None):
+        self.source = source or _CODE_STATS
+        self._last = self.source.snapshot()
+
+    def do_monitor(self, emitter):
+        s = self.source.snapshot()
+        last, self._last = self._last, s
+        emitter.metric("query/codeDomain/hits", s["hits"] - last["hits"])
+        emitter.metric("query/codeDomain/rows", s["rows"] - last["rows"])

@@ -20,9 +20,11 @@ that a running query still holds stays on the card until the query lets go
 of it, and a tensor cached under two keys counts twice. The pool's count
 is of what the pool holds, not of what the card holds.
 
-Not ported: `take` (the donated megakernel carries; the port has none),
-the STACKED_KIND accounting of the mesh's stacked blocks, and the
-DevicePoolMonitor emitter.
+`DevicePoolMonitor` emits the pool's metrics. A build runs under a
+`pool/h2d` trace span (its bytes as attributes) when a trace is open.
+
+Not ported: `take` (the donated megakernel carries; the port has none) and
+the STACKED_KIND accounting of the mesh's stacked blocks.
 """
 from __future__ import annotations
 
@@ -34,6 +36,9 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Set, Tuple
 
 import torch
+
+from druid_tpu_torch.obs.trace import span as trace_span
+from druid_tpu_torch.utils.emitter import Monitor
 
 
 def _default_budget() -> int:
@@ -128,6 +133,13 @@ class PoolStats:
         return self.logical_bytes / self.resident_bytes \
             if self.resident_bytes else 1.0
 
+    @property
+    def cascade_ratio(self) -> float:
+        """Decoded / actual bytes over cascade-encoded entries only (1.0
+        when none is resident, as always so far: no rung stages)."""
+        return self.cascade_logical_bytes / self.cascade_bytes \
+            if self.cascade_bytes else 1.0
+
 
 class DeviceSegmentPool:
     """Byte-budgeted LRU over (owner, key) -> device value."""
@@ -146,6 +158,9 @@ class DeviceSegmentPool:
         # so one that took the lock would deadlock. Dead owners are drained
         # under the lock by the next pool operation.
         self._dead_owners: "collections.deque[int]" = collections.deque()
+        # full key -> Event of the build in flight: a second caller of the
+        # same key waits for it instead of staging the same bytes again
+        self._inflight: Dict[Tuple, threading.Event] = {}
         self._resident = 0
         self._logical = 0
         self._cascade = 0
@@ -242,21 +257,44 @@ class DeviceSegmentPool:
                      build: Callable[[], object]):
         """LRU get; on a miss `build()` runs outside the lock (it stages to
         the card), and its value is cached unless the owner died meanwhile.
-        A concurrent duplicate build wastes work but keeps the counts right
-        (the replaced entry's bytes are subtracted)."""
+        One build per key at a time: a concurrent caller of a key being
+        built (two broker threads on one cold segment) waits for it and
+        then reads the entry as a hit. A build only ever waits on the keys
+        it itself reads, so the waits cannot form a cycle."""
         full_key = (owner,) + tuple(key)
+        while True:
+            with self._lock:
+                self._drain_dead_locked()
+                hit = self._entries.get(full_key)
+                if hit is not None:
+                    self._entries.move_to_end(full_key)
+                    self._hits += 1
+                    return hit[0]
+                pending = self._inflight.get(full_key)
+                if pending is None:
+                    self._misses += 1
+                    done = self._inflight[full_key] = threading.Event()
+                    break
+            pending.wait()
+        try:
+            # a cold miss: the staging cost a warm pool hides
+            with trace_span("pool/h2d",
+                            kind=str(key[0]) if key else "") as sp:
+                value = build()
+                entry = (value, entry_bytes(value),
+                         entry_logical_bytes(value)) \
+                    + entry_cascade_bytes(value)
+                if sp is not None:
+                    sp.attrs["bytes"] = entry[1]
+                    sp.attrs["logicalBytes"] = entry[2]
+        except BaseException:
+            with self._lock:
+                self._inflight.pop(full_key, None)
+            done.set()
+            raise
         with self._lock:
-            self._drain_dead_locked()
-            hit = self._entries.get(full_key)
-            if hit is not None:
-                self._entries.move_to_end(full_key)
-                self._hits += 1
-                return hit[0]
-            self._misses += 1
-        value = build()
-        entry = (value, entry_bytes(value), entry_logical_bytes(value)) \
-            + entry_cascade_bytes(value)
-        with self._lock:
+            self._inflight.pop(full_key, None)
+            done.set()
             self._drain_dead_locked()
             keys = self._owner_keys.get(owner)
             if keys is None:
@@ -325,3 +363,30 @@ _POOL = DeviceSegmentPool()
 def device_pool() -> DeviceSegmentPool:
     """The process-wide pool every Segment stages through."""
     return _POOL
+
+
+class DevicePoolMonitor(Monitor):
+    """Emits `segment/devicePool/*` metrics per tick: the hit RATE over the
+    tick window (only when there was traffic — an idle pool emits no rate),
+    delta hit/miss/evicted counters, and resident gauges."""
+
+    def __init__(self, pool: Optional[DeviceSegmentPool] = None):
+        self.pool = pool or device_pool()
+        self._last = PoolStats()
+
+    def do_monitor(self, emitter):
+        s = self.pool.snapshot()
+        last, self._last = self._last, s
+        d_hits = s.hits - last.hits
+        d_misses = s.misses - last.misses
+        if d_hits + d_misses > 0:
+            emitter.metric("segment/devicePool/hitRate",
+                           d_hits / (d_hits + d_misses))
+        emitter.metric("segment/devicePool/hits", d_hits)
+        emitter.metric("segment/devicePool/misses", d_misses)
+        emitter.metric("segment/devicePool/evictedBytes",
+                       s.evicted_bytes - last.evicted_bytes)
+        emitter.metric("segment/devicePool/residentBytes", s.resident_bytes)
+        emitter.metric("segment/devicePool/entries", s.entries)
+        emitter.metric("segment/devicePool/packedRatio", s.packed_ratio)
+        emitter.metric("segment/devicePool/cascadeRatio", s.cascade_ratio)

@@ -164,6 +164,7 @@ class Segment:
         self.min_time = int(self.time_ms.min()) if self.n_rows else 0
         self.max_time = int(self.time_ms.max()) if self.n_rows else 0
         self._aux_cache: Dict[Tuple, object] = {}
+        self._aux_inflight: Dict[Tuple, threading.Event] = {}
         self._lock = threading.Lock()
         # device tensors live in the process-wide pool, dropped when this
         # segment is collected
@@ -338,13 +339,26 @@ class Segment:
 
     def aux_cached(self, key: Tuple, fn):
         """Memoize derived host arrays (bucket ids, fused keys, projections)
-        per segment."""
-        with self._lock:
-            if key in self._aux_cache:
-                return self._aux_cache[key]
-        value = fn()
-        with self._lock:
-            return self._aux_cache.setdefault(key, value)
+        per segment. One `fn` per key at a time: a concurrent caller (two
+        broker threads on one cold segment) waits for the running one
+        rather than repeating a projection's sort."""
+        while True:
+            with self._lock:
+                if key in self._aux_cache:
+                    return self._aux_cache[key]
+                pending = self._aux_inflight.get(key)
+                if pending is None:
+                    done = self._aux_inflight[key] = threading.Event()
+                    break
+            pending.wait()
+        try:
+            value = fn()
+            with self._lock:
+                return self._aux_cache.setdefault(key, value)
+        finally:
+            with self._lock:
+                self._aux_inflight.pop(key, None)
+            done.set()
 
     def __repr__(self):
         return f"Segment({self.id}, rows={self.n_rows})"

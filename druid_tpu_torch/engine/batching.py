@@ -68,6 +68,9 @@ from druid_tpu_torch.engine.grouping import (GroupPlan, GroupSpec, KeyDim,
                                              staged_col_dtypes, vc_dtype,
                                              windowed_window)
 from druid_tpu_torch.engine.kernels import AggKernel
+from druid_tpu_torch.obs import dispatch as dispatch_mod
+from druid_tpu_torch.obs.trace import span as trace_span
+from druid_tpu_torch.utils.emitter import Monitor
 from druid_tpu_torch.utils.granularity import Granularity
 from druid_tpu_torch.utils.intervals import Interval
 
@@ -173,6 +176,22 @@ _STATS = BatchStats()
 
 def stats() -> BatchStats:
     return _STATS
+
+
+class BatchMetricsMonitor(Monitor):
+    """Emits one query/batch/segments + query/batch/fillRatio pair per
+    recorded stacked run (drained at tick, the CacheMonitor discipline)."""
+
+    def __init__(self, source: Optional[BatchStats] = None):
+        self.source = source or _STATS
+
+    def do_monitor(self, emitter):
+        events, dropped = self.source.drain_events()
+        for n_segments, fill in events:
+            emitter.metric("query/batch/segments", n_segments)
+            emitter.metric("query/batch/fillRatio", fill)
+        if dropped:
+            emitter.metric("query/batch/droppedEvents", dropped)
 
 
 # ---------------------------------------------------------------------------
@@ -423,8 +442,10 @@ def _run_batch(chunk: List[_Plan], device: torch.device
         else:
             _PROGRAM_CACHE.move_to_end(sig)
 
-    counts, states = fn(arrays, time0s, iv_rel, bucket_off, aux)
-    counts_h = counts.cpu().numpy().astype(np.int64)
+    with trace_span("engine/batch/dispatch", segments=K, rows=R):
+        counts, states = fn(arrays, time0s, iv_rel, bucket_off, aux)
+        counts_h = counts.cpu().numpy().astype(np.int64)
+    dispatch_mod.record("batched")
     states_h = [_to_host(st) for st in states]
     out: List[SegmentPartial] = []
     for i, p in enumerate(chunk):

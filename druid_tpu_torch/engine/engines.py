@@ -23,6 +23,9 @@ from __future__ import annotations
 
 import hashlib
 import json
+import threading
+import time
+import weakref
 from dataclasses import replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -35,6 +38,7 @@ from druid_tpu_torch.engine.filters import (_bind_string_dims,
                                             _dictionary_lut, masked_columns)
 from druid_tpu_torch.engine.grouping import KeyDim, run_grouped_aggregate
 from druid_tpu_torch.engine.merge import merge_partials
+from druid_tpu_torch.obs.trace import span as trace_span
 from druid_tpu_torch.query.model import (DataSourceMetadataQuery,
                                          DefaultLimitSpec, DimensionSpec,
                                          ExpressionDimensionSpec,
@@ -224,6 +228,59 @@ def _expr_keydim(segment: Segment,
                            spec.output_type)), (vals or [""])
 
 
+#: seconds a union-remap slot may stay untouched before the sweep clears
+#: it: a rolling set of segments retires union digests, and each (segment,
+#: dimension) slot would otherwise pin its last n_rows x 4 B remap for the
+#: segment's life. Hot dashboards, re-touched every query, never expire.
+#: <= 0 disables expiry. `set_unidim_ttl` is the one way to change it.
+_UNIDIM_TTL_S = 900.0
+_UNIDIM_LOCK = threading.Lock()
+
+
+class _UnidimSlot(dict):
+    """Weakref-able remap slot ({union digest: remapped ids}) with a
+    last-touch stamp; the registry holds weak references only, so a
+    collected segment's slots vanish without bookkeeping. Identity
+    hash/eq: dict is unhashable and content-equality would collide
+    distinct (empty) slots inside the WeakSet registry."""
+    __slots__ = ("__weakref__", "touched")
+    __hash__ = object.__hash__
+
+    def __eq__(self, other):
+        return self is other
+
+    def __ne__(self, other):
+        return self is not other
+
+
+_UNIDIM_SLOTS: "weakref.WeakSet[_UnidimSlot]" = weakref.WeakSet()
+
+
+def set_unidim_ttl(seconds: float) -> float:
+    """Set the union-remap TTL in seconds; returns the previous value."""
+    global _UNIDIM_TTL_S
+    with _UNIDIM_LOCK:
+        prev = _UNIDIM_TTL_S
+        _UNIDIM_TTL_S = float(seconds)
+        return prev
+
+
+def _sweep_unidim(now: float) -> int:
+    """Clear every union-remap slot idle past the TTL; returns the number
+    of slots cleared. Runs at each unify_query_dims entry: the only growth
+    source is that path, so no background thread is needed."""
+    cleared = 0
+    with _UNIDIM_LOCK:
+        ttl = _UNIDIM_TTL_S
+        if ttl <= 0:
+            return 0
+        for slot in list(_UNIDIM_SLOTS):
+            if slot and now - getattr(slot, "touched", now) > ttl:
+                slot.clear()
+                cleared += 1
+    return cleared
+
+
 def unify_query_dims(segs: Sequence[Segment], kds_per_seg,
                      vals_per_seg) -> None:
     """Unify per-segment query-time dictionaries (numeric and expression
@@ -231,9 +288,12 @@ def unify_query_dims(segs: Sequence[Segment], kds_per_seg,
     segments, in place: each segment's local ids remap on the host into the
     sorted union of every segment's values. Ids decode to the same values;
     the space is merely shared. One remapped id column per (segment,
-    dimension) is kept, replaced when the union changes."""
+    dimension) is kept, replaced when the union changes and cleared by the
+    TTL sweep when idle."""
     if len(segs) < 2 or not kds_per_seg or not kds_per_seg[0]:
         return
+    now = time.monotonic()
+    _sweep_unidim(now)
     for j in range(len(kds_per_seg[0])):
         col = [kds[j] for kds in kds_per_seg]
         if not all(kd.host_ids is not None and kd.remap is None
@@ -250,7 +310,11 @@ def unify_query_dims(segs: Sequence[Segment], kds_per_seg,
         index = {v: i for i, v in enumerate(union)}
         for s, kds, vals in zip(segs, kds_per_seg, vals_per_seg):
             kd = kds[j]
-            slot = s.aux_cached(("unidim",) + tuple(kd.ids_key), dict)
+            slot = s.aux_cached(("unidim",) + tuple(kd.ids_key),
+                                _UnidimSlot)
+            with _UNIDIM_LOCK:
+                _UNIDIM_SLOTS.add(slot)
+            slot.touched = now
             new_ids = slot.get(udig)
             if new_ids is None:
                 remap = np.asarray([index[v] for v in vals[j]],
@@ -295,6 +359,21 @@ class AggregatePartials:
         self.spans = spans                # List[(min_ms, max_ms)]
         self.intervals = intervals        # intervals partials were built with
 
+    @staticmethod
+    def concat(parts: Sequence["AggregatePartials"]) -> "AggregatePartials":
+        """One AggregatePartials of several producers' (data nodes',
+        cached segments'), in the order given; the first producer's
+        intervals stand for all (the broker bounds them alike)."""
+        parts = [p for p in parts if p is not None]
+        out = AggregatePartials([], [], [], None)
+        for p in parts:
+            out.partials += list(p.partials)
+            out.dim_values += list(p.dim_values)
+            out.spans += list(p.spans)
+            if out.intervals is None:
+                out.intervals = p.intervals
+        return out
+
 
 def _make_partials(segs, intervals, query, kds_per_seg,
                    device: torch.device, check=None):
@@ -304,27 +383,32 @@ def _make_partials(segs, intervals, query, kds_per_seg,
     every run boundary."""
     if check is not None:
         check()
-    partials = batching.run_with_batching(
-        segs, intervals, query.granularity, kds_per_seg, query.aggregations,
-        query.filter, device, query.virtual_columns,
-        context=query.context_map, check=check)
-    if partials is None:
-        partials = []
-        for s, kds in zip(segs, kds_per_seg):
-            if check is not None and partials:
-                check()
-            partials.append(run_grouped_aggregate(
-                s, intervals, query.granularity, kds, query.aggregations,
-                query.filter, device, query.virtual_columns))
+    with trace_span("engine/partials", segments=len(segs)):
+        partials = batching.run_with_batching(
+            segs, intervals, query.granularity, kds_per_seg,
+            query.aggregations, query.filter, device, query.virtual_columns,
+            context=query.context_map, check=check)
+        if partials is None:
+            partials = []
+            for s, kds in zip(segs, kds_per_seg):
+                if check is not None and partials:
+                    check()
+                partials.append(run_grouped_aggregate(
+                    s, intervals, query.granularity, kds, query.aggregations,
+                    query.filter, device, query.virtual_columns))
     return partials
 
 
-def _query_plan(query, segments: Sequence[Segment]):
+def _query_plan(query, segments: Sequence[Segment], clamp: bool = True):
     """(intervals, matched segments, per-segment KeyDims, value lists): the
-    host derivation every partial-producing path shares."""
+    host derivation every partial-producing path shares. With `clamp` (and
+    a granularity other than all) the intervals shrink to the matched
+    segments' data; the broker path passes clamp=False, having bounded the
+    intervals itself, so that every node's bucket index space is the
+    same."""
     intervals = condense(query.intervals)
     segs = _segments_for(segments, intervals)
-    if not query.granularity.is_all:
+    if clamp and not query.granularity.is_all:
         intervals = _clamp_to_data(intervals, segs)
     if not segs:
         return intervals, segs, [], []
@@ -332,36 +416,97 @@ def _query_plan(query, segments: Sequence[Segment]):
     return intervals, segs, kds_per_seg, vals_per_seg
 
 
-def make_aggregate_partials(query, segments: Sequence[Segment],
-                            device: torch.device,
-                            check=None) -> AggregatePartials:
-    """Partial states for a timeseries/topN/groupBy query over local
-    segments on `device`."""
+def _partials_with_segs(query, segments: Sequence[Segment],
+                        device: torch.device, clamp: bool, check
+                        ) -> Tuple[AggregatePartials, List[Segment]]:
     intervals, segs, kds_per_seg, vals_per_seg = _query_plan(query,
-                                                             segments)
+                                                             segments, clamp)
     if not segs:
-        return AggregatePartials([], [], [], intervals)
+        return AggregatePartials([], [], [], intervals), segs
     partials = _make_partials(segs, intervals, query, kds_per_seg, device,
                               check=check)
     spans = [(s.min_time, s.max_time) for s in segs]
-    return AggregatePartials(partials, vals_per_seg, spans, intervals)
+    return AggregatePartials(partials, vals_per_seg, spans, intervals), segs
+
+
+def make_aggregate_partials(query, segments: Sequence[Segment],
+                            device: torch.device, clamp: bool = True,
+                            check=None) -> AggregatePartials:
+    """Partial states for a timeseries/topN/groupBy query over local
+    segments on `device`. `clamp=False` is the broker path's: it bounds
+    the query intervals across the whole cluster, so bucket index spaces
+    align across nodes. `check` (an optional cancel or timeout probe)
+    fires at run boundaries."""
+    return _partials_with_segs(query, segments, device, clamp, check)[0]
+
+
+def make_partials_by_segment(query, segments: Sequence[Segment],
+                             device: torch.device, clamp: bool = False,
+                             check=None) -> List[AggregatePartials]:
+    """One single-segment AggregatePartials per input segment (parallel to
+    `segments`; a segment outside the query intervals yields an empty one).
+    The data node's segment-cache miss path runs its whole miss set through
+    here: one call, so shape-compatible misses batch into shared runs
+    (engine/batching.py), split back into per-segment cache entries."""
+    ap, segs = _partials_with_segs(query, segments, device, clamp, check)
+    return _split_by_segment(ap, segs, segments)
+
+
+def _split_by_segment(ap: AggregatePartials, segs: Sequence[Segment],
+                      segments: Sequence[Segment]
+                      ) -> List[AggregatePartials]:
+    """Split a per-segment AggregatePartials (partials parallel to `segs`)
+    into one entry per input segment; a segment absent from `segs` (outside
+    the query intervals) yields an empty partials object, as the per-miss
+    cache loop would have stored for it."""
+    remaining: Dict[int, List[int]] = {}
+    for i, s in enumerate(segs):
+        remaining.setdefault(id(s), []).append(i)
+    out = []
+    for s in segments:
+        idxs = remaining.get(id(s))
+        if idxs:
+            i = idxs.pop(0)
+            out.append(AggregatePartials([ap.partials[i]],
+                                         [ap.dim_values[i]],
+                                         [ap.spans[i]], ap.intervals))
+        else:
+            out.append(AggregatePartials([], [], [], ap.intervals))
+    return out
+
+
+def split_partials_by_segment(ap: AggregatePartials,
+                              segments: Sequence[Segment]
+                              ) -> List[AggregatePartials]:
+    """The splitter for make_aggregate_partials_multi's items:
+    `ap.partials` is parallel to `_segments_for(segments, ap.intervals)`
+    by construction, so the per-input-segment split is exact. The data
+    node's fused segment-cache path turns one wave's results back into
+    per-segment cache entries with it."""
+    segs = _segments_for(segments, ap.intervals or [])
+    if len(ap.partials) != len(segs):
+        raise ValueError("split_partials_by_segment needs one partial per "
+                         "matched segment")
+    return _split_by_segment(ap, segs, segments)
 
 
 def make_aggregate_partials_multi(items, device: torch.device,
-                                  on_batch=None) -> List[object]:
+                                  on_batch=None,
+                                  clamp: bool = True) -> List[object]:
     """Partials of several queries in one call, their segments batched
     across queries. `items` are (query, segments, check) triples over local
     segments. Returns one entry per item: its AggregatePartials, or the
     exception its planning or its `check` raised. Each query's host
     derivation is the single-query path's, so each result equals that
-    query's make_aggregate_partials. `on_batch(n_queries, n_segments,
-    fill)` observes each stacked run."""
+    query's make_aggregate_partials with the same `clamp` (the data node
+    passes False, as the reference's fused path never clamps).
+    `on_batch(n_queries, n_segments, fill)` observes each stacked run."""
     work: List[batching.BatchWork] = []
     meta: List[object] = []   # per item: (intervals, segs, vals) or result
     for query, segments, check in items:
         try:
             intervals, segs, kds_per_seg, vals_per_seg = _query_plan(
-                query, segments)
+                query, segments, clamp)
         except Exception as e:
             meta.append(e)
             continue
@@ -374,8 +519,10 @@ def make_aggregate_partials_multi(items, device: torch.device,
             kds_per_seg=kds_per_seg, aggs=query.aggregations,
             flt=query.filter, virtual_columns=query.virtual_columns,
             context=query.context_map, check=check))
-    multi = iter(batching.run_multi_with_batching(work, device,
-                                                  on_batch=on_batch))
+    with trace_span("engine/partials", queries=len(work),
+                    segments=sum(len(w.segs) for w in work)):
+        multi = iter(batching.run_multi_with_batching(work, device,
+                                                      on_batch=on_batch))
     out: List[object] = []
     for m in meta:
         if not isinstance(m, tuple):

@@ -42,7 +42,9 @@ import torch
 from druid_tpu_torch.data import cascade
 from druid_tpu_torch.data.dictionary import Dictionary, merge_dictionaries
 from druid_tpu_torch.data.segment import Segment, ValueType
+from druid_tpu_torch.obs import dispatch as dispatch_mod
 from druid_tpu_torch.query import filters as F
+from druid_tpu_torch.utils.emitter import Monitor
 from druid_tpu_torch.utils.expression import (lut_for_site, parse_expression,
                                               rewrite_string_sites)
 
@@ -853,6 +855,25 @@ def filter_bitmap_stats() -> FilterBitmapStats:
     return _FBMP_STATS
 
 
+class FilterBitmapMonitor(Monitor):
+    """Emits query/filter/{deviceBitmapHits,deviceBitmapMisses,bytes} per
+    tick (deltas over the tick window, the DevicePoolMonitor discipline)."""
+
+    def __init__(self, source: Optional[FilterBitmapStats] = None):
+        self.source = source or _FBMP_STATS
+        self._last = self.source.snapshot()
+
+    def do_monitor(self, emitter):
+        s = self.source.snapshot()
+        last, self._last = self._last, s
+        emitter.metric("query/filter/deviceBitmapHits",
+                       s["hits"] - last["hits"])
+        emitter.metric("query/filter/deviceBitmapMisses",
+                       s["misses"] - last["misses"])
+        emitter.metric("query/filter/bytes",
+                       s["builtBytes"] - last["builtBytes"])
+
+
 def leaf_bits(segment: Segment, dim: str, lut: np.ndarray, rows: int,
               perm: Optional[np.ndarray] = None) -> np.ndarray:
     """A leaf's row bitmap as host bools, padded with False to `rows`:
@@ -937,7 +958,9 @@ def _fill_single(segment: Segment, node: DeviceBitmapNode, padded_rows: int,
     """One (segment, filter) fill: the node's combined words."""
     words = [_fill_leaf_words(segment, dim, lut, padded_rows, device, perm,
                               perm_key) for dim, lut in node.leaves]
-    return structure_words(node.structure, words.__getitem__)
+    out = structure_words(node.structure, words.__getitem__)
+    dispatch_mod.record("filterFill")
+    return out
 
 
 def stage_device_bitmaps(segment: Segment, filter_node: Optional[FilterNode],
@@ -1014,6 +1037,8 @@ def stage_device_bitmaps_multi(items: Sequence[Tuple], padded_rows: int,
             out[i][node.col] = resident
             for j, col in wave_dups[(id(segment), key)]:
                 out[j][col] = resident
+    if pending:
+        dispatch_mod.record("filterFill")       # one wave
     return out
 
 

@@ -87,6 +87,7 @@ from druid_tpu_torch.engine.filters import (ConstNode, FilterNode,
                                             time_mask)
 from druid_tpu_torch.engine.kernels import (AggKernel, count_true,
                                             expand_batch, make_kernel)
+from druid_tpu_torch.obs import dispatch as dispatch_mod
 from druid_tpu_torch.engine.mmagg import (MM_GROUP_LIMIT, mm_reduce,
                                           mm_reduce_stacked)
 from druid_tpu_torch.utils.expression import (lut_for_site, parse_expression,
@@ -970,6 +971,7 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
         arrays, mask, key, key_dims, filter_node, kernels, spec.num_total,
         strategy=spec.strategy, span=spec.window,
         packed_cols=packed_cols or None)
+    dispatch_mod.record("segment")
     host_states = {k.name: k.host_post(st, segment)
                    for k, st in zip(kernels, states)}
     return SegmentPartial(segment=segment, spec=spec,

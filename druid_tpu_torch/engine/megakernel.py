@@ -49,11 +49,14 @@ from druid_tpu_torch.engine.filters import (AndNode, DeviceBitmapNode,
                                             item_bitmap_nodes, leaf_digest,
                                             leaf_words,
                                             pack_mask_words, structure_words)
+from druid_tpu_torch.utils.emitter import Monitor
 
 #: launches of kernel B2 in this process (the chip smoke resets it)
 LAUNCHES = 0
 #: calls that `mega_reduce` routed to the plain version (CPU tensors)
 PLAIN_CALLS = 0
+#: guards both counts: the broker's scatter threads launch concurrently
+COUNT_LOCK = threading.Lock()
 
 #: process default (on, as in the reference); tests flip it with set_enabled
 _ENABLED = True
@@ -101,6 +104,25 @@ _STATS = MegaStats()
 
 def stats() -> MegaStats:
     return _STATS
+
+
+class MegakernelMonitor(Monitor):
+    """Emits query/megakernel/{hits,fallbacks,donatedBytes} per tick
+    (deltas over the tick window, the FilterBitmapMonitor discipline).
+    The port donates no carries, so donatedBytes is always 0: the metric
+    stays so that dashboards read the reference's names."""
+
+    def __init__(self, source: Optional[MegaStats] = None):
+        self.source = source or _STATS
+        self._last = self.source.snapshot()
+
+    def do_monitor(self, emitter):
+        s = self.source.snapshot()
+        last, self._last = self._last, s
+        emitter.metric("query/megakernel/hits", s["hits"] - last["hits"])
+        emitter.metric("query/megakernel/fallbacks",
+                       s["fallbacks"] - last["fallbacks"])
+        emitter.metric("query/megakernel/donatedBytes", 0)
 
 
 class MegaBitmapNode(FilterNode):
@@ -298,7 +320,8 @@ def mega_reduce_cuda(arrays: Dict[str, torch.Tensor], words: torch.Tensor,
     global LAUNCHES
     out = sorted_reduce_mod.launch(arrays, key, kernels, num_total, span,
                                    mask_words=words, packed_cols=packed_cols)
-    LAUNCHES += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
     return out
 
 
@@ -314,7 +337,8 @@ def mega_reduce(arrays: Dict[str, torch.Tensor], mask: torch.Tensor,
     global PLAIN_CALLS
     words = fused_mask_words(arrays, mask, mega_nodes)
     if key.device.type == "cpu":
-        PLAIN_CALLS += 1
+        with COUNT_LOCK:
+            PLAIN_CALLS += 1
         return mega_reduce_plain(arrays, words, key, kernels, num_total,
                                  span)
     return mega_reduce_cuda(arrays, words, key, kernels, num_total, span,

@@ -37,6 +37,7 @@ import torch
 from druid_tpu_torch.data import cascade
 from druid_tpu_torch.data.segment import Segment, ValueType
 from druid_tpu_torch.engine.contracts import CASCADE_MAX_RUNS
+from druid_tpu_torch.obs import dispatch as dispatch_mod
 from druid_tpu_torch.engine.filters import (AndNode, ConstNode, FilterNode,
                                             LutNode, NotNode, NumericCmpNode,
                                             NumericEqNode, NumericInNode,
@@ -370,5 +371,6 @@ def try_run_domain(segment: Segment, intervals, granularity, spec,
         .index_add_(0, key, torch.where(mask, lens, 0))
     states = tuple(_run_update(rk, cols, mask, key, lens, spec.num_total)
                    for rk in rkernels)
+    dispatch_mod.record("runDomain")
     cascade.code_domain_stats().record(segment.n_rows)
     return counts, states

@@ -38,6 +38,7 @@ and the [G] output grids.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -53,6 +54,8 @@ from druid_tpu_torch.engine.contracts import (BLK_SMALL_W, BLK_WIDE_W, LANE,
 LAUNCHES = 0
 #: calls that `sorted_reduce` routed to the plain version (CPU tensors)
 PLAIN_CALLS = 0
+#: guards both counts: the broker's scatter threads launch concurrently
+COUNT_LOCK = threading.Lock()
 
 SENTINEL = 2**31 - 1
 _KINDS = {"count": 0, "sum_i32": 1, "sum_f32": 2, "min_i32": 3,
@@ -344,7 +347,8 @@ def sorted_reduce_cuda(arrays: Dict[str, torch.Tensor], mask: torch.Tensor,
                                              device=key.device))
     out = launch(arrays, keyx, kernels, num_total, span,
                  packed_cols=packed_cols)
-    LAUNCHES += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
     return out
 
 
@@ -356,7 +360,8 @@ def sorted_reduce(arrays: Dict[str, torch.Tensor], mask: torch.Tensor,
     `packed_cols` as word inputs)."""
     global PLAIN_CALLS
     if key.device.type == "cpu":
-        PLAIN_CALLS += 1
+        with COUNT_LOCK:
+            PLAIN_CALLS += 1
         return sorted_reduce_plain(arrays, mask, key, kernels, num_total,
                                    span)
     return sorted_reduce_cuda(arrays, mask, key, kernels, num_total, span,

@@ -4,6 +4,7 @@ import ctypes
 import os
 import re
 import subprocess
+import threading
 import sys
 from pathlib import Path
 
@@ -25,6 +26,8 @@ ROOT = Path(__file__).resolve().parent.parent
 
 
 def test_import_pulls_in_neither_jax_nor_druid_tpu():
+    """Importing every module of the port, the serving path's cluster/,
+    server/ and obs/ among them, loads neither jax nor druid_tpu."""
     code = ("import sys, druid_tpu_torch, druid_tpu_torch.engine, "
             "druid_tpu_torch.data.generator, druid_tpu_torch.data.convert, "
             "druid_tpu_torch.data.packed, druid_tpu_torch.data.cascade, "
@@ -32,7 +35,16 @@ def test_import_pulls_in_neither_jax_nor_druid_tpu():
             "druid_tpu_torch.engine.hll, druid_tpu_torch.engine.executor, "
             "druid_tpu_torch.query.model, druid_tpu_torch.engine.filters, "
             "druid_tpu_torch.engine.engines, druid_tpu_torch.data.segment, "
-            "druid_tpu_torch.ext; "
+            "druid_tpu_torch.ext, druid_tpu_torch.cluster, "
+            "druid_tpu_torch.cluster.broker, druid_tpu_torch.cluster.view, "
+            "druid_tpu_torch.cluster.cache, druid_tpu_torch.cluster.metadata, "
+            "druid_tpu_torch.cluster.resilience, "
+            "druid_tpu_torch.cluster.timeline, "
+            "druid_tpu_torch.cluster.shardspec, druid_tpu_torch.server, "
+            "druid_tpu_torch.server.deadline, "
+            "druid_tpu_torch.server.querymanager, druid_tpu_torch.obs, "
+            "druid_tpu_torch.obs.trace, druid_tpu_torch.obs.dispatch, "
+            "druid_tpu_torch.utils.emitter; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'druid_tpu' "
             "or m.startswith('druid_tpu.')); print(bad)")
@@ -156,3 +168,38 @@ def test_params_struct_fields_in_source_order():
     body = src[src.index("struct SrParams {"):].split("};")[0]
     members = re.findall(r"(\w+)(?:\[\w+\])?;", body)
     assert members == [name for name, _ in sr._Params._fields_]
+
+
+def test_serving_entry_points_need_cuda_without_a_device(monkeypatch):
+    """The serving path's entry points resolve their device as the
+    executor does: the default is CUDA, and without a card they raise."""
+    from druid_tpu_torch.cluster import Broker, DataNode, InventoryView
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DataNode("n0")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Broker(InventoryView())
+    assert DataNode("n0", device="cpu").device.type == "cpu"
+    assert Broker(InventoryView(), device="cpu").device.type == "cpu"
+
+
+def test_launch_counters_are_guarded():
+    """The kernels' counts are bumped under a lock (the broker's scatter
+    threads launch concurrently): 8 threads x 50 calls of the plain route
+    count 400."""
+    kernels = [K.CountKernel(A.CountAggregator("rows"))]
+    key = torch.zeros(64, dtype=torch.int32)
+    mask = torch.ones(64, dtype=torch.bool)
+    before = sr.PLAIN_CALLS
+
+    def work():
+        for _ in range(50):
+            sr.sorted_reduce({}, mask, key, kernels, 256, 1)
+    threads = [threading.Thread(target=work) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert sr.PLAIN_CALLS - before == 400
+    assert isinstance(sr.COUNT_LOCK, type(threading.Lock()))
+    assert isinstance(mk.COUNT_LOCK, type(threading.Lock()))
