@@ -189,18 +189,42 @@ Phases, each fatal on failure:
      fusion runs in phase 14: two B-ts through one node's
      run_partials_group, a stacked run holding both queries, each equal to
      the query alone, B1/B2 0.
-The device pool's snapshot is printed after phases 6-10, 12, 13 and
-15-17; at the default budget none may show an eviction.
+ 18. HTTP serving (right after phase 17, on its 8 segments and its three
+     DataNodes, so nothing stages again; B1/B2 counts set to 0 before it
+     and read after it): a DataNodeServer over each node, a
+     RemoteDataNodeClient per server in a fresh InventoryView, a Broker
+     over it (hedging off) served by QueryHttpServer(QueryLifecycle(...)),
+     every call loopback in this process. The four main-path queries
+     posted as JSON to /druid/v2, 1 cold and 3 warm runs each, against
+     numpy and phase 17's broker rows, with B1 x8 a groupBy run and B2 x8
+     a filtered run (topN and timeseries none) and no failed node call;
+     the warm p50 beside phase 17's broker p50 and the executor's, the
+     trace's time by span from GET /druid/v2/trace/<id> (query,
+     broker/scatter, broker/node, the summed datanode/query,
+     engine/partials, broker/merge) and the wire's logical and emitted
+     bytes a run. Then the groupBy with wireCompress off in its context
+     (the same rows, no fewer bytes than compressed), with If-None-Match
+     set to the last reply's etag (a 304 and no launch), and with node0's
+     server stopped (failover to the replicas, the same rows, failed calls
+     on node0 only); then node1 served anew with SchedulerConfig() beside
+     node2 and two filtered groupBys posted at once (rows against numpy
+     and phase 17's; the scheduler's stats and query/queue, shed and
+     crossBatch metrics printed). The pool's resident bytes must be the
+     same before and after, and the phase must take at most 45 s.
+The device pool's snapshot is printed after phases 6-10 and 12-18; at the
+default budget none may show an eviction.
 `python3 chip_smoke.py batching` runs the build and phase 14 alone;
 `python3 chip_smoke.py extensions` the build and phase 16 with E5;
 `python3 chip_smoke.py serving` the build and phase 17 (the executor
-warms the headline segments first) with its fusion on phase 14's segments.
+warms the headline segments first) with its fusion on phase 14's segments;
+`python3 chip_smoke.py http` the build, phase 17's cluster and its four
+main-path queries (phase 18's yardstick), and phase 18.
 The line before the last is the kernels JSON line (each kernel's
 `launches` counted on phase 6's path, `launches_expressions` on phase
 12's, `launches_aggregators` on phase 13's, `launches_native_surface` on
 phase 15's, `launches_extensions` on phase 16's, `launches_serving` on
-phase 17's); the last line is {"ok": true, "device": {...}}. Details go to
-chiprun_out/chip_smoke.json.
+phase 17's, `launches_http` on phase 18's); the last line is {"ok": true,
+"device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 import dataclasses
 import json
@@ -4468,13 +4492,15 @@ def _failed_calls(broker):
     return broker.resilience.circuits.failures_by_server()
 
 
-def phase_serving(dev, segments, qs, ref, pool_before):
+def phase_serving(dev, segments, qs, ref, pool_before, extras=True):
     """Phase 17 on the 8 headline segments: the four main-path queries
-    through Broker.run_json against numpy and the executor, the segment
-    cache, the result cache, a dead node, and the seven monitors; the pool
-    may not grow past `pool_before` (phase 16's snapshot; None: the one
-    after the executor's runs here). Returns (report, {"B1": launches,
-    "B2": launches}) of the broker's runs."""
+    through Broker.run_json against numpy and the executor, then (with
+    `extras`) the segment cache, the result cache, a dead node, and the
+    seven monitors; the pool may not grow past `pool_before` (phase 16's
+    snapshot; None: the one after the executor's runs here). Returns
+    (report, {"B1": launches, "B2": launches} of the broker's runs, kept):
+    `kept` holds the three DataNodes and each query's broker rows for
+    phase 18."""
     import torch
     from druid_tpu_torch.cluster import LruCache, ResilienceMetricsMonitor
     from druid_tpu_torch.data.cascade import CodeDomainMonitor
@@ -4517,6 +4543,7 @@ def phase_serving(dev, segments, qs, ref, pool_before):
     if pool_before is None:
         pool_before = pool_snapshot("the executor's runs")
     sr.LAUNCHES = mk.LAUNCHES = 0
+    broker_rows = {}
     for name, q in qs.items():
         want = wants.get(name, (0, 0))
         runs = []
@@ -4532,6 +4559,7 @@ def phase_serving(dev, segments, qs, ref, pool_before):
                 raise AssertionError(f"serving {name}: broker rows differ "
                                      f"from the executor's")
             runs.append((ms, spans))
+        broker_rows[name] = rows
         warm = [ms for ms, _ in runs[1:]]
         names = sorted({k for _, sp in runs[1:] for k in sp})
         split = {k: float(np.median([sp.get(k, 0.0) for _, sp in runs[1:]]))
@@ -4550,6 +4578,13 @@ def phase_serving(dev, segments, qs, ref, pool_before):
                 "engine/partials", "broker/merge") if k in split))
     if _failed_calls(broker):
         raise AssertionError(f"failed node calls: {_failed_calls(broker)}")
+    kept = {"nodes": nodes, "rows": broker_rows}
+    if not extras:
+        counted = {"B1": sr.LAUNCHES, "B2": mk.LAUNCHES}
+        sr.LAUNCHES, mk.LAUNCHES = base
+        broker.stop()
+        out["phase_s"] = time.perf_counter() - t_phase
+        return out, counted, kept
 
     # the segment cache: 8 misses, then 8 hits and no B1 launch; the
     # broker's replica picks are reseeded before each run, so that each
@@ -4655,11 +4690,11 @@ def phase_serving(dev, segments, qs, ref, pool_before):
     counted = {"B1": sr.LAUNCHES, "B2": mk.LAUNCHES}
     sr.LAUNCHES, mk.LAUNCHES = base
     broker.stop()
-    del ex, broker, nodes, view
+    del ex, broker, view
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase serving took {out['phase_s']:.1f} s; (B1, B2) launched "
         f"{counted}")
-    return out, counted
+    return out, counted, kept
 
 
 def serving_fusion(dev, segments):
@@ -4725,6 +4760,280 @@ def serving_fusion(dev, segments):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the HTTP serving path (QueryHttpServer -> Broker ->
+# RemoteDataNodeClient -> HTTP -> DataNodeServer -> DataNode)
+# ---------------------------------------------------------------------------
+
+HTTP_WARM = 3                        # warm runs a query (p50 of 3)
+HTTP_PHASE_LIMIT_S = 45.0
+
+
+def http_post(port, q, headers=None):
+    """POST a native query to the broker's /druid/v2: (status, headers,
+    rows or None, ms, body bytes). The host clock stops after the reply is
+    read and decoded, and the card is synchronised."""
+    import torch
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/druid/v2", json.dumps(q).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, hdrs, body = r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        status, hdrs, body = e.code, dict(e.headers), e.read()
+    rows = json.loads(body) if body else None
+    torch.cuda.synchronize()
+    return status, hdrs, rows, (time.perf_counter() - t) * 1e3, body
+
+
+def http_trace(port, qid):
+    """Time by span name of the trace GET /druid/v2/trace/<qid> serves."""
+    import urllib.request
+    from druid_tpu_torch.obs import trace
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/druid/v2/trace/{qid}",
+            timeout=60) as r:
+        return trace.phase_breakdown(json.loads(r.read())["spans"])
+
+
+def http_cluster(nodes, dev, servers=None):
+    """One RemoteDataNodeClient per DataNodeServer in a fresh
+    InventoryView (each node's segments announced from its /status), a
+    Broker over it with hedging off, and the broker's QueryHttpServer.
+    `servers` defaults to a new plain DataNodeServer per node."""
+    from druid_tpu_torch.cluster import (Broker, DataNodeServer,
+                                         InventoryView, RemoteDataNodeClient,
+                                         ResiliencePolicy)
+    from druid_tpu_torch.server import QueryHttpServer, QueryLifecycle
+    if servers is None:
+        servers = [DataNodeServer(n).start() for n in nodes]
+    view = InventoryView()
+    for n, srv in zip(nodes, servers):
+        client = RemoteDataNodeClient(n.name, srv.url)
+        view.register(client)
+        for d in client.served_descriptors():
+            view.announce(n.name, d)
+    broker = Broker(view, device=dev,
+                    resilience_policy=ResiliencePolicy(hedge_enabled=False))
+    http = QueryHttpServer(QueryLifecycle(broker)).start()
+    return servers, broker, http
+
+
+def phase_http(dev, qs, ref, kept, serving):
+    """Phase 18 over phase 17's three DataNodes (nothing stages again): a
+    DataNodeServer per node, a Broker over RemoteDataNodeClients, its
+    QueryHttpServer; the four main-path queries posted as JSON, 1 cold and
+    HTTP_WARM warm runs each, against numpy and phase 17's broker rows,
+    with B1 x8 a groupBy run and B2 x8 a filtered run; then the groupBy
+    with wireCompress off, with If-None-Match (a 304, no B1 launch) and
+    with node0's server stopped (failover, the same rows); then two
+    concurrent filtered groupBys through a node served with the
+    scheduler. `serving` is phase 17's report (its broker and executor
+    p50s). Returns (report, {"B1": launches, "B2": launches})."""
+    import threading
+    from druid_tpu_torch.cluster import DataNodeServer, wire
+    from druid_tpu_torch.data.devicepool import device_pool
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    from druid_tpu_torch.server.scheduler import (SchedulerConfig,
+                                                  SchedulerMetricsMonitor)
+    from druid_tpu_torch.utils.emitter import InMemoryEmitter, ServiceEmitter
+    t_phase = time.perf_counter()
+    nodes, broker_rows = kept["nodes"], kept["rows"]
+    pool_before = device_pool().snapshot().resident_bytes
+    checks = {"groupby": check_groupby, "topn": check_topn,
+              "timeseries": check_timeseries,
+              "groupby_filtered": check_filtered}
+    wants = {"groupby": (SEGMENTS, 0), "groupby_filtered": (0, SEGMENTS)}
+    base = (sr.LAUNCHES, mk.LAUNCHES)
+
+    def launches():
+        return (sr.LAUNCHES, mk.LAUNCHES)
+
+    def wire_bytes():
+        w = wire.wire_stats().snapshot()
+        return w["logicalBytes"], w["wireBytes"]
+
+    verified = {}
+
+    def check(name, rows, body):
+        """The rows against numpy and phase 17's broker rows; a reply whose
+        bytes equal one already checked for `name` holds the same rows."""
+        if verified.get(name) == body:
+            return
+        checks[name](rows, ref)
+        if not same_rows(rows, broker_rows[name]):
+            raise AssertionError(f"http {name}: rows differ from phase "
+                                 f"17's broker")
+        verified[name] = body
+
+    def run(q, qid, headers=None):
+        """One POST of `q` under `qid`: (status, headers, rows, ms,
+        (B1, B2) launched, (logical, emitted) wire bytes, body)."""
+        l0, w0 = launches(), wire_bytes()
+        status, hdrs, rows, ms, body = http_post(
+            http.port, dict(q, context=dict(q.get("context", {}),
+                                            queryId=qid)), headers)
+        return (status, hdrs, rows, ms,
+                tuple(a - b for a, b in zip(launches(), l0)),
+                tuple(a - b for a, b in zip(wire_bytes(), w0)), body)
+
+    servers, broker, http = http_cluster(nodes, dev)
+    sr.LAUNCHES = mk.LAUNCHES = 0
+    out = {"nodes": len(nodes)}
+    etag = None
+    for name, q in qs.items():
+        want = wants.get(name, (0, 0))
+        runs = []
+        for i in range(1 + HTTP_WARM):
+            qid = f"http-{name}-{i}"
+            status, hdrs, rows, ms, got, wb, body = run(q, qid)
+            if status != 200 or got != want:
+                raise AssertionError(f"http {name}: status {status}, (B1, "
+                                     f"B2) launched {got}, expected {want}")
+            check(name, rows, body)
+            runs.append((ms, http_trace(http.port, qid), wb))
+            if name == "groupby":
+                etag = hdrs.get("X-Druid-ETag")
+        warm = [ms for ms, _, _ in runs[1:]]
+        split = {k: float(np.median([sp.get(k, 0.0)
+                                     for _, sp, _ in runs[1:]]))
+                 for k in sorted({k for _, sp, _ in runs[1:] for k in sp})}
+        res = out[name] = {
+            "cold_ms": runs[0][0], "warm_ms": warm,
+            "p50_ms": float(np.median(warm)),
+            "broker_p50_ms": serving[name]["p50_ms"],
+            "executor_p50_ms": serving[name]["executor_p50_ms"],
+            "b1_b2_launches_per_run": list(want), "span_ms": split,
+            "wire_logical_bytes": runs[-1][2][0],
+            "wire_emitted_bytes": runs[-1][2][1]}
+        log(f"  {name}: HTTP rows equal numpy and phase 17's; warm p50 "
+            f"{res['p50_ms']:.1f} ms (in-process broker "
+            f"{res['broker_p50_ms']:.1f} ms, executor "
+            f"{res['executor_p50_ms']:.1f} ms), first {res['cold_ms']:.1f} "
+            f"ms, (B1, B2) {want} a run; trace: " + ", ".join(
+                f"{k} {split[k]:.1f}" for k in (
+                    "query", "broker/scatter", "broker/node",
+                    "datanode/query", "engine/partials", "broker/merge")
+                if k in split)
+            + f"; wire {res['wire_logical_bytes']} B logical, "
+            f"{res['wire_emitted_bytes']} B emitted a run")
+    if _failed_calls(broker):
+        raise AssertionError(f"failed node calls: {_failed_calls(broker)}")
+
+    # the groupBy with the compressed wire refused in its context
+    q = qs["groupby"]
+    plain = dict(q, context={"wireCompress": False})
+    status, _, rows, ms, got, wb, body = run(plain, "http-groupby-plain")
+    if status != 200 or got != (SEGMENTS, 0):
+        raise AssertionError(f"wireCompress off: status {status}, (B1, B2) "
+                             f"{got}")
+    check("groupby", rows, body)
+    comp = out["groupby"]["wire_emitted_bytes"]
+    if comp > wb[1]:
+        raise AssertionError(f"compressed wire {comp} B > plain {wb[1]} B")
+    out["wire_compress_off"] = {"ms": ms, "logical_bytes": wb[0],
+                                "emitted_bytes": wb[1]}
+    log(f"  wireCompress off: the same rows in {ms:.1f} ms, {wb[1]} B "
+        f"emitted ({comp} B compressed)")
+
+    # If-None-Match with the last groupBy reply's etag: 304, no launch
+    status, hdrs, _, ms, got, _, _ = run(q, "http-groupby-304",
+                                         {"If-None-Match": etag})
+    if status != 304 or got != (0, 0) or hdrs.get("X-Druid-ETag") != etag:
+        raise AssertionError(f"If-None-Match: status {status}, (B1, B2) "
+                             f"{got}")
+    out["not_modified"] = {"ms": ms, "etag": etag}
+    log(f"  If-None-Match: 304 in {ms:.2f} ms, no B1/B2 launch")
+
+    # failover: node0's server stopped
+    servers[0].stop()
+    fail = {"runs_ms": []}
+    for i in range(4):
+        status, _, rows, ms, got, _, body = run(q, f"http-failover-{i}")
+        if status != 200 or got != (SEGMENTS, 0):
+            raise AssertionError(f"failover: status {status}, (B1, B2) "
+                                 f"{got}")
+        check("groupby", rows, body)
+        fail["runs_ms"].append(ms)
+        if _failed_calls(broker).get(nodes[0].name):
+            break
+    failed = _failed_calls(broker)
+    if set(failed) != {nodes[0].name}:
+        raise AssertionError(f"failover: failed calls {failed}")
+    fail["failed_calls"] = failed
+    out["failover"] = fail
+    log(f"  failover (node0's server stopped): {len(fail['runs_ms'])} "
+        f"groupBy runs {[round(x, 1) for x in fail['runs_ms']]} ms, rows "
+        f"unchanged, B1 x8 each; failed calls {failed}")
+    http.stop()
+    broker.stop()
+    for srv in servers[1:]:
+        srv.stop()
+
+    # the scheduler: node1 served anew with SchedulerConfig(), beside
+    # node2 (the two hold every segment between them); two filtered
+    # groupBys at once through the broker's resource
+    sched_srv = DataNodeServer(
+        nodes[1], scheduler_config=SchedulerConfig()).start()
+    servers, broker, http = http_cluster(
+        nodes[1:], dev, [sched_srv, DataNodeServer(nodes[2]).start()])
+    fq = qs["groupby_filtered"]
+    results = [None, None]
+    l0 = launches()
+
+    def post(i):
+        results[i] = http_post(http.port, dict(fq, context={
+            "queryId": f"http-sched-{i}"}))
+    threads = [threading.Thread(target=post, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    got = tuple(a - b for a, b in zip(launches(), l0))
+    for status, _, rows, _, body in results:
+        if status != 200:
+            raise AssertionError(f"scheduler: status {status}")
+        check("groupby_filtered", rows, body)
+    sink = InMemoryEmitter()
+    SchedulerMetricsMonitor(sched_srv.scheduler).do_monitor(
+        ServiceEmitter("historical", "chip", sink))
+    sched = {"ms": [r[3] for r in results], "b1_b2_launches": list(got),
+             "stats": sched_srv.scheduler.stats.snapshot(),
+             "metrics": [(e.metric, e.value) for e in sink.metrics()]}
+    out["scheduler"] = sched
+    log(f"  scheduler: two filtered groupBys at once through node1's "
+        f"scheduler in {[round(x, 1) for x in sched['ms']]} ms, rows equal "
+        f"numpy and phase 17's, (B1, B2) {got}; stats {sched['stats']}; "
+        + ", ".join(f"{m} {v}" for m, v in sched["metrics"]))
+    if _failed_calls(broker):
+        raise AssertionError(f"failed node calls: {_failed_calls(broker)}")
+    http.stop()
+    broker.stop()
+    for srv in servers:
+        srv.stop()
+
+    after = device_pool().snapshot().resident_bytes
+    out["pool"] = {"before": pool_before, "after": after}
+    if after != pool_before:
+        raise AssertionError(f"http: the pool went from {pool_before} B to "
+                             f"{after} B")
+    counted = {"B1": sr.LAUNCHES, "B2": mk.LAUNCHES}
+    sr.LAUNCHES, mk.LAUNCHES = base
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  pool {after} B resident before and after; phase http took "
+        f"{out['phase_s']:.1f} s; (B1, B2) launched {counted}; "
+        f"{card_line()}")
+    if out["phase_s"] > HTTP_PHASE_LIMIT_S:
+        raise AssertionError(f"phase http took {out['phase_s']:.1f} s, "
+                             f"over {HTTP_PHASE_LIMIT_S} s")
+    return out, counted
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4772,8 +5081,8 @@ def main():
         log("phase serving, the 8 headline segments")
         segments = headline_segments()
         qs = queries(segments)
-        out, counted = phase_serving(dev, segments, qs,
-                                     numpy_reference(segments), None)
+        out, counted, _ = phase_serving(dev, segments, qs,
+                                        numpy_reference(segments), None)
         del segments
         log("phase serving: cross-query fusion on phase 14's segments")
         out["fusion"] = serving_fusion(dev, hourly_segments())
@@ -4781,6 +5090,24 @@ def main():
         os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
         with open(os.path.join(root, "chiprun_out",
                                "chip_smoke_serving.json"), "w") as f:
+            json.dump(out, f, indent=1, default=float)
+        return 0
+    if sys.argv[1:] == ["http"]:
+        # the build, phase 17's cluster and its four main-path queries (the
+        # rows and p50s phase 18 compares with), and phase 18
+        log("phase serving (the main-path queries), the 8 headline segments")
+        segments = headline_segments()
+        qs = queries(segments)
+        ref = numpy_reference(segments)
+        serving, _, kept = phase_serving(dev, segments, qs, ref, None,
+                                         extras=False)
+        log(f"phase http: a QueryHttpServer over a Broker over "
+            f"{SERVING_NODES} DataNodeServers")
+        out, counted = phase_http(dev, qs, ref, kept, serving)
+        out["launches"] = counted
+        os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(root, "chiprun_out",
+                               "chip_smoke_http.json"), "w") as f:
             json.dump(out, f, indent=1, default=float)
         return 0
     if sys.argv[1:] == ["extensions"]:
@@ -4837,10 +5164,16 @@ def main():
 
     log(f"phase serving: a Broker over {SERVING_NODES} data nodes (replica "
         f"{SERVING_REPLICAS}), the 8 headline segments")
-    report["serving"], serving_launches = phase_serving(
+    report["serving"], serving_launches, kept = phase_serving(
         dev, segments, qs, ref, pools["extensions"])
     pools["serving"] = pool_snapshot("serving")
-    del segments, captured, ref
+
+    log(f"phase http: a QueryHttpServer over a Broker over {SERVING_NODES} "
+        f"DataNodeServers, the same segments")
+    report["http"], http_launches = phase_http(dev, qs, ref, kept,
+                                               report["serving"])
+    pools["http"] = pool_snapshot("http")
+    del segments, captured, ref, kept
 
     log(f"phase sorted, {SORTED_SEGMENTS} segments in the rollup order")
     report["sorted"] = phase_sorted(dev)
@@ -4929,6 +5262,7 @@ def main():
             "launches_native_surface": native_launches[which],
             "launches_extensions": ext_launches[which],
             "launches_serving": serving_launches[which],
+            "launches_http": http_launches[which],
             "max_abs_err": max(err, parity["max_abs_err"],
                                report["packed_parity"]["max_abs_err"],
                                expr_errs[which]),

@@ -1,12 +1,17 @@
-"""The in-process serving path: a Broker that finds segments on each
-datasource's timeline (InventoryView), scatters to the DataNodes holding
-their replicas, retries, hedges and caches, and merges the nodes' partial
-states. The HTTP data node, the coordinator, realtime servers, lookups, the
-MetadataStore and chaos wait for later slices (ROADMAP)."""
+"""The serving path: a Broker that finds segments on each datasource's
+timeline (InventoryView), scatters to the DataNodes holding their replicas
+(in process, or over HTTP through a RemoteDataNodeClient per
+DataNodeServer), retries, hedges and caches, and merges the nodes' partial
+states (cluster/wire.py carries them over HTTP). The coordinator, realtime
+servers, lookups, the MetadataStore, chaos and the router wait for later
+slices (ROADMAP)."""
 from druid_tpu_torch.cluster.broker import Broker, MissingSegmentsError
 from druid_tpu_torch.cluster.cache import (Cache, CacheConfig, HybridCache,
                                            LruCache, RemoteCacheClient,
                                            RemoteCacheServer)
+from druid_tpu_torch.cluster.dataserver import (DataNodeServer,
+                                                RemoteDataNodeClient,
+                                                RemoteQueryError)
 from druid_tpu_torch.cluster.metadata import (SegmentAllocationError,
                                               SegmentDescriptor,
                                               StaleTermError)
@@ -35,5 +40,6 @@ __all__ = [
     "MissingSegmentsError", "LruCache", "Cache", "HybridCache",
     "RemoteCacheClient", "RemoteCacheServer", "CacheConfig",
     "ResiliencePolicy", "BrokerResilience", "PartialResult",
-    "ResilienceMetricsMonitor",
+    "ResilienceMetricsMonitor", "DataNodeServer", "RemoteDataNodeClient",
+    "RemoteQueryError",
 ]

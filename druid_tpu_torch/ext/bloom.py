@@ -118,21 +118,29 @@ class BloomKernel(AggKernel):
         self.field = spec.field
         self.m = spec.m_bits
         col = segment.dims.get(self.field)
-        if col is None:
-            raise ValueError(f"bloom aggregator needs a string dimension, "
-                             f"got {self.field!r}")
-        self._pos_tbl = segment.aux_cached(
+        if col is None and self.field in segment.metrics:
+            raise self._not_a_dimension()
+        # a segment without the column (the wire's merge-side null segment,
+        # which only combines and finishes states) has no position table;
+        # update refuses to run without one
+        self._pos_tbl = None if col is None else segment.aux_cached(
             ("bloom_pos", self.field, self.m),
             lambda: np.stack([_bit_positions(v, self.m) for v in
                               col.dictionary.values]).astype(np.int32))
+
+    def _not_a_dimension(self):
+        return ValueError(f"bloom aggregator needs a string dimension, "
+                          f"got {self.field!r}")
 
     def signature(self):
         return f"bloom({self.field},{self.m})"
 
     def aux_arrays(self):
-        return [self._pos_tbl]
+        return [] if self._pos_tbl is None else [self._pos_tbl]
 
     def update(self, cols, mask, keys, num):
+        if self._pos_tbl is None:
+            raise self._not_a_dimension()
         pos, = HllKernel._gather((self._pos_tbl,), cols[self.field])
         return _presence(keys[:, None] * self.m + pos, mask[:, None],
                          num * self.m, torch.uint8).view(num, self.m)

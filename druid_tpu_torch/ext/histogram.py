@@ -117,7 +117,9 @@ class HistogramKernel(AggKernel):
 
     def host_post(self, state, segment):
         counts, mn, mx = (t.cpu().numpy() for t in state)
-        return {"counts": counts, "min": mn, "max": mx}
+        # keys in sorted order, as the reference's states come back from
+        # the device, so both packages write the same wire bytes
+        return {"counts": counts, "max": mx, "min": mn}
 
     def combine(self, a, b):
         return {"counts": a["counts"] + b["counts"],

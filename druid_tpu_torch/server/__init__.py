@@ -1,13 +1,33 @@
-"""Query admission, cancellation and deadlines: what the broker needs of
-the reference package's `server/`. The HTTP resource, the data-node
-scheduler, the router, security, the lifecycle and subscriptions come with
-the HTTP serving slice."""
+"""The query resource and what stands around it: the HTTP server
+(QueryHttpServer), the per-query lifecycle (auth, request log, metrics),
+security, the data-node scheduler, and query admission, cancellation and
+deadlines. The router (A18), SQL and Avatica (A16) and subscriptions (A15)
+wait for later slices (ROADMAP)."""
 from druid_tpu_torch.server.deadline import Deadline, context_timeout_ms
+from druid_tpu_torch.server.http import QueryHttpServer
+from druid_tpu_torch.server.lifecycle import (QueryLifecycle, RequestLogger,
+                                              Unauthorized)
 from druid_tpu_torch.server.querymanager import (QueryCapacityError,
                                                  QueryInterruptedError,
                                                  QueryManager, QueryScheduler,
                                                  QueryTimeoutError, QueryToken)
+from druid_tpu_torch.server.scheduler import (DataNodeScheduler,
+                                              SchedulerConfig,
+                                              SchedulerMetricsMonitor)
+from druid_tpu_torch.server.security import (AllowAllAuthenticator,
+                                             AllowAllAuthorizer, AuthChain,
+                                             AuthenticationResult,
+                                             BasicHTTPAuthenticator,
+                                             Escalator, Permission,
+                                             RoleBasedAuthorizer,
+                                             authorizer_for_query)
 
 __all__ = ["Deadline", "context_timeout_ms", "QueryManager",
            "QueryScheduler", "QueryToken", "QueryInterruptedError",
-           "QueryTimeoutError", "QueryCapacityError"]
+           "QueryTimeoutError", "QueryCapacityError", "QueryHttpServer",
+           "QueryLifecycle", "RequestLogger", "Unauthorized",
+           "DataNodeScheduler", "SchedulerConfig", "SchedulerMetricsMonitor",
+           "AuthChain", "AuthenticationResult", "AllowAllAuthenticator",
+           "BasicHTTPAuthenticator", "AllowAllAuthorizer",
+           "RoleBasedAuthorizer", "Permission", "Escalator",
+           "authorizer_for_query"]
