@@ -211,19 +211,39 @@ Phases, each fatal on failure:
      and phase 17's; the scheduler's stats and query/queue, shed and
      crossBatch metrics printed). The pool's resident bytes must be the
      same before and after, and the phase must take at most 45 s.
-The device pool's snapshot is printed after phases 6-10 and 12-18; at the
+ 19. SQL (right after phase 18, on phase 17's three DataNodes served
+     anew, so nothing stages again; B1/B2 counts set to 0 before it and
+     read after it): a Broker over RemoteDataNodeClients behind
+     QueryHttpServer(QueryLifecycle(broker), sql_executor=SqlExecutor(
+     broker)), and a RouterHttpServer in front of it, every call loopback
+     in this process. The schema discovery (a merged segmentMetadata
+     scatter) timed apart; the four main-path queries as Druid SQL posted
+     to the router's /druid/v2/sql, 1 cold and 3 warm runs each, against
+     numpy and phase 18's native rows, with B1 x8 a groupBy run and B2 x8
+     a filtered run (each statement carries the native queries' day as
+     a __time range, so its plan equals the native query but for the
+     timeseries' floatSum, and reuses its staged blocks), each statement's
+     explain() and planning time printed, and its warm p50 beside phase
+     18's native p50 over HTTP; one Avatica round trip of the groupBy
+     (open, prepareAndExecute, fetch, close; the same rows, B1 x8) and one
+     native groupBy through the router (phase 18's rows, B1 x8). The
+     pool's resident bytes must be the same before and after, and the
+     phase must take at most 45 s.
+The device pool's snapshot is printed after phases 6-10 and 12-19; at the
 default budget none may show an eviction.
 `python3 chip_smoke.py batching` runs the build and phase 14 alone;
 `python3 chip_smoke.py extensions` the build and phase 16 with E5;
 `python3 chip_smoke.py serving` the build and phase 17 (the executor
 warms the headline segments first) with its fusion on phase 14's segments;
 `python3 chip_smoke.py http` the build, phase 17's cluster and its four
-main-path queries (phase 18's yardstick), and phase 18.
+main-path queries (phase 18's yardstick), and phase 18;
+`python3 chip_smoke.py sql` the same and phase 19.
 The line before the last is the kernels JSON line (each kernel's
 `launches` counted on phase 6's path, `launches_expressions` on phase
 12's, `launches_aggregators` on phase 13's, `launches_native_surface` on
 phase 15's, `launches_extensions` on phase 16's, `launches_serving` on
-phase 17's, `launches_http` on phase 18's); the last line is {"ok": true,
+phase 17's, `launches_http` on phase 18's, `launches_sql` on phase
+19's); the last line is {"ok": true,
 "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 import dataclasses
@@ -4769,15 +4789,15 @@ HTTP_WARM = 3                        # warm runs a query (p50 of 3)
 HTTP_PHASE_LIMIT_S = 45.0
 
 
-def http_post(port, q, headers=None):
-    """POST a native query to the broker's /druid/v2: (status, headers,
-    rows or None, ms, body bytes). The host clock stops after the reply is
-    read and decoded, and the card is synchronised."""
+def http_post(port, q, headers=None, path="/druid/v2"):
+    """POST a JSON payload (a native query to /druid/v2 by default):
+    (status, headers, rows or None, ms, body bytes). The host clock stops
+    after the reply is read and decoded, and the card is synchronised."""
     import torch
     import urllib.error
     import urllib.request
     req = urllib.request.Request(
-        f"http://127.0.0.1:{port}/druid/v2", json.dumps(q).encode(),
+        f"http://127.0.0.1:{port}{path}", json.dumps(q).encode(),
         headers={"Content-Type": "application/json", **(headers or {})})
     t = time.perf_counter()
     try:
@@ -4800,11 +4820,12 @@ def http_trace(port, qid):
         return trace.phase_breakdown(json.loads(r.read())["spans"])
 
 
-def http_cluster(nodes, dev, servers=None):
+def http_cluster(nodes, dev, servers=None, sql=False):
     """One RemoteDataNodeClient per DataNodeServer in a fresh
     InventoryView (each node's segments announced from its /status), a
-    Broker over it with hedging off, and the broker's QueryHttpServer.
-    `servers` defaults to a new plain DataNodeServer per node."""
+    Broker over it with hedging off, and the broker's QueryHttpServer
+    (with a SqlExecutor over the broker where `sql`). `servers` defaults
+    to a new plain DataNodeServer per node."""
     from druid_tpu_torch.cluster import (Broker, DataNodeServer,
                                          InventoryView, RemoteDataNodeClient,
                                          ResiliencePolicy)
@@ -4819,7 +4840,12 @@ def http_cluster(nodes, dev, servers=None):
             view.announce(n.name, d)
     broker = Broker(view, device=dev,
                     resilience_policy=ResiliencePolicy(hedge_enabled=False))
-    http = QueryHttpServer(QueryLifecycle(broker)).start()
+    sql_executor = None
+    if sql:
+        from druid_tpu_torch.sql import SqlExecutor
+        sql_executor = SqlExecutor(broker)
+    http = QueryHttpServer(QueryLifecycle(broker),
+                           sql_executor=sql_executor).start()
     return servers, broker, http
 
 
@@ -4870,6 +4896,7 @@ def phase_http(dev, qs, ref, kept, serving):
             raise AssertionError(f"http {name}: rows differ from phase "
                                  f"17's broker")
         verified[name] = body
+        kept.setdefault("http_rows", {})[name] = rows
 
     def run(q, qid, headers=None):
         """One POST of `q` under `qid`: (status, headers, rows, ms,
@@ -5034,6 +5061,279 @@ def phase_http(dev, qs, ref, kept, serving):
     return out, counted
 
 
+SQL_WARM = 3                         # warm runs a statement (p50 of 3)
+SQL_PHASE_LIMIT_S = 45.0
+AVATICA_PATH = "/druid/v2/sql/avatica/"
+
+
+def sql_statements(qs):
+    """The four main-path queries as Druid SQL, with the native queries'
+    time range (as a dashboard sends it: the planner turns it into the
+    query's interval) and filter values."""
+    fields = qs["groupby_filtered"]["filter"]["fields"]
+    in_a = ", ".join(f"'{v}'" for v in qs["topn"]["filter"]["values"])
+    in_f = ", ".join(f"'{v}'" for v in fields[0]["values"])
+    head = fields[1]["field"]["value"]
+    day = (f"__time >= TIMESTAMP '{DAY[0]} 00:00:00' AND "
+           f"__time < TIMESTAMP '{DAY[1]} 00:00:00'")
+    aggs = 'COUNT(*) AS "rows", SUM(metLong) AS lsum'
+    return {
+        "groupby": f"SELECT dimA, dimB, {aggs}, MAX(metFloat) AS fmax "
+                   f"FROM bench WHERE {day} AND metLong BETWEEN 100 AND "
+                   f"9900 GROUP BY dimA, dimB",
+        "topn": f"SELECT dimB, {aggs} FROM bench WHERE {day} AND dimA IN "
+                f"({in_a}) GROUP BY dimB ORDER BY lsum DESC LIMIT 100",
+        "timeseries": f"SELECT FLOOR(__time TO HOUR) AS t, {aggs}, "
+                      f"MAX(metFloat) AS fmax, SUM(metFloat) AS dsum "
+                      f"FROM bench WHERE {day} GROUP BY 1",
+        "groupby_filtered": f"SELECT dimA, dimB, {aggs}, MAX(metFloat) AS "
+                            f"fmax FROM bench WHERE {day} AND dimA IN "
+                            f"({in_f}) AND dimB <> '{head}' AND metLong "
+                            f"BETWEEN 100 AND 9900 GROUP BY dimA, dimB"}
+
+
+def sql_as_native(name, rows):
+    """SQL object rows in the shape of the native rows the numpy checks
+    read."""
+    from druid_tpu_torch.utils.intervals import parse_ts
+    if name == "topn":
+        return [{"result": rows}]
+    if name == "timeseries":
+        return [{"timestamp": parse_ts(r["t"]),
+                 "result": {k: v for k, v in r.items() if k != "t"}}
+                for r in rows]
+    return [{"event": r} for r in rows]
+
+
+def sql_same_as_native(name, rows, native, ref):
+    """SQL rows equal the native rows of the same query: exactly, but for
+    the timeseries' float sum (floatSum in the SQL plan, doubleSum in the
+    native query) within 1e-5 * sum|v| of its bucket."""
+    from druid_tpu_torch.utils.intervals import parse_ts
+    if name == "topn":
+        return rows == native[0]["result"]
+    if name == "timeseries":
+        keys = ("rows", "lsum", "fmax")
+        return len(rows) == len(native) and all(
+            parse_ts(a["t"]) == b["timestamp"]
+            and all(a[k] == b["result"][k] for k in keys)
+            and abs(a["dsum"] - b["result"]["dsum"]) <= 1e-5 * ref["h_abs"][i]
+            for i, (a, b) in enumerate(zip(rows, native)))
+    return rows == [r["event"] for r in native]
+
+
+def plan_summary(plan):
+    """queryType, strategy-relevant shape and filter of an explain()."""
+    def filt(f):
+        if f is None:
+            return None
+        if f["type"] in ("and", "or"):
+            return {f["type"]: [filt(x) for x in f["fields"]]}
+        if f["type"] == "not":
+            return {"not": filt(f["field"])}
+        if f["type"] == "in":
+            return f"in {f['dimension']} ({len(f['values'])} values)"
+        if f["type"] == "bound":
+            return (f"bound {f.get('lower')} <= {f['dimension']} <= "
+                    f"{f.get('upper')} ({f.get('ordering')})")
+        return f"{f['type']} {f.get('dimension')} {f.get('value', '')}"
+    return {"queryType": plan["queryType"],
+            "granularity": plan.get("granularity"),
+            "intervals": plan.get("intervals"),
+            "aggregations": [f"{a['type']}({a.get('fieldName', '')})"
+                             for a in plan.get("aggregations", [])],
+            "filter": filt(plan.get("filter"))}
+
+
+def avatica_roundtrip(port, stmt):
+    """open, prepareAndExecute, fetch to the end, close through the router:
+    (rows, ms, frames, signature column names)."""
+    def rpc(payload):
+        status, _, body, _, _ = http_post(port, payload, path=AVATICA_PATH)
+        if status != 200 or body.get("response") == "error":
+            raise AssertionError(f"avatica {payload['request']}: {status} "
+                                 f"{body}")
+        return body
+    t = time.perf_counter()
+    cid = rpc({"request": "openConnection"})["connectionId"]
+    rs = rpc({"request": "prepareAndExecute", "connectionId": cid,
+              "statementId": 0, "sql": stmt,
+              "maxRowCount": -1})["results"][0]
+    rows, done, frames = rs["firstFrame"]["rows"], rs["firstFrame"]["done"], 1
+    while not done:
+        frame = rpc({"request": "fetch", "connectionId": cid,
+                     "statementId": 0, "offset": len(rows),
+                     "fetchMaxRowCount": 1 << 20})["frame"]
+        rows, done, frames = rows + frame["rows"], frame["done"], frames + 1
+    rpc({"request": "closeStatement", "connectionId": cid, "statementId": 0})
+    rpc({"request": "closeConnection", "connectionId": cid})
+    names = [c["columnName"] for c in rs["signature"]["columns"]]
+    return rows, (time.perf_counter() - t) * 1e3, frames, names
+
+
+def phase_sql(dev, qs, ref, kept, http_report):
+    """Phase 19 over phase 17's three DataNodes, each served anew by a
+    DataNodeServer (nothing stages again): a Broker over
+    RemoteDataNodeClients behind QueryHttpServer(QueryLifecycle(broker),
+    sql_executor=SqlExecutor(broker)), and a RouterHttpServer in front of
+    it. The schema discovery timed apart; the four main-path queries as
+    SQL posted to the router's /druid/v2/sql, 1 cold and SQL_WARM warm
+    runs each, against numpy and phase 18's native rows, with B1 x8 a
+    groupBy run and B2 x8 a filtered run as their plans' strategies give;
+    each statement's explain() and planning time; one Avatica round trip
+    of the groupBy and one native groupBy through the router. Returns
+    (report, {"B1": launches, "B2": launches})."""
+    from druid_tpu_torch.data.devicepool import device_pool
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    from druid_tpu_torch.query.model import query_from_json
+    from druid_tpu_torch.server import RouterHttpServer, TieredBrokerSelector
+    t_phase = time.perf_counter()
+    nodes, native_rows = kept["nodes"], kept["http_rows"]
+    pool_before = device_pool().snapshot().resident_bytes
+    checks = {"groupby": check_groupby, "topn": check_topn,
+              "timeseries": check_timeseries,
+              "groupby_filtered": check_filtered}
+    wants = {"groupby": (SEGMENTS, 0), "groupby_filtered": (0, SEGMENTS)}
+    base = (sr.LAUNCHES, mk.LAUNCHES)
+
+    def launches():
+        return (sr.LAUNCHES, mk.LAUNCHES)
+
+    servers, broker, http = http_cluster(nodes, dev, sql=True)
+    router = RouterHttpServer(TieredBrokerSelector(
+        {"_default": [f"http://127.0.0.1:{http.port}"]},
+        default_tier="_default")).start()
+    sq = http.sql_executor
+    builds = []
+    build_schema = sq._build_schema
+
+    def timed_build():
+        t = time.perf_counter()
+        schema = build_schema()
+        builds.append((time.perf_counter() - t) * 1e3)
+        return schema
+    sq._build_schema = timed_build
+    sr.LAUNCHES = mk.LAUNCHES = 0
+    out = {"nodes": len(nodes)}
+    stmts = sql_statements(qs)
+
+    # schema discovery: one merged segmentMetadata scatter per datasource
+    sq.schema()
+    out["schema"] = {"ms": builds[0], "tables": sq.schema().tables}
+    if sq.schema().tables.get("bench") != {
+            "dimA": "string", "dimB": "string", "metLong": "long",
+            "metFloat": "float"} or launches() != (0, 0):
+        raise AssertionError(f"schema {sq.schema().tables}, (B1, B2) "
+                             f"{launches()}")
+    log(f"  schema discovery (segmentMetadata over {len(nodes)} nodes): "
+        f"{builds[0]:.1f} ms, {sq.schema().tables}")
+
+    verified = {}
+    sql_rows = {}
+    for name, stmt in stmts.items():
+        plan = sq.explain(stmt)
+        same_plan = {k: v for k, v in query_from_json(plan).to_json().items()
+                     if k != "context"} == {
+            k: v for k, v in query_from_json(qs[name]).to_json().items()
+            if k != "context"}
+        plan_ms = []
+        for _ in range(3):
+            t = time.perf_counter()
+            sq.explain(stmt)
+            plan_ms.append((time.perf_counter() - t) * 1e3)
+        want = wants.get(name, (0, 0))
+        runs = []
+        for i in range(1 + SQL_WARM):
+            l0 = launches()
+            status, _, rows, ms, body = http_post(
+                router.port, {"query": stmt, "context": {
+                    "queryId": f"sql-{name}-{i}"}}, path="/druid/v2/sql")
+            got = tuple(a - b for a, b in zip(launches(), l0))
+            if status != 200 or got != want:
+                raise AssertionError(f"sql {name}: status {status}, (B1, "
+                                     f"B2) launched {got}, expected {want}"
+                                     + ("" if status == 200 else
+                                        f"; {rows}"))
+            if verified.get(name) != body:
+                checks[name](sql_as_native(name, rows), ref)
+                if not sql_same_as_native(name, rows, native_rows[name], ref):
+                    raise AssertionError(f"sql {name}: rows differ from "
+                                         f"phase 18's native rows")
+                verified[name] = body
+            sql_rows[name] = rows
+            runs.append(ms)
+        res = out[name] = {
+            "statement": stmt if len(stmt) < 300 else stmt[:300] + "...",
+            "plan": plan_summary(plan), "plan_equals_native": same_plan,
+            "plan_ms": float(np.median(plan_ms)),
+            "cold_ms": runs[0], "warm_ms": runs[1:],
+            "p50_ms": float(np.median(runs[1:])),
+            "native_http_p50_ms": http_report[name]["p50_ms"],
+            "b1_b2_launches_per_run": list(want), "rows": len(rows)}
+        log(f"  {name}: explain {json.dumps(res['plan'])}; the native "
+            f"query's plan: {same_plan}")
+        log(f"  {name}: SQL rows ({len(rows)}) equal numpy and phase 18's; "
+            f"warm p50 {res['p50_ms']:.1f} ms through the router (native "
+            f"over HTTP {res['native_http_p50_ms']:.1f} ms), first "
+            f"{res['cold_ms']:.1f} ms, planning {res['plan_ms']:.2f} ms, "
+            f"(B1, B2) {want} a run")
+    if _failed_calls(broker):
+        raise AssertionError(f"failed node calls: {_failed_calls(broker)}")
+
+    # one Avatica round trip of the groupBy, through the router
+    l0 = launches()
+    rows, ms, frames, names = avatica_roundtrip(router.port,
+                                                stmts["groupby"])
+    got = tuple(a - b for a, b in zip(launches(), l0))
+    if got != wants["groupby"] or rows != [[r[c] for c in names]
+                                           for r in sql_rows["groupby"]]:
+        raise AssertionError(f"avatica: (B1, B2) {got}, or rows other "
+                             f"than the SQL groupBy's")
+    out["avatica"] = {"ms": ms, "frames": frames, "rows": len(rows)}
+    log(f"  Avatica (open, prepareAndExecute, fetch, close) of the groupBy: "
+        f"{len(rows)} rows in {frames} frames, {ms:.1f} ms, the SQL rows, "
+        f"(B1, B2) {got}")
+
+    # one native groupBy through the router
+    l0 = launches()
+    status, _, rows, ms, _ = http_post(router.port, dict(
+        qs["groupby"], context={"queryId": "sql-native-groupby"}))
+    got = tuple(a - b for a, b in zip(launches(), l0))
+    if status != 200 or got != wants["groupby"] \
+            or not same_rows(rows, native_rows["groupby"]):
+        raise AssertionError(f"native through the router: status {status}, "
+                             f"(B1, B2) {got}")
+    out["native_groupby_via_router"] = {"ms": ms}
+    log(f"  native groupBy through the router: phase 18's rows in "
+        f"{ms:.1f} ms, (B1, B2) {got}")
+    if _failed_calls(broker):
+        raise AssertionError(f"failed node calls: {_failed_calls(broker)}")
+    router.stop()
+    http.stop()
+    broker.stop()
+    for srv in servers:
+        srv.stop()
+
+    out["schema"]["builds_ms"] = builds
+    after = device_pool().snapshot().resident_bytes
+    out["pool"] = {"before": pool_before, "after": after}
+    if after != pool_before:
+        raise AssertionError(f"sql: the pool went from {pool_before} B to "
+                             f"{after} B")
+    counted = {"B1": sr.LAUNCHES, "B2": mk.LAUNCHES}
+    sr.LAUNCHES, mk.LAUNCHES = base
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  pool {after} B resident before and after; {len(builds)} schema "
+        f"build(s) {[round(b, 1) for b in builds]} ms; phase sql took "
+        f"{out['phase_s']:.1f} s; (B1, B2) launched {counted}; "
+        f"{card_line()}")
+    if out["phase_s"] > SQL_PHASE_LIMIT_S:
+        raise AssertionError(f"phase sql took {out['phase_s']:.1f} s, "
+                             f"over {SQL_PHASE_LIMIT_S} s")
+    return out, counted
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5110,6 +5410,29 @@ def main():
                                "chip_smoke_http.json"), "w") as f:
             json.dump(out, f, indent=1, default=float)
         return 0
+    if sys.argv[1:] == ["sql"]:
+        # the build, phase 17's cluster and its four main-path queries,
+        # phase 18 (the native rows and p50s phase 19 compares with), and
+        # phase 19
+        log("phase serving (the main-path queries), the 8 headline segments")
+        segments = headline_segments()
+        qs = queries(segments)
+        ref = numpy_reference(segments)
+        serving, _, kept = phase_serving(dev, segments, qs, ref, None,
+                                         extras=False)
+        log(f"phase http: a QueryHttpServer over a Broker over "
+            f"{SERVING_NODES} DataNodeServers")
+        http_out, http_counted = phase_http(dev, qs, ref, kept, serving)
+        log("phase sql: Druid SQL through a RouterHttpServer to the "
+            "broker's /druid/v2/sql")
+        out, counted = phase_sql(dev, qs, ref, kept, http_out)
+        out["launches"], out["http"] = counted, http_out
+        out["http"]["launches"] = http_counted
+        os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(root, "chiprun_out",
+                               "chip_smoke_sql.json"), "w") as f:
+            json.dump(out, f, indent=1, default=float)
+        return 0
     if sys.argv[1:] == ["extensions"]:
         # the build and phase 16 alone, E5 on phase 14's segments made here
         # (a quicker check of that phase; its numbers are in the log)
@@ -5173,6 +5496,12 @@ def main():
     report["http"], http_launches = phase_http(dev, qs, ref, kept,
                                                report["serving"])
     pools["http"] = pool_snapshot("http")
+
+    log("phase sql: Druid SQL through a RouterHttpServer to the broker's "
+        "/druid/v2/sql, the same nodes")
+    report["sql"], sql_launches = phase_sql(dev, qs, ref, kept,
+                                            report["http"])
+    pools["sql"] = pool_snapshot("sql")
     del segments, captured, ref, kept
 
     log(f"phase sorted, {SORTED_SEGMENTS} segments in the rollup order")
@@ -5263,6 +5592,7 @@ def main():
             "launches_extensions": ext_launches[which],
             "launches_serving": serving_launches[which],
             "launches_http": http_launches[which],
+            "launches_sql": sql_launches[which],
             "max_abs_err": max(err, parity["max_abs_err"],
                                report["packed_parity"]["max_abs_err"],
                                expr_errs[which]),

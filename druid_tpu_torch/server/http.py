@@ -4,13 +4,15 @@
 Reference analogs:
   server/QueryResource.java:77,126,153-156 — POST /druid/v2/ (native JSON),
     DELETE /druid/v2/{id} cancel, datasource listing
+  sql/.../http/SqlResource.java:58,75-78 — POST /druid/v2/sql
+  sql/.../avatica/DruidAvaticaJsonHandler — POST /druid/v2/sql/avatica
   /status — the common status endpoint every node serves
 
 What waits for later slices, each refused with NotImplementedError naming
-its ROADMAP item when its constructor argument is given: `sql_executor`
-and the Avatica endpoint (A16), `subscription_hub` (A15), `coordination`
-and `overlord` (A18). Their paths answer 404, as the reference's do when
-they are not enabled.
+its ROADMAP item when its constructor argument is given:
+`subscription_hub` (A15), `coordination` and `overlord` (A18). Their paths
+answer 404, as the reference's do when they are not enabled; so do the
+SQL paths when no `sql_executor` is given.
 
 stdlib ThreadingHTTPServer stands in for Jetty; the wire format (JSON
 payloads/results) matches the reference so existing Druid HTTP clients map
@@ -51,7 +53,7 @@ def _json_value(obj):
 
 
 class QueryHttpServer:
-    """Serves a QueryLifecycle over HTTP."""
+    """Serves a QueryLifecycle (+ optional SqlExecutor) over HTTP."""
 
     def __init__(self, lifecycle: QueryLifecycle, sql_executor=None,
                  host: str = "127.0.0.1", port: int = 0,
@@ -70,10 +72,12 @@ class QueryHttpServer:
         into the lifecycle's on_result hook (chained with any existing
         hook) so query success/failure counts emit per monitor tick.
 
-        sql_executor (A16), coordination and overlord (A18) and
-        subscription_hub (A15) wait for later slices."""
-        for name, arg, item in (("sql_executor", sql_executor, "A16"),
-                                ("coordination", coordination, "A18"),
+        sql_executor: optional sql.SqlExecutor — serves POST
+        /druid/v2/sql and, through an AvaticaServer over it, POST
+        /druid/v2/sql/avatica; both answer 404 "SQL not enabled" without
+        it. coordination and overlord (A18) and subscription_hub (A15)
+        wait for later slices."""
+        for name, arg, item in (("coordination", coordination, "A18"),
                                 ("overlord", overlord, "A18"),
                                 ("subscription_hub", subscription_hub,
                                  "A15")):
@@ -81,7 +85,12 @@ class QueryHttpServer:
                 raise NotImplementedError(f"QueryHttpServer({name}=...) is "
                                           f"not ported yet (ROADMAP {item})")
         self.lifecycle = lifecycle
+        self.sql_executor = sql_executor
         self.auth_chain = auth_chain
+        self.avatica = None
+        if sql_executor is not None:
+            from druid_tpu_torch.server.avatica import AvaticaServer
+            self.avatica = AvaticaServer(sql_executor)
 
         # ---- observability: /metrics registry + query-count monitor ----
         from druid_tpu_torch.obs.prometheus import MetricRegistry, compose_sink
@@ -213,9 +222,44 @@ class QueryHttpServer:
                             "/druid/v2/subscriptions":
                         self._reply(404, {"error": "subscriptions not "
                                           "enabled"})
-                    elif self.path.rstrip("/") in ("/druid/v2/sql",
-                                                   "/druid/v2/sql/avatica"):
-                        self._reply(404, {"error": "SQL not enabled"})
+                    elif self.path.rstrip("/") == "/druid/v2/sql/avatica":
+                        if outer.avatica is None:
+                            self._reply(404, {"error": "SQL not enabled"})
+                            return
+                        authorize = None
+                        if outer.auth_chain is not None:
+                            def authorize(stmt, params=(), _id=identity):
+                                return outer._authorize_sql(_id, stmt,
+                                                            params)
+                        self._reply(200, outer.avatica.handle(
+                            payload, authorize, identity=identity))
+                    elif self.path.rstrip("/") == "/druid/v2/sql":
+                        if outer.sql_executor is None:
+                            self._reply(404, {"error": "SQL not enabled"})
+                            return
+                        if outer.auth_chain is not None and not \
+                                outer._authorize_sql(
+                                    identity, payload["query"],
+                                    payload.get("parameters") or ()):
+                            self._reply(403, {"error": "unauthorized"})
+                            return
+                        cols, rows = outer.sql_executor.execute(
+                            payload["query"],
+                            payload.get("parameters") or (),
+                            payload.get("context") or None)
+                        # SQL surface of the partial-result contract:
+                        # the shaped rows stay typed through the executor
+                        missing = getattr(rows, "missing_segments", None)
+                        headers = None if missing is None else {
+                            "X-Druid-Response-Context": json.dumps(
+                                {"partial": True,
+                                 "missingSegments": missing})}
+                        fmt = payload.get("resultFormat", "object")
+                        if fmt == "array":
+                            self._reply(200, list(rows), headers)
+                        else:
+                            self._reply(200, [dict(zip(cols, r))
+                                              for r in rows], headers)
                     elif self.path.rstrip("/") == "/druid/v2":
                         if payload.get("queryType") == "scan" and \
                                 "application/x-ndjson" in (
@@ -361,6 +405,22 @@ class QueryHttpServer:
     def _datasources(self):
         r = self.lifecycle.runner
         return list(getattr(r, "datasources", []) or [])
+
+    def _authorize_sql(self, identity, statement: str,
+                       parameters=()) -> bool:
+        """Per-table READ authorization for a SQL statement — shared by
+        the plain SQL resource and the Avatica endpoint (SqlResource's
+        resource-action collection)."""
+        from druid_tpu_torch.server.security import (READ, Resource,
+                                                     ResourceAction)
+        tables, is_meta = self.sql_executor.tables_of(statement, parameters)
+        # INFORMATION_SCHEMA itself needs no table grant, but a statement
+        # mixing it with real tables (UNION ALL arm, IN-subquery) must still
+        # pass the real tables' READ checks — is_meta alone is not a bypass
+        if is_meta and not tables:
+            return True
+        return self.auth_chain.authorize_all(
+            identity, [ResourceAction(Resource(t), READ) for t in tables])
 
     def metrics_tick(self) -> None:
         """Drive the query-count monitor once (tests; the scheduler drives

@@ -4,8 +4,8 @@ arrays), the same queries through `druid_tpu_torch.engine.QueryExecutor`
 on the CPU, the same checks against numpy, plus the JSON round trip of
 every type the port registers.
 
-Left out, each with the ROADMAP item it waits for:
-test_extension_sql (A16, SQL), test_extension_sharded_merge (the broker
+test_extension_sql is in tests/test_torch_sql.py. Left out, each with
+the ROADMAP item it waits for: test_extension_sharded_merge (the broker
 and sharded merge: A11, A12), the three protobuf parser cases (A15,
 ingestion) and the seven URI namespace lookup cases (A18, the cluster's
 lookups).

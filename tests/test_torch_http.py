@@ -9,7 +9,8 @@ sums within 1e-5 * sum|v|).
   tests/test_aux.py:177,197       native query, /status, datasources, 400
   tests/test_cluster.py:444-484   the broker's 429 handling
   tests/test_cluster.py:546,593   ETag / If-None-Match 304, 403 not 304
-  tests/test_resilience.py:379,445,511 (their SQL parts wait for A16)
+  tests/test_resilience.py:379,445,511 (their SQL parts are in
+                                  tests/test_torch_sql.py)
                                   Retry-After jitter, the partial-result
                                   header, the resilience monitor
   tests/test_streaming_scan.py:119,150,170  NDJSON scan streaming
@@ -49,6 +50,7 @@ from druid_tpu_torch.server import (AllowAllAuthenticator,
                                     QueryCapacityError, QueryHttpServer,
                                     QueryLifecycle, QueryManager,
                                     RequestLogger, RoleBasedAuthorizer,
+                                    RouterHttpServer, TieredBrokerSelector,
                                     Unauthorized, authorizer_for_query)
 from druid_tpu_torch.server.security import READ
 from druid_tpu_torch.utils.emitter import InMemoryEmitter, ServiceEmitter
@@ -141,11 +143,19 @@ def test_http_status_and_errors(segs, served):
 
 
 @pytest.mark.parametrize("arg,item", [
-    ("sql_executor", "A16"), ("subscription_hub", "A15"),
+    ("leader_clients", "A18"), ("subscription_hub", "A15"),
     ("coordination", "A18"), ("overlord", "A18")])
 def test_waiting_surfaces_refuse_construction(segs, arg, item):
+    """The router's control-plane proxy (`leader_clients`) waits with the
+    coordination endpoints; SQL is served since A16
+    (tests/test_torch_sql.py)."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        QueryHttpServer(QueryLifecycle(_ex(segs)), **{arg: object()})
+        if arg == "leader_clients":
+            RouterHttpServer(TieredBrokerSelector({"_default": []},
+                                                  "_default"),
+                             leader_clients={"coordinator": object()})
+        else:
+            QueryHttpServer(QueryLifecycle(_ex(segs)), **{arg: object()})
 
 
 def test_http_serializes_extension_values(segs, served):
@@ -381,7 +391,8 @@ def test_partial_contract_over_http(segs, served):
     header, exactly once and without the complete result's ETag, with the
     body rows equal to the reference's over the surviving segments; a
     strict query over the same cluster answers 500 without the header.
-    (The SQL half of tests/test_resilience.py:445 waits for A16.)"""
+    (The SQL half of tests/test_resilience.py:445 is in
+    tests/test_torch_sql.py.)"""
     view = InventoryView()
     dead, live = _DeadNode("dead"), DataNode("live", device="cpu")
     view.register(dead)

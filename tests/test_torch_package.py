@@ -28,8 +28,8 @@ ROOT = Path(__file__).resolve().parent.parent
 def test_import_pulls_in_neither_jax_nor_druid_tpu():
     """Importing every module of the port, the serving path's cluster/,
     server/ and obs/ among them (the HTTP data node, the wire, the query
-    resource, the scheduler, security and /metrics), loads neither jax nor
-    druid_tpu."""
+    resource, the scheduler, security and /metrics) and the SQL layer with
+    Avatica and the router, loads neither jax nor druid_tpu."""
     code = ("import sys, druid_tpu_torch, druid_tpu_torch.engine, "
             "druid_tpu_torch.data.generator, druid_tpu_torch.data.convert, "
             "druid_tpu_torch.data.packed, druid_tpu_torch.data.cascade, "
@@ -51,7 +51,9 @@ def test_import_pulls_in_neither_jax_nor_druid_tpu():
             "druid_tpu_torch.server.http, druid_tpu_torch.server.lifecycle, "
             "druid_tpu_torch.server.scheduler, "
             "druid_tpu_torch.server.security, druid_tpu_torch.obs.catalog, "
-            "druid_tpu_torch.obs.prometheus; "
+            "druid_tpu_torch.obs.prometheus, druid_tpu_torch.sql, "
+            "druid_tpu_torch.sql.planner, druid_tpu_torch.server.avatica, "
+            "druid_tpu_torch.server.router; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'druid_tpu' "
             "or m.startswith('druid_tpu.')); print(bad)")
