@@ -229,7 +229,29 @@ Phases, each fatal on failure:
      native groupBy through the router (phase 18's rows, B1 x8). The
      pool's resident bytes must be the same before and after, and the
      phase must take at most 45 s.
-The device pool's snapshot is printed after phases 6-10 and 12-19; at the
+ 20. storage (right after phase 19, on phase 6's 8 in-memory segments and
+     numpy reference; B1/B2 counts set to 0 before it and read after it):
+     the golden fixtures tests/golden/segment_v1 and segment_v2 (written by
+     the reference) loaded on the card, their columns against the
+     fixture's arrays rebuilt with no RNG (NaN and -0.0 bit for bit) and
+     their groupBy against numpy; the 8 segments pushed (format V2) to a
+     LocalDeepStorage in a temporary directory, segment 0 again as V1,
+     each push's seconds, on-disk bytes by part kind and logical bytes
+     printed; a LoadQueuePeon loading the 8 into a fresh DataNode announced
+     on an InventoryView (none failed, no lazy column materialized by the
+     load) and one tick of its DataNodeServer's SegmentLoadMonitor
+     (segment/load/{time,bytes,compressedBytes} > 0); the four main-path
+     queries posted to /druid/v2 of a broker over it, 1 cold and 3 warm
+     runs each, against numpy and phase 18's rows, B1 x8 a groupBy run and
+     B2 x8 a filtered run, cold and warm p50 beside phase 18's p50, and
+     cascade.decode_stats before and after; the filtered groupBy's leaves
+     on loaded segment 0 (the words B2 read) against lut[ids]'s words; a
+     groupBy filtered on a dimB tail value whose leaf ships sparse, through
+     B2 x8, against numpy; segment 0 loaded from V1 equal to the in-memory
+     one bit for bit, its groupBy equal to the V2 copy's; no pool
+     eviction. The directory is removed at the end; the phase must take at
+     most 150 s.
+The device pool's snapshot is printed after phases 6-10 and 12-20; at the
 default budget none may show an eviction.
 `python3 chip_smoke.py batching` runs the build and phase 14 alone;
 `python3 chip_smoke.py extensions` the build and phase 16 with E5;
@@ -237,13 +259,15 @@ default budget none may show an eviction.
 warms the headline segments first) with its fusion on phase 14's segments;
 `python3 chip_smoke.py http` the build, phase 17's cluster and its four
 main-path queries (phase 18's yardstick), and phase 18;
-`python3 chip_smoke.py sql` the same and phase 19.
+`python3 chip_smoke.py sql` the same and phase 19;
+`python3 chip_smoke.py storage` the build, phase 6's data and numpy
+reference, and phase 20.
 The line before the last is the kernels JSON line (each kernel's
 `launches` counted on phase 6's path, `launches_expressions` on phase
 12's, `launches_aggregators` on phase 13's, `launches_native_surface` on
 phase 15's, `launches_extensions` on phase 16's, `launches_serving` on
 phase 17's, `launches_http` on phase 18's, `launches_sql` on phase
-19's); the last line is {"ok": true,
+19's, `launches_storage` on phase 20's); the last line is {"ok": true,
 "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 import dataclasses
@@ -5334,6 +5358,416 @@ def phase_sql(dev, qs, ref, kept, http_report):
     return out, counted
 
 
+STORAGE_WARM = 3                     # warm runs a query (p50 of 3)
+STORAGE_PHASE_LIMIT_S = 150.0
+GOLDEN_Q = {"queryType": "groupBy", "dataSource": "golden",
+            "intervals": [f"{DAY[0]}/{DAY[1]}"], "granularity": "all",
+            "dimensions": ["dim"],
+            "aggregations": [{"type": "count", "name": "rows"},
+                             {"type": "longSum", "name": "s",
+                              "fieldName": "lng"},
+                             {"type": "doubleSum", "name": "x",
+                              "fieldName": "dbl"}]}
+
+
+def golden_segment():
+    """tests/test_format_v2.py's _golden_segment, rebuilt with the port's
+    SegmentBuilder and no RNG: the segment tests/golden/segment_v{1,2}
+    hold."""
+    from druid_tpu_torch.data.segment import SegmentBuilder
+    from druid_tpu_torch.utils.intervals import Interval
+    rows, card = 256, 8
+    iv = Interval.of(*DAY)
+    b = SegmentBuilder("golden", iv, version="v0", partition=0)
+    b.add_columns(
+        iv.start + (np.arange(rows, dtype=np.int64) // 16),
+        {"dim": np.repeat([f"g{i}" for i in range(card)],
+                          rows // card).tolist()},
+        {"cnt": np.ones(rows, dtype=np.int64),
+         "lng": (np.arange(rows, dtype=np.int64) * 7) % 13,
+         "dbl": np.tile(np.array([0.5, -0.0, np.nan, 8.0]),
+                        rows // 4).astype(np.float64)})
+    return b.build()
+
+
+def _col_bits(a):
+    a = np.asarray(a)
+    return a.view(np.dtype(f"<i{a.dtype.itemsize}")) \
+        if np.issubdtype(a.dtype, np.floating) else a
+
+
+def same_columns(a, b, what):
+    """Two segments' columns bit for bit (NaN and -0.0 as integer bits)."""
+    if str(a.id) != str(b.id) or a.n_rows != b.n_rows \
+            or not np.array_equal(a.time_ms, b.time_ms) \
+            or list(a.dims) != list(b.dims) \
+            or list(a.metrics) != list(b.metrics):
+        raise AssertionError(f"{what}: identity, rows or schema differ")
+    for name, col in a.dims.items():
+        if col.dictionary.values != b.dims[name].dictionary.values \
+                or not np.array_equal(col.ids, b.dims[name].ids):
+            raise AssertionError(f"{what}: dimension {name} differs")
+    for name, m in a.metrics.items():
+        x, y = np.asarray(m.values), np.asarray(b.metrics[name].values)
+        if m.type != b.metrics[name].type or x.dtype != y.dtype \
+                or not np.array_equal(_col_bits(x), _col_bits(y)):
+            raise AssertionError(f"{what}: metric {name} differs")
+
+
+def check_golden(rows):
+    """The golden groupBy against numpy: 8 groups of 32 rows, lng = 7r mod
+    13, and a NaN in every group's dbl."""
+    lng = (np.arange(256) * 7) % 13
+    if len(rows) != 8:
+        raise AssertionError(f"golden groupBy: {len(rows)} rows")
+    for i, r in enumerate(rows):
+        e = r["event"]
+        if (e["dim"], e["rows"], e["s"]) != (
+                f"g{i}", 32, int(lng[32 * i:32 * (i + 1)].sum())) \
+                or not math.isnan(e["x"]):
+            raise AssertionError(f"golden groupBy row {e}")
+
+
+def part_bytes(directory):
+    """On-disk bytes of a segment directory by part kind, from its
+    meta.smoosh."""
+    kinds = {}
+    with open(os.path.join(directory, "meta.smoosh")) as f:
+        next(f)
+        for line in f:
+            name, _, start, end = line.strip().rsplit(",", 3)
+            kind = ("rle" if ".rle." in name else "pack"
+                    if name.endswith(".pack") else "lz4"
+                    if name.endswith(".lz4") else "dict"
+                    if name.endswith(".dict") else "bitmaps"
+                    if name.endswith(".bitmaps") else "index"
+                    if name == "index.json" else "block")
+            kinds[kind] = kinds.get(kind, 0) + int(end) - int(start)
+    return kinds
+
+
+class LeafLog:
+    """Wraps filters.leaf_repr and both bindings of filters.leaf_words
+    while the filtered queries run: each leaf built for `segment` is kept
+    with its kind, permutation and the words the kernel then reads."""
+
+    def __init__(self, segment):
+        from druid_tpu_torch.engine import filters as F
+        from druid_tpu_torch.engine import megakernel as mk
+        self.segment, self.F, self.mk = segment, F, mk
+        self.orig_repr, self.orig_words = F.leaf_repr, F.leaf_words
+        self.kinds, self.words = {}, []
+
+    def leaf_repr(self, segment, dim, lut, padded, perm=None, perm_key=None):
+        kind, payload = self.orig_repr(segment, dim, lut, padded, perm,
+                                       perm_key)
+        if segment is self.segment:
+            self.kinds[(dim, self.F.leaf_digest(lut))] = \
+                (kind, payload.shape[0])
+        return kind, payload
+
+    def leaf_words(self, segment, dim, lut, padded, device, perm=None,
+                   perm_key=None):
+        out = self.orig_words(segment, dim, lut, padded, device, perm,
+                              perm_key)
+        if segment is self.segment:
+            self.words.append((dim, lut, padded, perm, out))
+        return out
+
+    def __enter__(self):
+        self.F.leaf_repr = self.leaf_repr
+        self.F.leaf_words = self.mk.leaf_words = self.leaf_words
+        return self
+
+    def __exit__(self, *exc):
+        self.F.leaf_repr = self.orig_repr
+        self.F.leaf_words = self.mk.leaf_words = self.orig_words
+
+    def check(self):
+        """Each logged leaf's words equal lut[ids]'s (in its row order).
+        Returns [(dim, kind, payload length, values matched)]."""
+        seg, out = self.segment, []
+        for dim, lut, padded, perm, words in self.words:
+            bits = lut[seg.dims[dim].ids]
+            if perm is not None:
+                bits = bits[perm]
+            want = np.zeros(padded, dtype=bool)
+            want[:bits.shape[0]] = bits
+            if not np.array_equal(words.cpu().numpy(),
+                                  self.F.host_words(want)):
+                raise AssertionError(f"leaf {dim}: words differ from "
+                                     f"lut[ids]")
+            kind, size = self.kinds.get((dim, self.F.leaf_digest(lut)),
+                                        ("cached", 0))
+            out.append((dim, kind, int(size), int(lut.sum())))
+        return out
+
+
+def tail_value_reference(segments, tail):
+    """numpy rows of the headline groupBy filtered to one dimB id: {dimA
+    id: (count, long sum, float max)}."""
+    out = {}
+    for s in segments:
+        b = s.dims["dimB"].ids
+        sel = np.flatnonzero(b == tail)
+        a = s.dims["dimA"].ids[sel]
+        ml, mf = s.metrics["metLong"].values[sel], \
+            s.metrics["metFloat"].values[sel]
+        for g in np.unique(a):
+            k = a == g
+            c, ls, fm = out.get(int(g), (0, 0, np.float32(-np.inf)))
+            out[int(g)] = (c + int(k.sum()), ls + int(ml[k].sum()),
+                           max(fm, mf[k].max()))
+    return out
+
+
+def phase_storage(dev, segments, qs, ref, kept, http_report):
+    """Phase 20 on phase 6's 8 in-memory headline segments and numpy
+    reference: the golden fixtures loaded and answered on the card; the 8
+    segments persisted (V2) to a LocalDeepStorage in a temporary directory,
+    segment 0 again as V1; a LoadQueuePeon loading all 8 into a fresh
+    DataNode (no lazy column materialized by the load), whose
+    DataNodeServer's SegmentLoadMonitor ticks segment/load/* > 0; the four
+    main-path queries posted to a broker over it (1 cold and STORAGE_WARM
+    warm runs, B1 x8 a groupBy run and B2 x8 a filtered run, rows against
+    numpy and phase 18's), cascade.decode_stats before and after; the
+    filtered groupBy's leaves on loaded segment 0 against lut[ids]; a
+    sparse leaf (a dimB tail value) through B2; V1 equal to V2; no pool
+    eviction. `kept` and `http_report` are phase 17-18's (None where they
+    did not run). Returns (report, {"B1": launches, "B2": launches})."""
+    import shutil
+    import tempfile
+    import torch
+    from druid_tpu_torch.cluster import (DataNode, DataNodeServer,
+                                         InventoryView, descriptor_for)
+    from druid_tpu_torch.cluster.loadqueue import LoadQueuePeon
+    from druid_tpu_torch.data import cascade
+    from druid_tpu_torch.engine import QueryExecutor
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    from druid_tpu_torch.storage.deep import LocalDeepStorage
+    from druid_tpu_torch.storage.format import load_segment
+    from druid_tpu_torch.storage.format_v2 import segment_load_stats
+    from druid_tpu_torch.utils.emitter import InMemoryEmitter, ServiceEmitter
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = (sr.LAUNCHES, mk.LAUNCHES)
+    sr.LAUNCHES = mk.LAUNCHES = 0
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_storage_")
+    servers, broker, http, peon = [], None, None, None
+    try:
+        # 1. the golden fixtures the reference wrote, loaded on the card
+        fresh = golden_segment()
+        golden = {}
+        for name in ("segment_v1", "segment_v2"):
+            g = load_segment(os.path.join(root, "tests", "golden", name))
+            same_columns(fresh, g, name)
+            rows = QueryExecutor([g], device=dev).run_json(GOLDEN_Q)
+            check_golden(rows)
+            golden[name] = rows
+        out["golden"] = {"rows": len(golden["segment_v2"]),
+                         "v1_equals_v2": json.dumps(golden["segment_v1"])
+                         == json.dumps(golden["segment_v2"])}
+        log("  golden fixtures (tests/golden/segment_v1, segment_v2): "
+            "columns bit for bit, groupBy rows equal numpy")
+
+        # 2. persist: the 8 segments as V2, segment 0 again as V1
+        deep = LocalDeepStorage(os.path.join(tmp, "deep"))
+        descs, persist = [], []
+        for s in segments:
+            t = time.perf_counter()
+            d = deep.push(s, descriptor_for(s))
+            secs = time.perf_counter() - t
+            descs.append(d)
+            persist.append({"s": secs, "bytes": d.size_bytes,
+                            "logical_bytes": s.size_bytes(),
+                            "by_part": part_bytes(d.load_spec["path"])})
+        t = time.perf_counter()
+        v1 = LocalDeepStorage(os.path.join(tmp, "deep_v1"),
+                              format_version=1).push(segments[0], descs[0])
+        v1_s = time.perf_counter() - t
+        out["persist"] = {
+            "segments": persist, "total_s": sum(p["s"] for p in persist),
+            "bytes": sum(p["bytes"] for p in persist),
+            "logical_bytes": sum(p["logical_bytes"] for p in persist),
+            "v1_segment0": {"s": v1_s, "bytes": v1.size_bytes,
+                            "by_part": part_bytes(v1.load_spec["path"])}}
+        by_part = {}
+        for p in persist:
+            for k, v in p["by_part"].items():
+                by_part[k] = by_part.get(k, 0) + v
+        out["persist"]["by_part"] = by_part
+        each = ", ".join(f"{p['s']:.1f}" for p in persist)
+        log(f"  persist V2: 8 segments in {out['persist']['total_s']:.1f} s "
+            f"({each} s), "
+            f"{out['persist']['bytes']} B on disk for "
+            f"{out['persist']['logical_bytes']} B logical; by part "
+            f"{by_part}; V1 of segment 0 in {v1_s:.1f} s, "
+            f"{v1.size_bytes} B ({out['persist']['v1_segment0']['by_part']})")
+
+        # 3. load: a LoadQueuePeon into a fresh DataNode, its server's
+        # SegmentLoadMonitor built before the loads
+        view, node = InventoryView(), DataNode("storage0", device=dev)
+        view.register(node)
+        sink = InMemoryEmitter()
+        # no periodic tick: the one below reads the loads' whole delta
+        srv = DataNodeServer(node, emitter=ServiceEmitter(
+            "druid/historical", "storage0", sink),
+            monitor_period_seconds=3600.0).start()
+        servers.append(srv)
+        before = segment_load_stats().snapshot()
+        t = time.perf_counter()
+        peon = LoadQueuePeon(node, view, deep.pull)
+        for d in descs:
+            if not peon.load(d):
+                raise AssertionError(f"load of {d.id} refused")
+        if not peon.wait_idle(600.0):
+            raise AssertionError("the load queue did not drain")
+        load_s = time.perf_counter() - t
+        if peon.loads_done != SEGMENTS or peon.failures:
+            raise AssertionError(f"loads {peon.loads_done}, failures "
+                                 f"{peon.failures}")
+        loaded = {str(s.id): s for s in node.segments()}
+        lazy = [(sid, c) for sid, s in loaded.items()
+                for c in list(s.dims) + list(s.metrics)
+                if getattr(s.dims.get(c) or s.metrics[c], "materialized",
+                           lambda: False)()]
+        if lazy:
+            raise AssertionError(f"the load materialized {lazy}")
+        after = segment_load_stats().snapshot()
+        srv.metrics_tick()
+        ticked = {e.metric: e.value for e in sink.metrics()
+                  if e.metric.startswith("segment/load/")}
+        if len(ticked) != 3 or min(ticked.values()) <= 0:
+            raise AssertionError(f"segment/load metrics {ticked}")
+        out["load"] = {"s": load_s, "stats_delta": {
+            k: after[k] - before[k] for k in after}, "monitor": ticked}
+        log(f"  load: {peon.loads_done} segments by the load queue in "
+            f"{load_s:.2f} s, none failed, no lazy column materialized; "
+            f"segment_load_stats delta {out['load']['stats_delta']}; "
+            f"SegmentLoadMonitor tick {ticked}")
+
+        # 4. serve: the four main-path queries over HTTP
+        _, broker, http = http_cluster([node], dev, [srv])
+        seg0 = loaded[str(segments[0].id)]
+        wants = {"groupby": (SEGMENTS, 0), "groupby_filtered": (0, SEGMENTS)}
+        checks = {"groupby": check_groupby, "topn": check_topn,
+                  "timeseries": check_timeseries,
+                  "groupby_filtered": check_filtered}
+        phase18 = (kept or {}).get("http_rows", {})
+        decodes_before = cascade.decode_stats()
+        serve = out["serve"] = {}
+        leaves = None
+        for name, q in qs.items():
+            want = wants.get(name, (0, 0))
+            runs = []
+            for i in range(1 + STORAGE_WARM):
+                l0 = (sr.LAUNCHES, mk.LAUNCHES)
+                if name == "groupby_filtered" and i == 0:
+                    with LeafLog(seg0) as leaves:
+                        status, _, rows, ms, _ = http_post(http.port, q)
+                else:
+                    status, _, rows, ms, _ = http_post(http.port, q)
+                got = (sr.LAUNCHES - l0[0], mk.LAUNCHES - l0[1])
+                if status != 200 or got != want:
+                    raise AssertionError(f"storage {name}: status {status},"
+                                         f" (B1, B2) {got}, expected {want}")
+                if i == 0:
+                    checks[name](rows, ref)
+                    if name in phase18 and not same_rows(rows,
+                                                         phase18[name]):
+                        raise AssertionError(f"storage {name}: rows differ "
+                                             f"from phase 18's")
+                runs.append(ms)
+            res = serve[name] = {
+                "cold_ms": runs[0], "warm_ms": runs[1:],
+                "p50_ms": float(np.median(runs[1:])),
+                "phase18_p50_ms": (http_report or {}).get(name, {}).get(
+                    "p50_ms"), "b1_b2_launches_per_run": list(want)}
+            log(f"  {name} over {SEGMENTS} loaded segments: "
+                f"rows equal numpy{' and phase 18' if name in phase18 else ''}"
+                f"; cold {res['cold_ms']:.1f} ms, warm p50 "
+                f"{res['p50_ms']:.1f} ms (phase 18 over the in-memory "
+                f"segments: {res['phase18_p50_ms']} ms), (B1, B2) {want} a "
+                f"run")
+        decodes_after = cascade.decode_stats()
+        out["decodes"] = {"before": decodes_before, "after": decodes_after}
+        log(f"  cascade.decode_stats before {decodes_before}, after "
+            f"{decodes_after}")
+
+        # 5. the filtered groupBy's leaves on loaded segment 0, then a
+        # sparse leaf (a dimB tail value) through B2
+        checked = leaves.check()
+        if not checked:
+            raise AssertionError("no leaf of loaded segment 0 was staged")
+        out["leaves"] = checked
+        log(f"  filtered groupBy's leaves on loaded segment 0 (words B2 "
+            f"read) equal lut[ids]'s: {checked}")
+        counts = np.bincount(segments[0].dims["dimB"].ids, minlength=1000)
+        tail = int(np.flatnonzero(counts == counts[counts > 0].min())[0])
+        tail_value = segments[0].dims["dimB"].dictionary.values[tail]
+        tq = dict(qs["groupby"], filter={"type": "selector",
+                                         "dimension": "dimB",
+                                         "value": tail_value})
+        l0 = (sr.LAUNCHES, mk.LAUNCHES)
+        with LeafLog(seg0) as tail_leaves:
+            status, _, rows, ms, _ = http_post(http.port, tq)
+        got = (sr.LAUNCHES - l0[0], mk.LAUNCHES - l0[1])
+        kinds = tail_leaves.check()
+        if status != 200 or got != (0, SEGMENTS) \
+                or {k for _, k, _, _ in kinds} != {"sparse"}:
+            raise AssertionError(f"sparse leaf: status {status}, (B1, B2) "
+                                 f"{got}, leaves {kinds}")
+        want = tail_value_reference(segments, tail)
+        gotrows = {int(r["event"]["dimA"][1:]): (
+            r["event"]["rows"], r["event"]["lsum"],
+            np.float32(r["event"]["fmax"])) for r in rows}
+        if gotrows != want:
+            raise AssertionError("sparse-leaf groupBy rows differ from "
+                                 "numpy")
+        out["sparse_leaf"] = {"value": tail_value,
+                              "rows_in_segment0": int(counts[tail]),
+                              "leaves": kinds, "ms": ms,
+                              "b1_b2_launches": list(got),
+                              "groups": len(rows)}
+        log(f"  sparse leaf: dimB = {tail_value} ({int(counts[tail])} rows "
+            f"in segment 0), leaf kind {kinds[0][1]} ({kinds[0][2]} padded "
+            f"ids), B2 x{got[1]}, {len(rows)} rows equal numpy, {ms:.1f} ms")
+
+        # 6. V1: segment 0 loaded eagerly from its V1 copy
+        seg_v1 = load_segment(v1.load_spec["path"])
+        same_columns(segments[0], seg_v1, "V1 segment 0")
+        rows_v1 = QueryExecutor([seg_v1], device=dev).run_json(qs["groupby"])
+        rows_v2 = QueryExecutor([seg0], device=dev).run_json(qs["groupby"])
+        if not same_rows(rows_v1, rows_v2):
+            raise AssertionError("groupBy over V1 segment 0 differs from V2")
+        out["v1"] = {"groupby_rows": len(rows_v1)}
+        log(f"  V1 segment 0: columns equal the in-memory segment bit for "
+            f"bit; its groupBy ({len(rows_v1)} rows) equals the V2 copy's")
+
+        # 7. the pool
+        out["pool"] = pool_snapshot("storage")
+    finally:
+        if peon is not None:
+            peon.stop()
+        for x in (http, broker):
+            if x is not None:
+                x.stop()
+        for srv in servers:
+            srv.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    counted = {"B1": sr.LAUNCHES, "B2": mk.LAUNCHES}
+    sr.LAUNCHES, mk.LAUNCHES = base
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase storage took {out['phase_s']:.1f} s; (B1, B2) launched "
+        f"{counted}; temporary directory removed; {card_line()}")
+    if out["phase_s"] > STORAGE_PHASE_LIMIT_S:
+        raise AssertionError(f"phase storage took {out['phase_s']:.1f} s, "
+                             f"over {STORAGE_PHASE_LIMIT_S} s")
+    return out, counted
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5433,6 +5867,19 @@ def main():
                                "chip_smoke_sql.json"), "w") as f:
             json.dump(out, f, indent=1, default=float)
         return 0
+    if sys.argv[1:] == ["storage"]:
+        # the build, phase 6's data and numpy reference, and phase 20 (no
+        # phase 18 rows or p50s to compare with)
+        log("phase storage, the 8 headline segments")
+        segments = headline_segments()
+        out, counted = phase_storage(dev, segments, queries(segments),
+                                     numpy_reference(segments), None, None)
+        out["launches"] = counted
+        os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(root, "chiprun_out",
+                               "chip_smoke_storage.json"), "w") as f:
+            json.dump(out, f, indent=1, default=float)
+        return 0
     if sys.argv[1:] == ["extensions"]:
         # the build and phase 16 alone, E5 on phase 14's segments made here
         # (a quicker check of that phase; its numbers are in the log)
@@ -5502,6 +5949,12 @@ def main():
     report["sql"], sql_launches = phase_sql(dev, qs, ref, kept,
                                             report["http"])
     pools["sql"] = pool_snapshot("sql")
+
+    log("phase storage: the 8 segments persisted to deep storage, loaded by "
+        "a load queue into a data node, and served over HTTP")
+    report["storage"], storage_launches = phase_storage(
+        dev, segments, qs, ref, kept, report["http"])
+    pools["storage"] = report["storage"]["pool"]
     del segments, captured, ref, kept
 
     log(f"phase sorted, {SORTED_SEGMENTS} segments in the rollup order")
@@ -5593,6 +6046,7 @@ def main():
             "launches_serving": serving_launches[which],
             "launches_http": http_launches[which],
             "launches_sql": sql_launches[which],
+            "launches_storage": storage_launches[which],
             "max_abs_err": max(err, parity["max_abs_err"],
                                report["packed_parity"]["max_abs_err"],
                                expr_errs[which]),

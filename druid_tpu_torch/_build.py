@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host codec.
 
 Every `csrc/*.cu` compiles with nvcc for sm_90a into its own shared library
 with a plain C interface under `build/kernels/` at the repository root, the
@@ -6,11 +6,19 @@ first time a kernel is needed in a process; the library is then loaded with
 ctypes. Sources compile in parallel (one nvcc per source). A library newer
 than its source is reused. Nothing here runs at import time.
 
+Every `csrc/*.cpp` is host C++ (the storage codec, `csrc/host_codec.cpp`):
+it compiles with g++ into `build/host/` at its first use (`load_host`).
+Several processes may ask at once (the test suite runs in workers): one
+builds under a file lock into a temporary name and renames it into place,
+the others wait on the lock and load what it built. A failed build raises
+with the compiler's output.
+
     python -m druid_tpu_torch._build     # build every kernel, print seconds
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -21,6 +29,8 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+HOST_BUILD_DIR = BUILD_DIR.parent / "host"
+HOST_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-pthread"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -86,6 +96,50 @@ def load(name: str) -> ctypes.CDLL:
             build_all([name])
             lib = ctypes.CDLL(str(_lib_path(name)))
             _LIBS[name] = lib
+        return lib
+
+
+def _host_lib_path(name: str) -> Path:
+    return HOST_BUILD_DIR / f"lib{name}.so"
+
+
+def build_host(name: str) -> Path:
+    """Compile csrc/<name>.cpp with g++ into build/host/lib<name>.so unless
+    a library newer than the source is there. Safe across processes: the
+    build runs under an exclusive lock on build/host/<name>.lock, writes a
+    temporary name and renames it into place. Returns the library's path;
+    raises RuntimeError with g++'s output when the build fails."""
+    src, lib = CSRC / f"{name}.cpp", _host_lib_path(name)
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(HOST_BUILD_DIR / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+                return lib
+            cxx = shutil.which("g++")
+            if cxx is None:
+                raise RuntimeError(f"g++ not found: {src.name} builds with "
+                                   f"the host C++ compiler")
+            tmp = lib.with_suffix(f".so.{os.getpid()}")
+            out = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp), str(src)],
+                                 capture_output=True, text=True, timeout=300)
+            if out.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"g++ failed for {src.name}:\n"
+                                   f"{out.stdout}{out.stderr}")
+            os.replace(tmp, lib)
+            return lib
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cpp, built on first use."""
+    key = f"host:{name}"
+    with _LOCK:
+        lib = _LIBS.get(key)
+        if lib is None:
+            lib = _LIBS[key] = ctypes.CDLL(str(build_host(name)))
         return lib
 
 

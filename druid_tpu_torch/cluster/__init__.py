@@ -2,9 +2,10 @@
 timeline (InventoryView), scatters to the DataNodes holding their replicas
 (in process, or over HTTP through a RemoteDataNodeClient per
 DataNodeServer), retries, hedges and caches, and merges the nodes' partial
-states (cluster/wire.py carries them over HTTP). The coordinator, realtime
-servers, lookups, the MetadataStore, chaos and the router wait for later
-slices (ROADMAP)."""
+states (cluster/wire.py carries them over HTTP). `cluster/loadqueue.py`
+loads segments from deep storage into a node (storage/deep.py), and
+`cluster/chaos.py` faults the data plane. The coordinator, realtime
+servers, lookups and the MetadataStore wait for later slices (ROADMAP)."""
 from druid_tpu_torch.cluster.broker import Broker, MissingSegmentsError
 from druid_tpu_torch.cluster.cache import (Cache, CacheConfig, HybridCache,
                                            LruCache, RemoteCacheClient,

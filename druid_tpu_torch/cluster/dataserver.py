@@ -23,9 +23,9 @@ run on the node's device (CUDA unless it was built with device="cpu"), on
 that thread's current stream. Nothing here falls back: a node error answers
 with its typed HTTP status, and the client raises the matching typed error.
 
-The server's monitors are the reference's less two that wait for their
-subsystems: ShardedMonitor (the multi-GPU slice, ROADMAP A12) and
-SegmentLoadMonitor (the storage format, ROADMAP A14).
+The server's monitors are the reference's less ShardedMonitor, which waits
+for the multi-GPU slice (ROADMAP A12); SegmentLoadMonitor emits the
+segment/load/* metrics of storage/format_v2.py's loads.
 """
 from __future__ import annotations
 
@@ -316,11 +316,13 @@ class DataNodeServer:
         from druid_tpu_torch.engine.filters import FilterBitmapMonitor
         from druid_tpu_torch.engine.megakernel import MegakernelMonitor
         from druid_tpu_torch.obs.dispatch import DispatchMonitor
+        from druid_tpu_torch.storage.format_v2 import SegmentLoadMonitor
         from druid_tpu_torch.utils.emitter import MonitorScheduler
         monitors = [DevicePoolMonitor(), BatchMetricsMonitor(),
                     FilterBitmapMonitor(), MegakernelMonitor(),
                     CodeDomainMonitor(), DispatchMonitor(),
-                    wire.WireStatsMonitor(), self._query_counts]
+                    wire.WireStatsMonitor(), SegmentLoadMonitor(),
+                    self._query_counts]
         if self._scheduler_config is not None:
             self.scheduler = DataNodeScheduler(
                 node, self._scheduler_config, emitter=emitter)

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from druid_tpu_torch.data import cascade, packed
+from druid_tpu_torch.data.bitmap import BitmapIndex
 from druid_tpu_torch.data.devicepool import device_pool
 from druid_tpu_torch.data.dictionary import NULL, Dictionary
 from druid_tpu_torch.utils.intervals import Interval
@@ -80,19 +81,47 @@ class SegmentId:
 
 
 class StringDimColumn:
-    """Dictionary-encoded single-value string dimension."""
+    """Dictionary-encoded single-value string dimension. Its bitmap index
+    (data/bitmap.py) is built from the ids the first time `bitmap_index()`
+    asks, or set by a segment loader from the persisted bitmaps."""
 
-    __slots__ = ("ids", "dictionary")
+    __slots__ = ("ids", "dictionary", "_bitmap_index", "_lock")
 
     def __init__(self, ids: np.ndarray, dictionary: Dictionary):
         if ids.dtype != np.int32:
             raise TypeError(f"dimension ids must be int32, got {ids.dtype}")
         self.ids = ids
         self.dictionary = dictionary
+        self._bitmap_index: Optional[BitmapIndex] = None
+        self._lock = threading.Lock()
 
     @property
     def cardinality(self) -> int:
         return self.dictionary.cardinality
+
+    def bitmap_index(self) -> BitmapIndex:
+        """The column's bitmap index, built from the ids on first use."""
+        with self._lock:
+            if self._bitmap_index is None:
+                self._bitmap_index = BitmapIndex.build(self.ids,
+                                                       self.cardinality)
+            return self._bitmap_index
+
+    def held_bitmap_index(self) -> Optional[BitmapIndex]:
+        """The bitmap index where the column holds one (persisted, or built
+        already), else None; builds nothing."""
+        with self._lock:
+            return self._bitmap_index
+
+    def set_bitmap_index(self, index: BitmapIndex):
+        # the lazy build's lock: an unlocked store could be overwritten by a
+        # concurrent bitmap_index() builder
+        with self._lock:
+            self._bitmap_index = index
+
+    def capabilities(self) -> ColumnCapabilities:
+        return ColumnCapabilities(ValueType.STRING, dictionary_encoded=True,
+                                  has_bitmap_index=True)
 
 
 class NumericColumn:
@@ -101,6 +130,9 @@ class NumericColumn:
     def __init__(self, values: np.ndarray, vtype: ValueType):
         self.values = values
         self.type = vtype
+
+    def capabilities(self) -> ColumnCapabilities:
+        return ColumnCapabilities(self.type)
 
 
 class ComplexColumn:
@@ -193,10 +225,15 @@ class Segment:
         return None if m is None else ColumnCapabilities(m.type)
 
     def size_bytes(self) -> int:
-        """Host bytes of the rows: time, dimension ids and metric values."""
-        return int(self.time_ms.nbytes
-                   + sum(d.ids.nbytes for d in self.dims.values())
-                   + sum(m.values.nbytes for m in self.metrics.values()))
+        """Host bytes of the rows: time, dimension ids and metric values. A
+        lazily loaded column (storage/format_v2.py) reports its decoded
+        bytes (`logical_nbytes`) without decoding."""
+        n = self.time_ms.nbytes
+        for c in list(self.dims.values()) + list(self.metrics.values()):
+            hint = getattr(c, "logical_nbytes", None)
+            n += hint if hint is not None else (
+                c.ids if isinstance(c, StringDimColumn) else c.values).nbytes
+        return int(n)
 
     def padded_rows(self, row_align: int = DEFAULT_ROW_ALIGN) -> int:
         return max(row_align, -(-self.n_rows // row_align) * row_align)

@@ -10,13 +10,20 @@ into a boolean lookup table (LUT). Two device forms follow from it:
     runs once per (segment, filter) into combined words cached on the
     segment, and the row mask is a bit test of those words; fused
     (engine/megakernel.py), the leaf words stay resident and the algebra
-    runs inside the aggregation.
+    runs inside the aggregation. A leaf's bits come from the dimension's
+    bitmap index where the column holds one (a loaded segment's persisted
+    index, or one built already): dense words, or sparse row ids expanded
+    into words on the device; else from `lut[ids]`.
 Numeric predicates compare the staged value column in its staged dtype, or
 a virtual column in its output dtype. A columnComparison compares the
 dimensions' ids remapped into one merged dictionary; an expression filter
 evaluates on the device (utils/expression.py), its string-dimension
 comparisons rewritten to dictionary LUT gathers. Constants are folded out
 of the tree before any device work.
+
+`bitmap_of`, `filter_cardinality` and `estimate_selectivity` are the
+reference's host bitmap-index path: a bitmap-eligible filter evaluated by
+bitmap algebra over the dimensions' indexes (built on first use).
 
 The non-aggregate engines (scan, select, search, timeBoundary) take their
 row mask from `host_mask`, which keeps the reference's host semantics leaf
@@ -31,6 +38,7 @@ r % 32 of word r // 32 (the reference's staged filter-word layout,
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import re
 import threading
@@ -40,6 +48,8 @@ import numpy as np
 import torch
 
 from druid_tpu_torch.data import cascade
+from druid_tpu_torch.data.bitmap import (AnyBitmap, Bitmap, SparseBitmap,
+                                         bitmap_and, bitmap_or, device_repr)
 from druid_tpu_torch.data.dictionary import Dictionary, merge_dictionaries
 from druid_tpu_torch.data.segment import Segment, ValueType
 from druid_tpu_torch.obs import dispatch as dispatch_mod
@@ -683,6 +693,62 @@ def can_use_bitmap(flt: F.DimFilter, segment: Segment) -> bool:
         and _string_predicate(flt) is not None
 
 
+# ---------------------------------------------------------------------------
+# Host bitmap-index path (the reference's; Druid's Filter.getBitmapIndex)
+# ---------------------------------------------------------------------------
+
+def bitmap_of(flt: F.DimFilter, segment: Segment) -> AnyBitmap:
+    """Evaluate a bitmap-eligible filter (`can_use_bitmap`) by bitmap
+    algebra over the dimensions' bitmap indexes (data/bitmap.py). Results
+    are density-adaptive: a sparse operand stays an id list through
+    AND/OR; only a complement densifies."""
+    n = segment.n_rows
+    if isinstance(flt, F.TrueFilter):
+        return Bitmap.full(n)
+    if isinstance(flt, F.FalseFilter):
+        return SparseBitmap(np.zeros(0, dtype=np.int32), n)
+    if isinstance(flt, F.AndFilter):
+        parts = [bitmap_of(f, segment) for f in flt.fields]
+        return functools.reduce(bitmap_and, parts) if parts \
+            else Bitmap.full(n)
+    if isinstance(flt, F.OrFilter):
+        parts = [bitmap_of(f, segment) for f in flt.fields]
+        return functools.reduce(bitmap_or, parts) if parts \
+            else SparseBitmap(np.zeros(0, dtype=np.int32), n)
+    if isinstance(flt, F.NotFilter):
+        return ~bitmap_of(flt.field, segment)
+    col = segment.dims[flt.dimension]
+    lut = _dictionary_lut(col.dictionary, _string_predicate(flt))
+    return col.bitmap_index().union_of(np.flatnonzero(lut))
+
+
+def filter_cardinality(flt: F.DimFilter, segment: Segment) -> int:
+    """The exact count of rows a bitmap-eligible filter matches. NOT counts
+    n - |child|, so a complement is never materialized."""
+    n = segment.n_rows
+    if isinstance(flt, F.TrueFilter):
+        return n
+    if isinstance(flt, F.FalseFilter):
+        return 0
+    if isinstance(flt, F.NotFilter):
+        return n - filter_cardinality(flt.field, segment)
+    return bitmap_of(flt, segment).cardinality()
+
+
+def estimate_selectivity(flt: Optional[F.DimFilter],
+                         segment: Segment) -> float:
+    """The share of rows expected to match (Druid's
+    Filter.estimateSelectivity); exact where the filter is
+    bitmap-eligible, 1.0 elsewhere."""
+    if flt is None:
+        return 1.0
+    if segment.n_rows == 0:
+        return 0.0
+    if can_use_bitmap(flt, segment):
+        return filter_cardinality(flt, segment) / segment.n_rows
+    return 1.0
+
+
 def _bitmap_compilable(flt: F.DimFilter, segment: Segment) -> bool:
     """The whole subtree is bitmap material and names at least one
     dimension (a constant-only subtree folds to a ConstNode instead)."""
@@ -874,18 +940,84 @@ class FilterBitmapMonitor(Monitor):
                        s["builtBytes"] - last["builtBytes"])
 
 
+def _permuted_bitmap(segment: Segment, bm: AnyBitmap, perm: np.ndarray,
+                     perm_key) -> AnyBitmap:
+    """A row bitmap in a permuted (projection) row order. A sparse bitmap
+    stays sparse: its ids map through the inverse permutation, cached on
+    the segment per perm_key."""
+    if not isinstance(bm, SparseBitmap):
+        return Bitmap.from_bool(bm.to_bool()[perm])
+
+    def _inverse():
+        inv = np.empty(perm.shape[0], dtype=np.int32)
+        inv[perm] = np.arange(perm.shape[0], dtype=np.int32)
+        return inv
+    inv = _inverse() if perm_key is None else segment.aux_cached(
+        ("perm_inv", perm_digest(perm_key)), _inverse)
+    return SparseBitmap(np.sort(inv[bm.ids]), bm.n_rows)
+
+
+def leaf_bitmap(segment: Segment, dim: str, lut: np.ndarray,
+                perm: Optional[np.ndarray] = None,
+                perm_key=None) -> Optional[AnyBitmap]:
+    """A leaf's rows from the bitmap index the column holds (persisted, as a
+    loaded segment's, or built already), in the permuted order where `perm`
+    is given; None where the column holds no index. No index is built for a
+    leaf: that is a stable argsort of the whole column."""
+    index = segment.dims[dim].held_bitmap_index()
+    if index is None:
+        return None
+    bm = index.union_of(np.flatnonzero(lut))
+    return bm if perm is None \
+        else _permuted_bitmap(segment, bm, perm, perm_key)
+
+
 def leaf_bits(segment: Segment, dim: str, lut: np.ndarray, rows: int,
-              perm: Optional[np.ndarray] = None) -> np.ndarray:
-    """A leaf's row bitmap as host bools, padded with False to `rows`:
-    `lut[ids]`, in the permuted (projection) row order where `perm` is
-    given. The port has no bitmap index; these are the bits of the
-    reference's `bitmap_index().union_of(...)` (and `_permuted_bitmap`)."""
-    b = lut[segment.dims[dim].ids]
-    if perm is not None:
-        b = b[perm]
+              perm: Optional[np.ndarray] = None,
+              perm_key=None) -> np.ndarray:
+    """A leaf's row bitmap as host bools, padded with False to `rows`, in
+    the permuted (projection) row order where `perm` is given: from the
+    column's bitmap index where it holds one (`leaf_bitmap`), else
+    `lut[ids]`. The bits are the same either way."""
+    bm = leaf_bitmap(segment, dim, lut, perm, perm_key)
+    if bm is not None:
+        b = bm.to_bool()
+    else:
+        b = lut[segment.dims[dim].ids]
+        if perm is not None:
+            b = b[perm]
     out = np.zeros(rows, dtype=bool)
     out[: b.shape[0]] = b
     return out
+
+
+def leaf_repr(segment: Segment, dim: str, lut: np.ndarray, padded_rows: int,
+              perm: Optional[np.ndarray] = None, perm_key=None
+              ) -> Tuple[str, np.ndarray]:
+    """(kind, host payload) a leaf ships to the device: from the column's
+    bitmap index, `bitmap.device_repr`'s density split -- "sparse" (sorted
+    row ids padded to a power of two with the sentinel `padded_rows`) or
+    "dense" (uint32 words); where the column holds no index, "rows" (the
+    words of `lut[ids]`)."""
+    bm = leaf_bitmap(segment, dim, lut, perm, perm_key)
+    if bm is not None:
+        return device_repr(bm, padded_rows)
+    return "rows", host_words(leaf_bits(segment, dim, lut, padded_rows,
+                                        perm))
+
+
+def sparse_leaf_words(ids: torch.Tensor, padded_rows: int) -> torch.Tensor:
+    """int32 words [padded_rows / 32] with the bits of `ids` set, built on
+    ids' device: distinct sorted row ids, padded with the sentinel
+    `padded_rows`, which lands in a dropped extra word. The bits of one
+    word are distinct, so their sum is their OR (exact in int64); the
+    int64 word folds back to its int32 bit pattern."""
+    n_words = padded_rows // 32
+    acc = torch.zeros(n_words + 1, dtype=torch.int64, device=ids.device)
+    wid = (ids >> 5).to(torch.int64)
+    acc.index_add_(0, wid, torch.ones_like(wid) << (ids & 31).to(torch.int64))
+    acc = acc[:n_words]
+    return (acc - ((acc >> 31) & 1) * (1 << 32)).to(torch.int32)
 
 
 def leaf_words(segment: Segment, dim: str, lut: np.ndarray, padded_rows: int,
@@ -895,11 +1027,20 @@ def leaf_words(segment: Segment, dim: str, lut: np.ndarray, padded_rows: int,
     cached on the segment per (dim, LUT, rows, permutation, device). The
     one staging of leaf bits: the staged fill and the fused path
     (megakernel.stage_mega_leaves) read it where they do not build the
-    leaf from run tables."""
+    leaf from run tables. A sparse leaf uploads its padded row ids and
+    expands them on the device (`sparse_leaf_words`); a dense one uploads
+    its words."""
     key = ("leafwords", dim, leaf_digest(lut), padded_rows,
            perm_digest(perm_key), str(device))
-    return segment.device_cached(key, lambda: torch.from_numpy(host_words(
-        leaf_bits(segment, dim, lut, padded_rows, perm))).to(device))
+
+    def _build():
+        kind, payload = leaf_repr(segment, dim, lut, padded_rows, perm,
+                                  perm_key)
+        if kind == "sparse":
+            return sparse_leaf_words(torch.from_numpy(payload).to(device),
+                                     padded_rows)
+        return torch.from_numpy(payload.view(np.int32)).to(device)
+    return segment.device_cached(key, _build)
 
 
 #: a run leaf's end past every row: the sentinel run that covers padding

@@ -28,8 +28,10 @@ ROOT = Path(__file__).resolve().parent.parent
 def test_import_pulls_in_neither_jax_nor_druid_tpu():
     """Importing every module of the port, the serving path's cluster/,
     server/ and obs/ among them (the HTTP data node, the wire, the query
-    resource, the scheduler, security and /metrics) and the SQL layer with
-    Avatica and the router, loads neither jax nor druid_tpu."""
+    resource, the scheduler, security and /metrics), the SQL layer with
+    Avatica and the router, and segment storage (storage/, the host codec's
+    native/, data/bitmap.py, the load queue and the chaos harness), loads
+    neither jax nor druid_tpu, druid_tpu.native included."""
     code = ("import sys, druid_tpu_torch, druid_tpu_torch.engine, "
             "druid_tpu_torch.data.generator, druid_tpu_torch.data.convert, "
             "druid_tpu_torch.data.packed, druid_tpu_torch.data.cascade, "
@@ -53,7 +55,16 @@ def test_import_pulls_in_neither_jax_nor_druid_tpu():
             "druid_tpu_torch.server.security, druid_tpu_torch.obs.catalog, "
             "druid_tpu_torch.obs.prometheus, druid_tpu_torch.sql, "
             "druid_tpu_torch.sql.planner, druid_tpu_torch.server.avatica, "
-            "druid_tpu_torch.server.router; "
+            "druid_tpu_torch.server.router, druid_tpu_torch.storage, "
+            "druid_tpu_torch.storage.codec, druid_tpu_torch.storage.smoosh, "
+            "druid_tpu_torch.storage.format, "
+            "druid_tpu_torch.storage.format_v2, "
+            "druid_tpu_torch.storage.plan, druid_tpu_torch.storage.deep, "
+            "druid_tpu_torch.native, druid_tpu_torch.native.lz4block, "
+            "druid_tpu_torch.data.bitmap, druid_tpu_torch.cluster.loadqueue, "
+            "druid_tpu_torch.cluster.chaos; "
+            "from druid_tpu_torch.native import lz4block; "
+            "lz4block.compress(b'abcd' * 64); "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'druid_tpu' "
             "or m.startswith('druid_tpu.')); print(bad)")
