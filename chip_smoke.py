@@ -251,7 +251,44 @@ Phases, each fatal on failure:
      one bit for bit, its groupBy equal to the V2 copy's; no pool
      eviction. The directory is removed at the end; the phase must take at
      most 150 s.
-The device pool's snapshot is printed after phases 6-10 and 12-20; at the
+ 21. ingest (right after phase 20; B1/B2 counts set to 0 before it and
+     read after it): Druid's Kafka indexing service with its documented
+     tuningConfig (maxRowsInMemory 1,000,000 as max_rows_per_hydrant,
+     maxRowsPerSegment 5,000,000 checked against every sink, not
+     enforced; maxTotalRows 20,000,000 as the task roll-over, which no
+     task reaches; segmentGranularity HOUR, queryGranularity NONE,
+     taskCount 2 over 2 partitions). 10,000,000 events of the headline
+     schema (seed 1234, numpy), 5,000,000 a partition in time order over
+     2 hours, each at its own millisecond (nothing rolls up: every stored
+     count is 1), go into a SimulatedStream; a StreamSupervisor with a sqlite MetadataStore, a
+     LocalDeepStorage, an InputRowParser and a RealtimeServer in the
+     broker's InventoryView ingests them (4 sinks of ~2.5M events, each
+     with 2 persisted hydrants and a live one). Two standing queries
+     (hourly timeseries; groupBy by dimA with doubleMax) are subscribed on
+     a SubscriptionHub before the first event and ticked every 500,000
+     events: every snapshot against numpy over the events so far and
+     against its re-scan (counts, long sums and maxima equal, float sums
+     within 1e-5 * sum|v|), no segment folded twice. A7: one live hydrant
+     of 1M rows refolded 20 times, the ticks' ms and torch.cuda.
+     memory_stats before and after. The subscription surface: POST
+     /druid/v2/subscriptions, a 304 on an unchanged ETag within its
+     timeoutMs, and a poll parked before the last 200,000 events (ticked
+     by the historical's DataNodeScheduler flush loop) woken with the next
+     version. The four main-path queries posted to /druid/v2 of a broker
+     (hedging off) over the realtime server before publish, 1 cold and 3
+     warm runs, against numpy; checkpoint_all() publishes the 4 sinks
+     (merged, pushed as V2, committed with the offsets {"0": 5000000,
+     "1": 5000000}), the handoff loads them into a DataNode through a
+     LoadQueuePeon, the sinks unannounce, each standing program cuts over
+     once a sink (every emission across the boundary counts 10,000,000);
+     the four queries again, rows equal numpy and the ones before publish,
+     each segment's strategy printed and checked against the planner's
+     rule: a longSum over a constant LONG column (count) keeps the
+     groupBys off B1 and B2, on mixed, so B1 and B2 launch once a
+     published segment only where its count column is not constant (none
+     here; ROADMAP C). No pool eviction; the
+     directory is removed; the phase must take at most 150 s.
+The device pool's snapshot is printed after phases 6-10 and 12-21; at the
 default budget none may show an eviction.
 `python3 chip_smoke.py batching` runs the build and phase 14 alone;
 `python3 chip_smoke.py extensions` the build and phase 16 with E5;
@@ -261,13 +298,15 @@ warms the headline segments first) with its fusion on phase 14's segments;
 main-path queries (phase 18's yardstick), and phase 18;
 `python3 chip_smoke.py sql` the same and phase 19;
 `python3 chip_smoke.py storage` the build, phase 6's data and numpy
-reference, and phase 20.
+reference, and phase 20;
+`python3 chip_smoke.py ingest` the build and phase 21.
 The line before the last is the kernels JSON line (each kernel's
 `launches` counted on phase 6's path, `launches_expressions` on phase
 12's, `launches_aggregators` on phase 13's, `launches_native_surface` on
 phase 15's, `launches_extensions` on phase 16's, `launches_serving` on
 phase 17's, `launches_http` on phase 18's, `launches_sql` on phase
-19's, `launches_storage` on phase 20's); the last line is {"ok": true,
+19's, `launches_storage` on phase 20's, `launches_ingest` on phase
+21's); the last line is {"ok": true,
 "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 import dataclasses
@@ -1206,9 +1245,10 @@ def check_topn(rows, ref):
             raise AssertionError(f"topN fsum of {b}: {x['fsum']}")
 
 
-def check_timeseries(rows, ref):
-    if len(rows) != 24:
-        raise AssertionError(f"timeseries: {len(rows)} buckets, expected 24")
+def check_timeseries(rows, ref, buckets=24):
+    if len(rows) != buckets:
+        raise AssertionError(f"timeseries: {len(rows)} buckets, expected "
+                             f"{buckets}")
     for i, r in enumerate(rows):
         v = r["result"]
         if r["timestamp"] != ref["t0"] + i * 3_600_000 \
@@ -1378,9 +1418,9 @@ def check_strategies(name, slog, segments=SEGMENTS):
 FLOAT_SUMS = ("dsum",)
 
 
-def same_rows(a, b):
+def same_rows(a, b, rel=1e-9):
     """Rows equal; a float sum (the mixed strategy's atomics add in no fixed
-    order) within 1e-9 of its magnitude."""
+    order) within `rel` of its magnitude."""
     def split(rows):
         exact, sums = [], []
         for r in rows:
@@ -1395,7 +1435,7 @@ def same_rows(a, b):
         return exact, np.asarray(sums, dtype=np.float64)
     (ea, sa), (eb, sb) = split(a), split(b)
     return ea == eb and sa.shape == sb.shape \
-        and bool(np.all(np.abs(sa - sb) <= 1e-9 * np.abs(sa)))
+        and bool(np.all(np.abs(sa - sb) <= rel * np.abs(sa)))
 
 
 def phase_packing_off(dev, segments, qs, n_seg=2):
@@ -5768,6 +5808,846 @@ def phase_storage(dev, segments, qs, ref, kept, http_report):
     return out, counted
 
 
+# ---------------------------------------------------------------------------
+# phase 21: streaming ingestion and standing queries
+# ---------------------------------------------------------------------------
+
+INGEST_EVENTS = 10_000_000           # 2 partitions of 5M over 2 hours
+INGEST_PARTITIONS = 2                # Kafka partitions, read by taskCount 2
+INGEST_HYDRANT_ROWS = 1_000_000      # maxRowsInMemory
+INGEST_SEGMENT_ROWS = 5_000_000      # maxRowsPerSegment (checked per sink)
+INGEST_TASK_ROWS = 20_000_000        # maxTotalRows, a task's roll-over
+INGEST_TICK_EVERY = 500_000          # events between standing ticks
+INGEST_POLL_RECORDS = 10_000         # a task's records a partition a poll
+INGEST_HOLDBACK = 100_000            # a partition's events for step 5
+INGEST_REFOLDS = 20                  # A7: refolds of one live hydrant
+INGEST_WARM = 3                      # warm runs a query (p50 of 3)
+INGEST_PHASE_LIMIT_S = 150.0
+INGEST_IV = ("2026-02-01T00:00:00.000Z", "2026-02-01T02:00:00.000Z")
+
+
+def ingest_events(n=None, seed=SEED):
+    """The headline schema as a stream, made from `seed` with numpy: per
+    partition, n / partitions events in time order over INGEST_IV's 2
+    hours, each at its own millisecond (one producer's partition), dimA
+    uniform over 100 values, dimB a bounded zipf (1.5) over 1000, metLong
+    0..10000, metFloat normal(100, 25) as float32. One dict of arrays per
+    partition, the stream in order."""
+    from druid_tpu_torch.utils.intervals import Interval
+    n = INGEST_EVENTS if n is None else n
+    iv = Interval.of(*INGEST_IV)
+    rng = np.random.default_rng(seed)
+    probs = np.arange(1, 1001, dtype=np.float64) ** -1.5
+    probs /= probs.sum()
+    per = n // INGEST_PARTITIONS
+    return [{"t": iv.start + np.sort(rng.choice(iv.width, size=per,
+                                                replace=False)).astype(
+                                                    np.int64),
+             "a": rng.integers(0, 100, size=per).astype(np.int64),
+             "b": rng.choice(1000, size=per, p=probs).astype(np.int64),
+             "ml": rng.integers(0, 10_001, size=per).astype(np.int64),
+             "mf": rng.normal(100.0, 25.0, size=per).astype(np.float32)}
+            for _ in range(INGEST_PARTITIONS)]
+
+
+_NAMES_A = [f"v{i:08d}" for i in range(100)]
+_NAMES_B = [f"v{i:08d}" for i in range(1000)]
+
+
+def ingest_records(ev, lo, hi):
+    """Partition events [lo, hi) as the records a consumer hands the
+    parser."""
+    return [{"timestamp": t, "dimA": _NAMES_A[a], "dimB": _NAMES_B[b],
+             "metLong": ml, "metFloat": mf}
+            for t, a, b, ml, mf in zip(
+                ev["t"][lo:hi].tolist(), ev["a"][lo:hi].tolist(),
+                ev["b"][lo:hi].tolist(), ev["ml"][lo:hi].tolist(),
+                ev["mf"][lo:hi].tolist())]
+
+
+def ingest_specs():
+    """The supervisor's metricsSpec: the row count, metLong summed,
+    metFloat summed and its max (queried through their combining forms)."""
+    from druid_tpu_torch.query import aggregators as A
+    return [A.CountAggregator("count"),
+            A.LongSumAggregator("metLong", "metLong"),
+            A.FloatSumAggregator("metFloat", "metFloat"),
+            A.FloatMaxAggregator("metFloatMax", "metFloat")]
+
+
+_ROWS = {"type": "longSum", "name": "rows", "fieldName": "count"}
+_LSUM = {"type": "longSum", "name": "lsum", "fieldName": "metLong"}
+
+
+def ingest_queries(head):
+    """The four main-path queries over the ingested datasource (`head`:
+    dimB's most frequent value, which the filtered groupBy drops)."""
+    iv = f"{INGEST_IV[0]}/{INGEST_IV[1]}"
+    fmax = {"type": "floatMax", "name": "fmax", "fieldName": "metFloatMax"}
+    bound = {"type": "bound", "dimension": "metLong", "lower": "100",
+             "upper": "9900", "ordering": "numeric"}
+    groupby = {"queryType": "groupBy", "dataSource": "ingest",
+               "intervals": [iv], "granularity": "all",
+               "dimensions": ["dimA", "dimB"],
+               "aggregations": [_ROWS, _LSUM, fmax], "filter": bound}
+    return {
+        "groupby": groupby,
+        "topn": {"queryType": "topN", "dataSource": "ingest",
+                 "intervals": [iv], "granularity": "all",
+                 "dimension": "dimB", "metric": "lsum", "threshold": 100,
+                 "aggregations": [_ROWS, _LSUM],
+                 "filter": {"type": "in", "dimension": "dimA",
+                            "values": _NAMES_A[0:100:2]}},
+        "timeseries": {"queryType": "timeseries", "dataSource": "ingest",
+                       "intervals": [iv], "granularity": "hour",
+                       "aggregations": [_ROWS, _LSUM, fmax, {
+                           "type": "doubleSum", "name": "dsum",
+                           "fieldName": "metFloat"}]},
+        "groupby_filtered": dict(groupby, filter={"type": "and", "fields": [
+            {"type": "in", "dimension": "dimA",
+             "values": _NAMES_A[0:100:2]},
+            {"type": "not", "field": {"type": "selector",
+                                      "dimension": "dimB", "value": head}},
+            bound]})}
+
+
+def ingest_standing_queries(datasource="ingest"):
+    """The two standing queries: an hourly timeseries (rows, longSum,
+    doubleSum) and a groupBy by dimA (rows, longSum, doubleMax)."""
+    iv = f"{INGEST_IV[0]}/{INGEST_IV[1]}"
+    return {
+        "timeseries": {"queryType": "timeseries", "dataSource": datasource,
+                       "intervals": [iv], "granularity": "hour",
+                       "aggregations": [_ROWS, _LSUM, {
+                           "type": "doubleSum", "name": "dsum",
+                           "fieldName": "metFloat"}]},
+        "groupby_dima": {"queryType": "groupBy", "dataSource": datasource,
+                         "intervals": [iv], "granularity": "all",
+                         "dimensions": ["dimA"],
+                         "aggregations": [_ROWS, _LSUM, {
+                             "type": "doubleMax", "name": "dmax",
+                             "fieldName": "metFloatMax"}]}}
+
+
+def ingest_reference(events, t0):
+    """numpy_reference's dictionary for the four queries over the rows the
+    ingestion stores (each event one row of count 1: no two events of a
+    partition share a millisecond, so nothing rolls up); and dimB's most
+    frequent id in partition 0."""
+    G = 100 * 1000
+    ref = dict(cnt=np.zeros(G), lsum=np.zeros(G),
+               fmax=np.full(G, -np.inf, np.float32), f_cnt=np.zeros(G),
+               f_lsum=np.zeros(G), f_fmax=np.full(G, -np.inf, np.float32),
+               tb_cnt=np.zeros(1000), tb_lsum=np.zeros(1000),
+               h_cnt=np.zeros(24), h_lsum=np.zeros(24),
+               h_fmax=np.full(24, -np.inf, np.float32),
+               h_dsum=np.zeros(24), h_abs=np.zeros(24), t0=t0)
+    head = int(np.bincount(events[0]["b"], minlength=1000).argmax())
+    for ev in events:
+        t, a, b, ml, f = ev["t"], ev["a"], ev["b"], ev["ml"], ev["mf"]
+        keep = (ml >= 100) & (ml <= 9900)
+        key = a * 1000 + b
+        for pre, sel in (("", keep),
+                         ("f_", keep & (a % 2 == 0) & (b != head))):
+            ref[pre + "cnt"] += np.bincount(key[sel], minlength=G)
+            ref[pre + "lsum"] += np.bincount(key[sel], weights=ml[sel],
+                                             minlength=G)
+            np.maximum.at(ref[pre + "fmax"], key[sel], f[sel])
+        even = a % 2 == 0
+        ref["tb_cnt"] += np.bincount(b[even], minlength=1000)
+        ref["tb_lsum"] += np.bincount(b[even], weights=ml[even],
+                                      minlength=1000)
+        h = (t - t0) // HOUR_MS
+        f64 = f.astype(np.float64)
+        ref["h_cnt"] += np.bincount(h, minlength=24)
+        ref["h_lsum"] += np.bincount(h, weights=ml, minlength=24)
+        np.maximum.at(ref["h_fmax"], h, f)
+        ref["h_dsum"] += np.bincount(h, weights=f64, minlength=24)
+        ref["h_abs"] += np.bincount(h, weights=np.abs(f64), minlength=24)
+    for k in ("cnt", "lsum", "f_cnt", "f_lsum", "tb_cnt", "tb_lsum",
+              "h_cnt", "h_lsum"):
+        ref[k] = ref[k].astype(np.int64)
+    return ref, head
+
+
+class IngestTally:
+    """numpy over the events ingested so far, for the standing queries:
+    per hour rows, long sum, float sum and |v| sum; per dimA rows, long
+    sum and float max."""
+
+    def __init__(self, t0):
+        self.t0 = t0
+        self.h_cnt = np.zeros(2, np.int64)
+        self.h_lsum = np.zeros(2, np.int64)
+        self.h_dsum = np.zeros(2, np.float64)
+        self.h_abs = np.zeros(2, np.float64)
+        self.a_cnt = np.zeros(100, np.int64)
+        self.a_lsum = np.zeros(100, np.int64)
+        self.a_max = np.full(100, -np.inf, np.float32)
+        self.n = 0
+
+    def add(self, ev, lo, hi):
+        if hi <= lo:
+            return
+        h = (ev["t"][lo:hi] - self.t0) // HOUR_MS
+        a, ml = ev["a"][lo:hi], ev["ml"][lo:hi]
+        mf = ev["mf"][lo:hi].astype(np.float64)
+        self.h_cnt += np.bincount(h, minlength=2)
+        self.h_lsum += np.bincount(h, weights=ml, minlength=2).astype(
+            np.int64)
+        self.h_dsum += np.bincount(h, weights=mf, minlength=2)
+        self.h_abs += np.bincount(h, weights=np.abs(mf), minlength=2)
+        self.a_cnt += np.bincount(a, minlength=100)
+        self.a_lsum += np.bincount(a, weights=ml, minlength=100).astype(
+            np.int64)
+        np.maximum.at(self.a_max, a, ev["mf"][lo:hi])
+        self.n += hi - lo
+
+
+def check_standing(name, rows, tally, want=None):
+    """A standing snapshot's rows against numpy over the events so far
+    (`want` None), or against `want` (the re-scan) with numpy's |v| sums:
+    counts, long sums and maxima equal, float sums within 1e-5 * sum|v|
+    per group."""
+    if name == "timeseries":
+        live = np.flatnonzero(tally.h_cnt)
+        if len(rows) != len(live):
+            raise AssertionError(f"standing {name}: {len(rows)} buckets, "
+                                 f"numpy {len(live)}")
+        for r, w in zip(rows, want or [None] * len(rows)):
+            i = (r["timestamp"] - tally.t0) // HOUR_MS
+            v = r["result"]
+            exp = (w["result"]["rows"], w["result"]["lsum"],
+                   w["result"]["dsum"]) if w is not None else (
+                int(tally.h_cnt[i]), int(tally.h_lsum[i]),
+                float(tally.h_dsum[i]))
+            if (v["rows"], v["lsum"]) != exp[:2] \
+                    or abs(v["dsum"] - exp[2]) > 1e-5 * tally.h_abs[i]:
+                raise AssertionError(f"standing {name} bucket {i}: {v}, "
+                                     f"want {exp}")
+        return int(sum(r["result"]["rows"] for r in rows))
+    live = np.flatnonzero(tally.a_cnt)
+    if len(rows) != len(live):
+        raise AssertionError(f"standing {name}: {len(rows)} rows, numpy "
+                             f"{len(live)}")
+    wants = {w["event"]["dimA"]: w["event"] for w in want or []}
+    for r in rows:
+        e = r["event"]
+        a = int(e["dimA"][1:])
+        w = wants.get(e["dimA"]) if want is not None else {
+            "rows": int(tally.a_cnt[a]), "lsum": int(tally.a_lsum[a]),
+            "dmax": float(tally.a_max[a])}
+        if w is None or (e["rows"], e["lsum"], e["dmax"]) != (
+                w["rows"], w["lsum"], w["dmax"]):
+            raise AssertionError(f"standing {name} dimA {a}: {e}, want {w}")
+    return int(sum(r["event"]["rows"] for r in rows))
+
+
+class FoldLog:
+    """Wraps engines.make_partials_by_segment while active: every segment
+    each standing fold passes, by program (its query), so that no segment
+    folds twice in one program (each hydrant folds exactly once)."""
+
+    def __enter__(self):
+        import weakref
+        from druid_tpu_torch.engine import engines
+        self.engines, self.orig = engines, engines.make_partials_by_segment
+        self.seen, self.calls, self.twice = {}, 0, []
+        orig = self.orig
+
+        def wrapped(query, segments, device, clamp=False, check=None):
+            seen = self.seen.setdefault(id(query), {})
+            for s in segments:
+                ref = seen.get(id(s))
+                if ref is not None and ref() is s:
+                    self.twice.append(str(s.id))
+                seen[id(s)] = weakref.ref(s)
+            self.calls += 1
+            return orig(query, segments, device, clamp=clamp, check=check)
+        engines.make_partials_by_segment = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.engines.make_partials_by_segment = self.orig
+
+
+def http_get(port, path, headers=None, timeout=60):
+    """GET: (status, headers, JSON body or None, ms)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 headers=headers or {})
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, hdrs, body = r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        status, hdrs, body = e.code, dict(e.headers), e.read()
+    return status, hdrs, (json.loads(body) if body else None), \
+        (time.perf_counter() - t) * 1e3
+
+
+def _cuda_memory(dev):
+    import torch
+    if dev.type != "cuda":
+        return {}
+    m = torch.cuda.memory_stats(dev)
+    return {k: int(m.get(k, 0)) for k in (
+        "allocated_bytes.all.current", "allocated_bytes.all.peak",
+        "reserved_bytes.all.current", "num_alloc_retries")}
+
+
+def ingest_a7(dev, events):
+    """A7's measurement: one live hydrant of INGEST_HYDRANT_ROWS rows (a
+    separate datasource, fed partition 0's first events) refolded by a
+    standing groupBy INGEST_REFOLDS times, a few rows appended before each
+    tick; the tick's ms and torch.cuda.memory_stats before, after and at
+    every refold, and the device pool's entries and resident bytes (read
+    after the memory: a pool call drains the blocks of snapshots collected
+    since the last one); every refold's rows against the re-scan."""
+    import torch
+    from druid_tpu_torch.cluster import MetadataStore
+    from druid_tpu_torch.data.devicepool import device_pool
+    from druid_tpu_torch.engine.standing import StandingQuery
+    from druid_tpu_torch.ingest import (Appenderator, RowBatch,
+                                        SegmentAllocator)
+    from druid_tpu_torch.query.model import query_from_json
+    ev = events[0]
+    n = min(INGEST_HYDRANT_ROWS, len(ev["t"]) - 1000 * INGEST_REFOLDS)
+    app = Appenderator("ingest_a7", ingest_specs(),
+                       max_rows_per_hydrant=10 * INGEST_HYDRANT_ROWS)
+    ident = SegmentAllocator(MetadataStore(), "hour").allocate(
+        "ingest_a7", int(ev["t"][0]))
+
+    def batch(lo, hi):
+        return RowBatch(ev["t"][lo:hi].tolist(), {
+            "dimA": [_NAMES_A[i] for i in ev["a"][lo:hi].tolist()],
+            "dimB": [_NAMES_B[i] for i in ev["b"][lo:hi].tolist()],
+            "metLong": ev["ml"][lo:hi].tolist(),
+            "metFloat": ev["mf"][lo:hi].tolist()})
+    app.add(ident, batch(0, n))
+    q = query_from_json(ingest_standing_queries("ingest_a7")["groupby_dima"])
+    sq = StandingQuery(q, [app], device=dev)
+    pool = device_pool()
+    try:
+        sq.tick()
+        torch.cuda.synchronize()
+        before = {"memory": _cuda_memory(dev),
+                  "pool": dataclasses.asdict(pool.snapshot())}
+        ticks, memory, resident = [], [], []
+        lo = n
+        for i in range(INGEST_REFOLDS):
+            hi = min(lo + 1000, len(ev["t"]))
+            app.add(ident, batch(lo, hi))
+            lo = hi
+            if dev.type == "cuda":
+                # the peak then reads this refold's temporaries
+                torch.cuda.reset_peak_memory_stats(dev)
+            t = time.perf_counter()
+            if sq.tick() is None:
+                raise AssertionError(f"A7 refold {i}: no emission")
+            torch.cuda.synchronize()
+            ticks.append((time.perf_counter() - t) * 1e3)
+            memory.append(_cuda_memory(dev))
+            resident.append(pool.snapshot().resident_bytes)
+        after = {"memory": _cuda_memory(dev),
+                 "pool": dataclasses.asdict(pool.snapshot())}
+        if not same_rows(sq.rows(), sq.rescan_rows()):
+            raise AssertionError("A7: the refolded rows differ from the "
+                                 "re-scan")
+        if len(sq.world_segments()) != 1:
+            raise AssertionError("A7: the live hydrant was sealed")
+    finally:
+        sq.close()
+    res = {"live_rows": lo, "refolds": INGEST_REFOLDS, "tick_ms": ticks,
+           "tick_ms_first": ticks[0], "tick_ms_p50": float(np.median(ticks)),
+           "tick_ms_max": float(max(ticks)), "before": before,
+           "after": after, "by_refold": memory,
+           "pool_resident_by_refold": resident}
+    mb, ma = before["memory"], after["memory"]
+    mib = {f"{k}_{w}": [round(m.get(f"{k}_bytes.all.{w}", 0) / 2**20, 2)
+                        for m in memory]
+           for k, w in (("allocated", "current"), ("allocated", "peak"),
+                        ("reserved", "current"))}
+    log(f"  A7: {INGEST_REFOLDS} refolds of a live hydrant of {lo} rows: "
+        f"tick ms first {ticks[0]:.1f}, p50 {res['tick_ms_p50']:.1f}, max "
+        f"{res['tick_ms_max']:.1f}; memory before {mb}, after {ma}; MiB by "
+        f"refold allocated {mib['allocated_current']}, its peak in the "
+        f"refold {mib['allocated_peak']}, reserved "
+        f"{mib['reserved_current']}, "
+        f"pool resident {[round(r / 2**20, 2) for r in resident]}; "
+        f"pool entries {before['pool']['entries']} -> "
+        f"{after['pool']['entries']}, resident "
+        f"{before['pool']['resident_bytes']} -> "
+        f"{after['pool']['resident_bytes']} B")
+    return res
+
+
+def phase_ingest(dev):
+    """Phase 21: streaming ingestion into the port, standing queries on its
+    hydrants, queries through the broker before publish, the subscription
+    surface, the transactional publish and the handoff to a historical.
+    Returns (report, {"B1": launches, "B2": launches}). The ingest loop
+    runs under Python's cyclic collector as the process sets it; its
+    collections in the loop are timed (gc.callbacks), not changed.
+
+    Cuts from the deployment: each task reads 5M events, under the task
+    roll-over (maxTotalRows 20M, INGEST_TASK_ROWS; taskDuration PT1H of
+    wall time is never reached), so no task rolls over here; the roll-over
+    runs in tests/test_torch_realtime.py. maxRowsPerSegment is checked on
+    the sinks after ingest, not enforced: the port, as the reference, has
+    no per-sink bound."""
+    import gc
+    import shutil
+    import tempfile
+    import threading
+    import torch
+    from druid_tpu_torch.cluster import (Broker, DataNode, InventoryView,
+                                         MetadataStore, RealtimeServer,
+                                         ResiliencePolicy)
+    from druid_tpu_torch.cluster.loadqueue import LoadQueuePeon
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    from druid_tpu_torch.engine import standing
+    from druid_tpu_torch.engine.kernels import make_kernel
+    from druid_tpu_torch.ingest import (SimulatedStream, StreamSupervisor,
+                                        StreamSupervisorSpec,
+                                        StreamTuningConfig)
+    from druid_tpu_torch.ingest.appenderator import Sink
+    from druid_tpu_torch.ingest.input import (DimensionsSpec,
+                                              InputRowParser, TimestampSpec)
+    from druid_tpu_torch.query import aggregators as A
+    from druid_tpu_torch.query.model import query_from_json
+    from druid_tpu_torch.server import QueryHttpServer, QueryLifecycle
+    from druid_tpu_torch.server.scheduler import (DataNodeScheduler,
+                                                  SchedulerConfig)
+    from druid_tpu_torch.server.subscriptions import SubscriptionHub
+    from druid_tpu_torch.storage.deep import LocalDeepStorage
+    from druid_tpu_torch.utils.intervals import Interval
+    t_phase = time.perf_counter()
+    base = (sr.LAUNCHES, mk.LAUNCHES)
+    sr.LAUNCHES = mk.LAUNCHES = 0
+    out = {"events": INGEST_EVENTS, "partitions": INGEST_PARTITIONS,
+           "max_rows_per_hydrant": INGEST_HYDRANT_ROWS}
+    t0 = Interval.of(*INGEST_IV).start
+    t = time.perf_counter()
+    events = ingest_events()
+    ref, head_id = ingest_reference(events, t0)
+    qs = ingest_queries(f"v{head_id:08d}")
+    out["gen_s"] = time.perf_counter() - t
+    per = len(events[0]["t"])
+    log(f"  {INGEST_EVENTS} events ({INGEST_PARTITIONS} partitions of "
+        f"{per}) made and their numpy reference in {out['gen_s']:.1f} s")
+    tmp = tempfile.mkdtemp(prefix="chip_ingest_")
+    hub = sched = http = broker = peon = None
+    try:
+        # the cluster: a realtime server and a historical on one view, a
+        # broker (hedging off) behind the query resource with the hub
+        view = InventoryView()
+        rt = RealtimeServer("peon0", view, device=dev)
+        hist = DataNode("historical0", device=dev)
+        view.register(hist)
+        broker = Broker(view, device=dev, resilience_policy=ResiliencePolicy(
+            hedge_enabled=False))
+        hub = SubscriptionHub(idle_timeout_s=0, device=dev)
+        http = QueryHttpServer(QueryLifecycle(broker),
+                               subscription_hub=hub).start()
+        md = MetadataStore()
+        deep = LocalDeepStorage(os.path.join(tmp, "deep"))
+        peon = LoadQueuePeon(hist, view, deep.pull)
+        handoff_s = []
+
+        def handoff(pushed):
+            t = time.perf_counter()
+            for d, _ in pushed:
+                if not peon.load(d):
+                    raise AssertionError(f"handoff load of {d.id} refused")
+            if not peon.wait_idle(300.0):
+                raise AssertionError("the handoff loads did not drain")
+            handoff_s.append(time.perf_counter() - t)
+
+        parser = InputRowParser(TimestampSpec("timestamp", "millis"),
+                                DimensionsSpec(("dimA", "dimB")))
+        parse_s = [0.0]
+        parse_orig = parser.parse_batch
+
+        def timed_parse(records):
+            t = time.perf_counter()
+            try:
+                return parse_orig(records)
+            finally:
+                parse_s[0] += time.perf_counter() - t
+        parser.parse_batch = timed_parse
+        persists = []
+        persist_orig = Sink.persist_hydrant
+
+        def timed_persist(sink):
+            rows = sink.index.n_rows
+            t = time.perf_counter()
+            persist_orig(sink)
+            if rows:
+                persists.append(((time.perf_counter() - t) * 1e3, rows))
+        stream = SimulatedStream(INGEST_PARTITIONS)
+        sup = StreamSupervisor(
+            StreamSupervisorSpec(
+                "ingest", ingest_specs(), dimensions=["dimA", "dimB"],
+                task_count=INGEST_PARTITIONS,
+                max_rows_per_task=INGEST_TASK_ROWS,
+                tuning=StreamTuningConfig(
+                    max_rows_per_hydrant=INGEST_HYDRANT_ROWS,
+                    max_records_per_poll=INGEST_POLL_RECORDS,
+                    segment_granularity="hour", query_granularity="none")),
+            stream, md, parser=parser, handoff=handoff, deep_storage=deep,
+            realtime=rt)
+        # the two standing queries subscribe before the first event; the
+        # tasks (one per partition) start on the empty stream
+        sqs = ingest_standing_queries()
+        subs = {name: hub.subscribe(query_from_json(q))
+                for name, q in sqs.items()}
+        sup.run_once()
+        for task in sup.tasks.values():
+            hub.attach(task.driver.appenderator)
+        programs = {name: p.standing for name, p in zip(
+            sqs, hub._programs.values())}
+        if hub.active_programs() != 2 or len(sup.tasks) != 2:
+            raise AssertionError("phase ingest: programs or tasks missing")
+
+        # 1-2. ingest with a standing tick every INGEST_TICK_EVERY events
+        t = time.perf_counter()
+        for p, ev in enumerate(events):
+            stream.append(p, ingest_records(ev, 0, per - INGEST_HOLDBACK))
+        out["append_s"] = time.perf_counter() - t
+        tally = IngestTally(t0)
+        done = [0] * INGEST_PARTITIONS
+        ticks, folds_per_tick = [], []
+        next_tick = INGEST_TICK_EVERY
+        t_ingest = time.perf_counter()
+        tick_s = check_s = 0.0
+        Sink.persist_hydrant = timed_persist
+        collector = {"s": 0.0, "t": 0.0, "stats": gc.get_stats()}
+
+        def timed_collect(phase, info):
+            if phase == "start":
+                collector["t"] = time.perf_counter()
+            else:
+                collector["s"] += time.perf_counter() - collector["t"]
+        gc.callbacks.append(timed_collect)
+        try:
+            with FoldLog() as flog:
+                while True:
+                    sup.run_once()
+                    offs = [sup.tasks[g].current_offsets[p]
+                            for g in range(INGEST_PARTITIONS)
+                            for p in sup.tasks[g].partitions]
+                    lag = sum(stream.latest_offset(p) - o
+                              for p, o in enumerate(offs))
+                    if sum(offs) < next_tick and lag:
+                        continue
+                    next_tick += INGEST_TICK_EVERY
+                    for p, ev in enumerate(events):
+                        tally.add(ev, done[p], offs[p])
+                        done[p] = offs[p]
+                    s0 = standing.stats().snapshot()
+                    tt = time.perf_counter()
+                    hub.tick()
+                    torch.cuda.synchronize()
+                    ticks.append((time.perf_counter() - tt) * 1e3)
+                    tick_s += ticks[-1] / 1e3
+                    folds_per_tick.append(standing.stats().snapshot()[
+                        "folds"] - s0["folds"])
+                    tc = time.perf_counter()
+                    for name, sq in programs.items():
+                        snap = sq.snapshot()
+                        n = check_standing(name, snap.rows, tally)
+                        if n != tally.n:
+                            raise AssertionError(f"standing {name}: {n} "
+                                                 f"rows, {tally.n} events")
+                        rescan = sq.rescan_rows()
+                        check_standing(name, rescan, tally)
+                        check_standing(name, snap.rows, tally, rescan)
+                    check_s += time.perf_counter() - tc
+                    if not lag:
+                        break
+        finally:
+            Sink.persist_hydrant = persist_orig
+            gc.callbacks.remove(timed_collect)
+            by_gen = [b["collections"] - a["collections"] for a, b in
+                      zip(collector["stats"], gc.get_stats())]
+            collector.update(n=sum(by_gen), full=by_gen[2])
+        ingest_s = time.perf_counter() - t_ingest
+        if flog.twice:
+            raise AssertionError(f"segments folded twice: {flog.twice[:4]}")
+        n_in = tally.n
+        host_s = ingest_s - tick_s - check_s
+        out["ingest"] = {
+            "events": n_in, "s": ingest_s, "ticks_s": tick_s,
+            "checks_s": check_s,
+            "events_per_s": n_in / host_s, "parse_s": parse_s[0],
+            "parse_events_per_s": n_in / parse_s[0],
+            "rollup_s": host_s - parse_s[0],
+            "rollup_events_per_s": n_in / (host_s - parse_s[0]),
+            "collector_s": collector["s"],
+            "collections": collector["n"],
+            "full_collections": collector["full"],
+            "hydrant_persist_ms": [ms for ms, _ in persists],
+            "hydrant_persist_rows": [r for _, r in persists]}
+        out["standing"] = {"ticks": len(ticks), "tick_ms": ticks,
+                           "tick_ms_p50": float(np.median(ticks)),
+                           "tick_ms_max": float(max(ticks)),
+                           "folds_per_tick": folds_per_tick,
+                           "fold_calls": flog.calls}
+        log(f"  ingest: {n_in} events in {ingest_s:.1f} s ({tick_s:.1f} s "
+            f"of it in {len(ticks)} standing ticks, {check_s:.1f} s in their "
+            f"checks): "
+            f"{out['ingest']['events_per_s']:.0f} events/s on the host, "
+            f"parse {out['ingest']['parse_events_per_s']:.0f}/s "
+            f"({parse_s[0]:.1f} s), rollup "
+            f"{out['ingest']['rollup_events_per_s']:.0f}/s "
+            f"({out['ingest']['rollup_s']:.1f} s); Python's collector "
+            f"{collector['s']:.1f} s of the loop in {collector['n']} "
+            f"collections ({collector['full']} full); hydrant persists "
+            f"{[round(ms, 1) for ms, _ in persists]} ms at rows "
+            f"{[r for _, r in persists]}")
+        log(f"  standing: {len(ticks)} ticks, tick ms p50 "
+            f"{out['standing']['tick_ms_p50']:.1f}, max "
+            f"{out['standing']['tick_ms_max']:.1f}; folds per tick "
+            f"{folds_per_tick}; every snapshot equals numpy and the "
+            f"re-scan, no segment folded twice")
+
+        # 3. A7: refolds of one live hydrant
+        out["a7"] = ingest_a7(dev, events)
+
+        # 5. the subscription surface, ticked by the scheduler's flush loop
+        port = http.port
+        status, _, body, _, _ = http_post(
+            port, sqs["timeseries"], path="/druid/v2/subscriptions")
+        if status != 200 or hub.active_programs() != 2:
+            raise AssertionError(f"subscribe: status {status}, programs "
+                                 f"{hub.active_programs()}")
+        sub_id = body["subscriptionId"]
+        status, hdrs, rows, _ = http_get(port,
+                                         f"/druid/v2/subscriptions/{sub_id}")
+        etag = hdrs.get("X-Druid-ETag")
+        before_rows = sum(r["result"]["rows"] for r in rows)
+        status304, _, _, ms304 = http_get(
+            port, f"/druid/v2/subscriptions/{sub_id}?timeoutMs=300",
+            {"If-None-Match": etag})
+        if status304 != 304 or not 250 <= ms304 < 5000:
+            raise AssertionError(f"unchanged long-poll: {status304} in "
+                                 f"{ms304:.0f} ms")
+        sched = DataNodeScheduler(hist, SchedulerConfig()).start()
+        hub.drive_with(sched)
+        parked = {}
+
+        def park():
+            parked["r"] = http_get(
+                port, f"/druid/v2/subscriptions/{sub_id}?timeoutMs=30000",
+                {"If-None-Match": etag}, timeout=60)
+            parked["t"] = time.perf_counter()
+        th = threading.Thread(target=park, name="ingest-parked-poll")
+        th.start()
+        time.sleep(0.3)
+        t_new = time.perf_counter()
+        for p, ev in enumerate(events):
+            stream.append(p, ingest_records(ev, per - INGEST_HOLDBACK, per))
+        while True:
+            sup.run_once()
+            offs = [sup.tasks[g].current_offsets[p]
+                    for g in range(INGEST_PARTITIONS)
+                    for p in sup.tasks[g].partitions]
+            if sum(stream.latest_offset(p) - o
+                   for p, o in enumerate(offs)) == 0:
+                break
+        th.join(timeout=60)
+        if th.is_alive() or parked["r"][0] != 200:
+            raise AssertionError("the parked long-poll did not wake")
+        wake_rows = sum(r["result"]["rows"] for r in parked["r"][2])
+        new_etag = parked["r"][1].get("X-Druid-ETag")
+        if new_etag == etag or not before_rows < wake_rows <= INGEST_EVENTS:
+            raise AssertionError(f"parked poll woke with {wake_rows} rows, "
+                                 f"etag {new_etag}")
+        for p, ev in enumerate(events):
+            tally.add(ev, done[p], per)
+            done[p] = per
+        hub.tick()
+        for name, sq in programs.items():
+            if check_standing(name, sq.rows(), tally) != INGEST_EVENTS:
+                raise AssertionError(f"standing {name}: not every event")
+            check_standing(name, sq.rows(), tally, sq.rescan_rows())
+        out["subscription"] = {
+            "id": sub_id, "unchanged_status": status304,
+            "unchanged_ms": ms304, "wake_ms": (parked["t"] - t_new) * 1e3,
+            "wake_rows": wake_rows, "rows_before": before_rows}
+        log(f"  subscription {sub_id}: 304 on an unchanged ETag in "
+            f"{ms304:.0f} ms (timeoutMs 300); a poll parked before "
+            f"{INGEST_PARTITIONS * INGEST_HOLDBACK} new events woke after "
+            f"{out['subscription']['wake_ms']:.0f} ms with {wake_rows} rows "
+            f"(had {before_rows}), ticked by the scheduler's flush loop")
+        sinks = [(str(i.id), app.rows_in(i)) for task in sup.tasks.values()
+                 for app in [task.driver.appenderator]
+                 for i in app.sink_ids()]
+        hydrants = [len(s.hydrants) for task in sup.tasks.values()
+                    for s in task.driver.appenderator._sinks.values()]
+        if max(r for _, r in sinks) > INGEST_SEGMENT_ROWS:
+            raise AssertionError(f"a sink holds more than "
+                                 f"maxRowsPerSegment: {sinks}")
+        out["sinks"] = {"rows": [r for _, r in sinks],
+                        "persisted_hydrants": hydrants}
+        log(f"  sinks: {len(sinks)}, rows {[r for _, r in sinks]}, "
+            f"persisted hydrants {hydrants}")
+
+        # 4. the four queries before publish, through the realtime server
+        checks = {"groupby": check_groupby, "topn": check_topn,
+                  "timeseries": lambda rows, ref: check_timeseries(
+                      rows, ref, buckets=2),
+                  "groupby_filtered": check_filtered}
+
+        def serve(tag, want):
+            res, kept = {}, {}
+            for name, q in qs.items():
+                runs, got = [], None
+                for i in range(1 + INGEST_WARM):
+                    l0 = (sr.LAUNCHES, mk.LAUNCHES)
+                    if i == 0:
+                        with StrategyLog() as slog:
+                            status, _, rows, ms, _ = http_post(port, q)
+                    else:
+                        status, _, rows, ms, _ = http_post(port, q)
+                    got_l = (sr.LAUNCHES - l0[0], mk.LAUNCHES - l0[1])
+                    if status != 200 or (want(name) is not None
+                                         and got_l != want(name)):
+                        raise AssertionError(
+                            f"{tag} {name}: status {status}, (B1, B2) "
+                            f"{got_l}, expected {want(name)}; strategies "
+                            f"{slog.strategies}")
+                    if i == 0:
+                        checks[name](rows, ref)
+                        kept[name], got = rows, got_l
+                    runs.append(ms)
+                res[name] = {"cold_ms": runs[0], "warm_ms": runs[1:],
+                             "p50_ms": float(np.median(runs[1:])),
+                             "strategies": slog.strategies,
+                             "b1_b2_launches_per_run": list(got)}
+                log(f"  {tag} {name}: rows equal numpy; strategy per "
+                    f"segment {slog.strategies}; cold {runs[0]:.1f} ms, "
+                    f"warm p50 {res[name]['p50_ms']:.1f} ms; (B1, B2) "
+                    f"{got} a run")
+            return res, kept
+        out["before_publish"], rows_before = serve(
+            "before publish", lambda name: None)
+
+        # 6. publish and handoff
+        flat = []
+        stop_poll = threading.Event()
+        etag_now = http_get(port, f"/druid/v2/subscriptions/{sub_id}")[1][
+            "X-Druid-ETag"]
+
+        def poller(etag=etag_now):
+            while not stop_poll.is_set():
+                st, h, rows, _ = http_get(
+                    port, f"/druid/v2/subscriptions/{sub_id}?timeoutMs=500",
+                    {"If-None-Match": etag})
+                if st == 200:
+                    etag = h["X-Druid-ETag"]
+                    flat.append(sum(r["result"]["rows"] for r in rows))
+        pt = threading.Thread(target=poller, name="ingest-cutover-poll")
+        pt.start()
+        c0 = standing.stats().snapshot()["cutovers"]
+        t = time.perf_counter()
+        ok = sup.checkpoint_all()
+        publish_s = time.perf_counter() - t - sum(handoff_s)
+        hub.tick()
+        time.sleep(0.6)
+        stop_poll.set()
+        pt.join(timeout=30)
+        if not ok or pt.is_alive():
+            raise AssertionError(f"checkpoint_all {ok}")
+        meta = md.datasource_metadata("ingest")
+        used = md.used_segments("ingest")
+        want_meta = {str(p): per for p in range(INGEST_PARTITIONS)}
+        if meta != {"partitions": want_meta} \
+                or sum(d.num_rows for d in used) != INGEST_EVENTS:
+            raise AssertionError(f"committed {meta}, used rows "
+                                 f"{sum(d.num_rows for d in used)}")
+        cutovers = standing.stats().snapshot()["cutovers"] - c0
+        if rt.served_segment_ids() or hist.segment_count() != len(used) \
+                or cutovers != len(used) * len(programs):
+            raise AssertionError(
+                f"handoff: realtime serves {rt.served_segment_ids()}, the "
+                f"historical {hist.segment_count()}, cutovers {cutovers}")
+        if any(n != INGEST_EVENTS for n in flat):
+            raise AssertionError(f"an emission across the cutover counted "
+                                 f"{sorted(set(flat))} rows")
+        for name, sq in programs.items():
+            if check_standing(name, sq.rows(), tally) != INGEST_EVENTS:
+                raise AssertionError(f"standing {name} after the cutover")
+            check_standing(name, sq.rows(), tally, sq.rescan_rows())
+        out["publish"] = {"s": publish_s, "handoff_s": sum(handoff_s),
+                          "segments": len(used),
+                          "rows": [d.num_rows for d in used],
+                          "bytes": [d.size_bytes for d in used],
+                          "offsets": meta, "cutovers": cutovers,
+                          "emissions_across": len(flat)}
+        log(f"  publish: checkpoint_all in {publish_s:.1f} s (merge, push "
+            f"to deep storage, commit with offsets {meta}); handoff "
+            f"{sum(handoff_s):.1f} s ({len(used)} segments of "
+            f"{[d.num_rows for d in used]} rows, through the load queue); "
+            f"sinks unannounced; {cutovers} standing cutovers, "
+            f"{len(flat)} emissions across the boundary each count "
+            f"{INGEST_EVENTS}")
+
+        # 7. the four queries after handoff. A longSum over a LONG column
+        # whose min equals its max sums as count x c, and such a kernel
+        # keeps a groupBy off the projection (the reference's rule): over
+        # a segment where nothing rolled up, `count` is constant and the
+        # groupBys run mixed; elsewhere B1 (B2 filtered) once a segment
+        const = sum(make_kernel(A.LongSumAggregator("rows", "count"),
+                                seg).const_value is not None
+                    for seg in hist.segments())
+        n_proj = len(used) - const
+        want_l = {"groupby": (n_proj, 0), "groupby_filtered": (0, n_proj)}
+        out["after_handoff"], rows_after = serve(
+            "after handoff", lambda name: want_l.get(name, (0, 0)))
+        for name, strat in (("groupby", "projection"),
+                            ("groupby_filtered", "megakernel")):
+            got_s = [s for s, _ in out["after_handoff"][name]["strategies"]]
+            if got_s.count(strat) != n_proj \
+                    or got_s.count("mixed") != const:
+                raise AssertionError(
+                    f"after handoff {name}: strategies {got_s}, expected "
+                    f"{strat} x{n_proj} and mixed x{const}")
+        out["publish"]["count_constant_segments"] = const
+        log(f"  after handoff: {const} of {len(used)} published segments "
+            f"hold a constant count column, so their groupBys run mixed "
+            f"(B1/B2 once for each of the other {n_proj})")
+        for name in qs:
+            if not same_rows(rows_before[name], rows_after[name], rel=1e-5):
+                raise AssertionError(f"{name}: rows after handoff differ "
+                                     f"from before publish")
+            a, b = out["after_handoff"][name], out["before_publish"][name]
+            a["before_p50_ms"], a["before_cold_ms"] = b["p50_ms"], b["cold_ms"]
+            log(f"  {name}: cold {b['cold_ms']:.1f} -> {a['cold_ms']:.1f} "
+                f"ms, warm p50 {b['p50_ms']:.1f} -> {a['p50_ms']:.1f} ms "
+                f"(before publish -> after handoff); rows equal")
+
+        # 8. the pool
+        out["pool"] = pool_snapshot("ingest")
+    finally:
+        for x in (hub, sched, http, broker, peon):
+            if x is not None:
+                x.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    counted = {"B1": sr.LAUNCHES, "B2": mk.LAUNCHES}
+    sr.LAUNCHES, mk.LAUNCHES = base
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase ingest took {out['phase_s']:.1f} s; (B1, B2) launched "
+        f"{counted}; temporary directory removed; {card_line()}")
+    if out["phase_s"] > INGEST_PHASE_LIMIT_S:
+        raise AssertionError(f"phase ingest took {out['phase_s']:.1f} s, "
+                             f"over {INGEST_PHASE_LIMIT_S} s")
+    return out, counted
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5880,6 +6760,16 @@ def main():
                                "chip_smoke_storage.json"), "w") as f:
             json.dump(out, f, indent=1, default=float)
         return 0
+    if sys.argv[1:] == ["ingest"]:
+        # the build and phase 21 alone (it makes its own events)
+        log("phase ingest: a stream of the headline schema into the port")
+        out, counted = phase_ingest(dev)
+        out["launches"] = counted
+        os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(root, "chiprun_out",
+                               "chip_smoke_ingest.json"), "w") as f:
+            json.dump(out, f, indent=1, default=float)
+        return 0
     if sys.argv[1:] == ["extensions"]:
         # the build and phase 16 alone, E5 on phase 14's segments made here
         # (a quicker check of that phase; its numbers are in the log)
@@ -5956,6 +6846,11 @@ def main():
         dev, segments, qs, ref, kept, report["http"])
     pools["storage"] = report["storage"]["pool"]
     del segments, captured, ref, kept
+
+    log("phase ingest: a stream of the headline schema through the "
+        "realtime path, standing queries, publish and handoff")
+    report["ingest"], ingest_launches = phase_ingest(dev)
+    pools["ingest"] = report["ingest"]["pool"]
 
     log(f"phase sorted, {SORTED_SEGMENTS} segments in the rollup order")
     report["sorted"] = phase_sorted(dev)
@@ -6047,6 +6942,7 @@ def main():
             "launches_http": http_launches[which],
             "launches_sql": sql_launches[which],
             "launches_storage": storage_launches[which],
+            "launches_ingest": ingest_launches[which],
             "max_abs_err": max(err, parity["max_abs_err"],
                                report["packed_parity"]["max_abs_err"],
                                expr_errs[which]),

@@ -4,8 +4,12 @@ timeline (InventoryView), scatters to the DataNodes holding their replicas
 DataNodeServer), retries, hedges and caches, and merges the nodes' partial
 states (cluster/wire.py carries them over HTTP). `cluster/loadqueue.py`
 loads segments from deep storage into a node (storage/deep.py), and
-`cluster/chaos.py` faults the data plane. The coordinator, realtime
-servers, lookups and the MetadataStore wait for later slices (ROADMAP)."""
+`cluster/chaos.py` faults the data plane. A RealtimeServer
+(`cluster/realtime.py`) announces streaming ingestion's in-flight sinks
+beside the DataNodes, so they answer through the broker before publish;
+the MetadataStore (`cluster/metadata.py`) records published segments with
+their stream offsets. The coordinator and lookups wait for a later slice
+(ROADMAP A18)."""
 from druid_tpu_torch.cluster.broker import Broker, MissingSegmentsError
 from druid_tpu_torch.cluster.cache import (Cache, CacheConfig, HybridCache,
                                            LruCache, RemoteCacheClient,
@@ -13,9 +17,11 @@ from druid_tpu_torch.cluster.cache import (Cache, CacheConfig, HybridCache,
 from druid_tpu_torch.cluster.dataserver import (DataNodeServer,
                                                 RemoteDataNodeClient,
                                                 RemoteQueryError)
-from druid_tpu_torch.cluster.metadata import (SegmentAllocationError,
+from druid_tpu_torch.cluster.metadata import (MetadataStore,
+                                              SegmentAllocationError,
                                               SegmentDescriptor,
                                               StaleTermError)
+from druid_tpu_torch.cluster.realtime import RealtimeServer
 from druid_tpu_torch.cluster.resilience import (BrokerResilience,
                                                 PartialResult,
                                                 ResilienceMetricsMonitor,
@@ -42,5 +48,5 @@ __all__ = [
     "RemoteCacheClient", "RemoteCacheServer", "CacheConfig",
     "ResiliencePolicy", "BrokerResilience", "PartialResult",
     "ResilienceMetricsMonitor", "DataNodeServer", "RemoteDataNodeClient",
-    "RemoteQueryError",
+    "RemoteQueryError", "MetadataStore", "RealtimeServer",
 ]

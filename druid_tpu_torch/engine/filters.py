@@ -1219,6 +1219,75 @@ def evaluate_filter_on_row(flt: F.DimFilter, row: Dict[str, object]) -> bool:
     return pred("" if v is None else str(v))
 
 
+def make_row_matcher(flt: F.DimFilter):
+    """Compile a DimFilter into row(dict)->bool over raw (pre-dictionary)
+    values, for ingest-time TransformSpec filters (ingest/input.py), the
+    analog of the reference's ValueMatcher for rows that are not yet
+    columnar. Dims are strings (None ≡ ""), metrics numeric, __time
+    millis. The reference package's `make_row_matcher`, leaf by leaf."""
+    if isinstance(flt, F.TrueFilter):
+        return lambda row: True
+    if isinstance(flt, F.FalseFilter):
+        return lambda row: False
+    if isinstance(flt, F.AndFilter):
+        subs = [make_row_matcher(f) for f in flt.fields]
+        return lambda row: all(m(row) for m in subs)
+    if isinstance(flt, F.OrFilter):
+        subs = [make_row_matcher(f) for f in flt.fields]
+        return lambda row: any(m(row) for m in subs)
+    if isinstance(flt, F.NotFilter):
+        sub = make_row_matcher(flt.field)
+        return lambda row: not sub(row)
+    if isinstance(flt, F.IntervalFilter):
+        ivs = flt.intervals
+        col = flt.dimension
+
+        def iv_match(row):
+            v = row.get(col)
+            if v is None:
+                return False
+            try:
+                ms = int(float(v))
+            except (TypeError, ValueError):
+                return False
+            return any(iv.contains(ms) for iv in ivs)
+        return iv_match
+    if isinstance(flt, F.ColumnComparisonFilter):
+        dims = flt.dimensions
+
+        def cc_match(row):
+            vals = [("" if row.get(d) is None else str(row.get(d)))
+                    for d in dims]
+            return all(v == vals[0] for v in vals)
+        return cc_match
+    if isinstance(flt, F.ExpressionFilter):
+        expr = parse_expression(flt.expression)
+
+        def ex_match(row):
+            # None ≡ "" — the same null contract as every other row matcher.
+            # A numeric expr over a null-bound column raises (e.g. "" > 2);
+            # such rows simply don't match, as in the reference.
+            try:
+                out = expr.evaluate({k: ("" if v is None else v)
+                                     for k, v in row.items()})
+            except (TypeError, ValueError):
+                return False
+            try:
+                return bool(float(out))
+            except (TypeError, ValueError):
+                return bool(out)
+        return ex_match
+    pred = _string_predicate(flt)
+    if pred is not None:
+        dim = flt.dimension
+
+        def s_match(row):
+            v = row.get(dim)
+            return pred("" if v is None else str(v))
+        return s_match
+    raise ValueError(f"cannot row-match filter {type(flt).__name__}")
+
+
 # ---------------------------------------------------------------------------
 # The row mask of the non-aggregate engines (scan, select, search,
 # timeBoundary), with the reference's host_mask semantics leaf by leaf

@@ -1,5 +1,5 @@
 """Extensions: sketches, histogram, stats, bloom filter, HLL sketch,
-distinctCount and time min/max.
+distinctCount, time min/max and the protobuf input parser.
 
 The port's counterpart of the reference package's `ext/`. Each module
 registers its aggregators, post-aggregators, filters and kernels into the
@@ -27,6 +27,7 @@ from druid_tpu_torch.ext.bloom import (BloomDimFilter, BloomFilterAggregator,
 from druid_tpu_torch.ext.hllsketch import (HLLSketchBuildAggregator,
                                            HLLSketchMergeAggregator,
                                            HLLSketchToEstimatePostAgg)
+from druid_tpu_torch.ext.protobuf_parser import ProtobufInputRowParser
 from druid_tpu_torch.ext.time_minmax import (TimeMaxAggregator,
                                              TimeMinAggregator)
 from druid_tpu_torch.ext.distinctcount import DistinctCountAggregator
@@ -41,5 +42,5 @@ __all__ = [
     "ApproximateHistogramAggregator", "HistogramValue",
     "HistogramQuantilePostAgg", "BloomFilterAggregator", "BloomFilterValue",
     "BloomDimFilter", "TimeMinAggregator", "TimeMaxAggregator",
-    "DistinctCountAggregator",
+    "DistinctCountAggregator", "ProtobufInputRowParser",
 ]

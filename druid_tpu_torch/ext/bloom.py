@@ -105,6 +105,10 @@ class BloomFilterAggregator(AggregatorSpec):
     def m_bits(self) -> int:
         return optimal_m_bits(self.max_num_entries)
 
+    def combining(self):
+        return BloomFilterAggregator(self.name, self.name,
+                                     self.max_num_entries)
+
     def to_json(self):
         return {"type": "bloom", "name": self.name, "fieldName": self.field,
                 "maxNumEntries": self.max_num_entries}

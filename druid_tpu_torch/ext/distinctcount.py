@@ -19,6 +19,7 @@ import torch
 from druid_tpu_torch.engine.kernels import (AggKernel, _presence,
                                             register_kernel)
 from druid_tpu_torch.query.aggregators import (AggregatorSpec,
+                                               LongSumAggregator,
                                                register_aggregator)
 
 #: the presence grid's cell budget per segment (groups x cardinality)
@@ -29,6 +30,10 @@ MAX_CELLS = 1 << 24
 class DistinctCountAggregator(AggregatorSpec):
     name: str
     field: str
+
+    def combining(self):
+        # the merge side adds per-segment counts (the contrib contract)
+        return LongSumAggregator(self.name, self.name)
 
     def to_json(self):
         return {"type": "distinctCount", "name": self.name,

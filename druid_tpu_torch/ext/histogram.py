@@ -76,6 +76,11 @@ class ApproximateHistogramAggregator(AggregatorSpec):
     lower_limit: float = 0.0
     upper_limit: float = 1.0
 
+    def combining(self):
+        return ApproximateHistogramAggregator(
+            self.name, self.name, self.num_buckets, self.lower_limit,
+            self.upper_limit)
+
     def to_json(self):
         return {"type": "approxHistogram", "name": self.name,
                 "fieldName": self.field, "numBuckets": self.num_buckets,

@@ -102,6 +102,10 @@ class ThetaSketchAggregator(AggregatorSpec):
     size: int = DEFAULT_THETA_SIZE
     should_finalize: bool = True   # True: the estimate; False: the sketch
 
+    def combining(self):
+        return ThetaSketchAggregator(self.name, self.name, self.size,
+                                     self.should_finalize)
+
     def to_json(self):
         return {"type": "thetaSketch", "name": self.name,
                 "fieldName": self.field, "size": self.size,
@@ -306,6 +310,9 @@ class QuantilesSketchValue:
 class QuantilesSketchAggregator(AggregatorSpec):
     name: str
     field: str
+
+    def combining(self):
+        return QuantilesSketchAggregator(self.name, self.name)
 
     def to_json(self):
         return {"type": "quantilesDoublesSketch", "name": self.name,

@@ -28,6 +28,9 @@ class VarianceAggregator(AggregatorSpec):
     field: str
     estimator: str = "population"   # population | sample
 
+    def combining(self):
+        return VarianceAggregator(self.name, self.name, self.estimator)
+
     def to_json(self):
         return {"type": "variance", "name": self.name,
                 "fieldName": self.field, "estimator": self.estimator}

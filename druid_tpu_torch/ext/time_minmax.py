@@ -31,6 +31,9 @@ class TimeMinAggregator(AggregatorSpec):
     def required_columns(self):
         return set()          # __time_offset always stages
 
+    def combining(self):
+        return TimeMinAggregator(self.name)
+
     def to_json(self):
         return {"type": "timeMin", "name": self.name,
                 "fieldName": "__time"}
@@ -42,6 +45,9 @@ class TimeMaxAggregator(AggregatorSpec):
 
     def required_columns(self):
         return set()
+
+    def combining(self):
+        return TimeMaxAggregator(self.name)
 
     def to_json(self):
         return {"type": "timeMax", "name": self.name,

@@ -2,7 +2,8 @@
 
 The port's copy of the reference package's `query/aggregators.py`: count,
 the long/double/float sum, min, max, first and last, filtered, hyperUnique
-and cardinality, and the extension registry that `druid_tpu_torch.ext`
+and cardinality, each with its combining form (`combining()`, what
+ingest's merge re-aggregates with), and the extension registry that `druid_tpu_torch.ext`
 fills (consulted first, as in the reference). An unknown type raises
 ValueError, as in the reference. `to_json` gives the reference's wire
 form. The device side of each spec is an AggKernel in engine/kernels.py.
@@ -26,6 +27,15 @@ class AggregatorSpec:
         f = self.field_name
         return {f} if f else set()
 
+    # combining factory: the agg used to merge partial results
+    # (reference AggregatorFactory.getCombiningFactory)
+    def combining(self) -> "AggregatorSpec":
+        cls = type(self)
+        try:
+            return cls(self.name, self.name)  # type: ignore[call-arg]
+        except TypeError:
+            return self
+
     def finalize(self, value):
         return value
 
@@ -36,6 +46,9 @@ class AggregatorSpec:
 @dataclass(frozen=True)
 class CountAggregator(AggregatorSpec):
     name: str = "count"
+
+    def combining(self):
+        return LongSumAggregator(self.name, self.name)
 
     def to_json(self):
         return {"type": "count", "name": self.name}
@@ -105,6 +118,9 @@ class FirstAggregator(AggregatorSpec):
     field: str
     kind: str = "double"
 
+    def combining(self):
+        return FirstAggregator(self.name, self.name, self.kind)
+
     def required_columns(self):
         # a rolled-up segment keeps each row's event time in the hidden
         # pair column __ft_<field>, which then orders the rows
@@ -121,6 +137,9 @@ class LastAggregator(AggregatorSpec):
     name: str
     field: str
     kind: str = "double"
+
+    def combining(self):
+        return LastAggregator(self.name, self.name, self.kind)
 
     def required_columns(self):
         return {self.field, f"__ft_{self.field}"}
@@ -140,6 +159,9 @@ class FilteredAggregator(AggregatorSpec):
     def required_columns(self):
         return self.delegate.required_columns() \
             | self.filter.required_columns()
+
+    def combining(self):
+        return self.delegate.combining()
 
     def to_json(self):
         return {"type": "filtered", "name": self.name,
@@ -174,6 +196,10 @@ class CardinalityAggregator(AggregatorSpec):
 
     def required_columns(self):
         return set(self.fields)
+
+    def combining(self):
+        return HyperUniqueAggregator(self.name, self.name, self.log2m,
+                                     self.round)
 
     def to_json(self):
         return {"type": "cardinality", "name": self.name,

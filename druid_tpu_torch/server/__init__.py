@@ -2,9 +2,10 @@
 (QueryHttpServer, with /druid/v2/sql and Avatica over a SqlExecutor), the
 router in front of the brokers (RouterHttpServer, TieredBrokerSelector),
 the per-query lifecycle (auth, request log, metrics), security, the
-data-node scheduler, and query admission, cancellation and deadlines.
-Subscriptions (A15) and the coordination endpoints, also the router's
-control-plane proxy (A18), wait for later slices (ROADMAP)."""
+data-node scheduler, and query admission, cancellation and deadlines; the
+standing-query subscription hub (server/subscriptions.py) behind
+/druid/v2/subscriptions. The coordination endpoints and the router's
+control-plane proxy wait for a later slice (ROADMAP A18)."""
 from druid_tpu_torch.server.avatica import AvaticaServer
 from druid_tpu_torch.server.deadline import Deadline, context_timeout_ms
 from druid_tpu_torch.server.http import QueryHttpServer

@@ -7,12 +7,14 @@ Reference analogs:
   sql/.../http/SqlResource.java:58,75-78 — POST /druid/v2/sql
   sql/.../avatica/DruidAvaticaJsonHandler — POST /druid/v2/sql/avatica
   /status — the common status endpoint every node serves
+  POST/GET/DELETE /druid/v2/subscriptions[/<id>] — standing-query
+    subscriptions (server/subscriptions.py) with long-poll and ETag/304
 
-What waits for later slices, each refused with NotImplementedError naming
-its ROADMAP item when its constructor argument is given:
-`subscription_hub` (A15), `coordination` and `overlord` (A18). Their paths
-answer 404, as the reference's do when they are not enabled; so do the
-SQL paths when no `sql_executor` is given.
+What waits for a later slice, refused with NotImplementedError naming its
+ROADMAP item when its constructor argument is given: `coordination` and
+`overlord` (A18). Their paths answer 404, as the reference's do when they
+are not enabled; so do the SQL paths when no `sql_executor` is given, and
+the subscription paths when no `subscription_hub` is.
 
 stdlib ThreadingHTTPServer stands in for Jetty; the wire format (JSON
 payloads/results) matches the reference so existing Druid HTTP clients map
@@ -75,16 +77,20 @@ class QueryHttpServer:
         sql_executor: optional sql.SqlExecutor — serves POST
         /druid/v2/sql and, through an AvaticaServer over it, POST
         /druid/v2/sql/avatica; both answer 404 "SQL not enabled" without
-        it. coordination and overlord (A18) and subscription_hub (A15)
-        wait for later slices."""
-        for name, arg, item in (("coordination", coordination, "A18"),
-                                ("overlord", overlord, "A18"),
-                                ("subscription_hub", subscription_hub,
-                                 "A15")):
+        it. coordination and overlord (A18) wait for a later slice.
+
+        subscription_hub: optional server.subscriptions.SubscriptionHub —
+        adds the standing-query subscription surface (POST/GET/DELETE
+        /druid/v2/subscriptions[/<id>]): long-poll fan-out composing with
+        the same ETag/If-None-Match contract the one-shot query path
+        speaks, so an unchanged window is a 304."""
+        for name, arg in (("coordination", coordination),
+                          ("overlord", overlord)):
             if arg is not None:
                 raise NotImplementedError(f"QueryHttpServer({name}=...) is "
-                                          f"not ported yet (ROADMAP {item})")
+                                          "not ported yet (ROADMAP A18)")
         self.lifecycle = lifecycle
+        self.subscription_hub = subscription_hub
         self.sql_executor = sql_executor
         self.auth_chain = auth_chain
         self.avatica = None
@@ -129,6 +135,12 @@ class QueryHttpServer:
             from druid_tpu_torch.cluster.resilience import \
                 ResilienceMetricsMonitor
             monitors.append(ResilienceMetricsMonitor(resilience))
+        if subscription_hub is not None:
+            from druid_tpu_torch.engine.standing import StandingMetricsMonitor
+            from druid_tpu_torch.server.subscriptions import \
+                SubscriptionMetricsMonitor
+            monitors.append(SubscriptionMetricsMonitor(subscription_hub))
+            monitors.append(StandingMetricsMonitor())
         self._monitors = MonitorScheduler(
             scrape_emitter, monitors,
             period_seconds=monitor_period_seconds)
@@ -196,7 +208,15 @@ class QueryHttpServer:
                         else:
                             self._reply(200, got)
                 elif self.path.startswith("/druid/v2/subscriptions/"):
-                    self._reply(404, {"error": "subscriptions not enabled"})
+                    # long-poll fan-out: the handler thread parks in the
+                    # hub until the standing program's version moves past
+                    # the presented If-None-Match etag (or the timeout
+                    # lapses → 304, the unchanged-window contract)
+                    if outer.subscription_hub is None:
+                        self._reply(404, {"error": "subscriptions not "
+                                          "enabled"})
+                    elif self._authenticated():
+                        self._poll_subscription()
                 elif self.path in ("/druid/v2/datasources",
                                    "/druid/v2/datasources/"):
                     if self._authenticated():
@@ -220,8 +240,11 @@ class QueryHttpServer:
                         identity = auth
                     if self.path.rstrip("/") == \
                             "/druid/v2/subscriptions":
-                        self._reply(404, {"error": "subscriptions not "
-                                          "enabled"})
+                        if outer.subscription_hub is None:
+                            self._reply(404, {"error": "subscriptions not "
+                                              "enabled"})
+                        else:
+                            self._subscribe(payload, identity)
                     elif self.path.rstrip("/") == "/druid/v2/sql/avatica":
                         if outer.avatica is None:
                             self._reply(404, {"error": "SQL not enabled"})
@@ -381,6 +404,58 @@ class QueryHttpServer:
                     gen.close()
                     self.close_connection = True
 
+            # ---- standing-query subscriptions (server/subscriptions.py)
+            def _poll_subscription(self) -> None:
+                import urllib.parse
+                from druid_tpu_torch.server.subscriptions import \
+                    UnknownSubscriptionError
+                parsed = urllib.parse.urlparse(self.path)
+                sub_id = parsed.path[len("/druid/v2/subscriptions/"):] \
+                    .rstrip("/")
+                params = urllib.parse.parse_qs(parsed.query)
+                try:
+                    timeout_s = float(params.get("timeoutMs",
+                                                 ["0"])[0]) / 1000.0
+                except ValueError:
+                    timeout_s = 0.0
+                etag = self.headers.get("If-None-Match")
+                try:
+                    rows, new_etag, changed = outer.subscription_hub.poll(
+                        sub_id, etag=etag, timeout_s=timeout_s)
+                except UnknownSubscriptionError:
+                    # swept as idle or never registered: the client
+                    # re-subscribes
+                    self._reply(404, {"error": "unknown subscription",
+                                      "subscriptionId": sub_id})
+                    return
+                if not changed:
+                    self.send_response(304)
+                    self.send_header("X-Druid-ETag", new_etag)
+                    self.send_header("Content-Length", "0")
+                    self.end_headers()
+                    return
+                self._reply(200, rows, {"X-Druid-ETag": new_etag})
+
+            def _subscribe(self, payload, identity) -> None:
+                """POST /druid/v2/subscriptions: body = a native aggregate
+                query; authorizes (with the identity do_POST already
+                authenticated) exactly like a one-shot run of it."""
+                from druid_tpu_torch.engine.standing import StandingIneligible
+                from druid_tpu_torch.query.model import query_from_json
+                query = query_from_json(payload)
+                authorizer = getattr(outer.lifecycle, "authorizer", None)
+                if authorizer is not None \
+                        and not authorizer(identity, query):
+                    self._reply(403, {"error": "unauthorized"})
+                    return
+                try:
+                    sub_id, etag = outer.subscription_hub.subscribe(query)
+                except StandingIneligible as e:
+                    self._reply(400, {"error": f"StandingIneligible: {e}"})
+                    return
+                self._reply(200, {"subscriptionId": sub_id, "etag": etag},
+                            {"X-Druid-ETag": etag})
+
             def do_DELETE(self):
                 # DELETE /druid/v2/{id} — QueryResource.cancelQuery:
                 # 202 accepted whether or not the id was in flight
@@ -388,7 +463,15 @@ class QueryHttpServer:
                 if not self._authenticated():
                     return
                 if self.path.startswith("/druid/v2/subscriptions/"):
-                    self._reply(404, {"error": "subscriptions not enabled"})
+                    if outer.subscription_hub is None:
+                        self._reply(404, {"error": "subscriptions not "
+                                          "enabled"})
+                        return
+                    sub_id = self.path[
+                        len("/druid/v2/subscriptions/"):].rstrip("/")
+                    found = outer.subscription_hub.unsubscribe(sub_id)
+                    self._reply(202, {"subscriptionId": sub_id,
+                                      "active": bool(found)})
                     return
                 qid = cancel_path_id(self.path)
                 if qid is not None:

@@ -87,6 +87,9 @@ class Interval:
     def overlaps(self, other: "Interval") -> bool:
         return self.start < other.end and other.start < self.end
 
+    def contains(self, ms: int) -> bool:
+        return self.start <= ms < self.end
+
     def intersect(self, other: "Interval") -> Optional["Interval"]:
         s, e = max(self.start, other.start), min(self.end, other.end)
         if s >= e:

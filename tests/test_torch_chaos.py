@@ -5,8 +5,11 @@ exact rows (equal to the fault-free oracle, the port's QueryExecutor), a
 typed partial with an accurate missingSegments report, or a typed error,
 inside its deadline; hedged execution equals unhedged, and the loser's
 cancellation is observed through the remote-cancel hook. The
-subscription-hub cases (tests/test_chaos_dataplane.py:399, :422, :455)
-wait for the hub (ROADMAP A15)."""
+subscription-hub cases (tests/test_chaos_dataplane.py:399, :422, :455) run
+on the port's SubscriptionHub: a slow consumer's poll parks for the hub's
+clamp, a mid-poll teardown frees the waiter with a typed error, and a tick
+hook wakes a parked poll inside its deadline."""
+import threading
 import time
 
 import pytest
@@ -371,3 +374,152 @@ def test_heal_restores_exact_service_and_closes_circuits(harness):
     o = harness.run_classified(q2)
     assert o.kind == "exact"
     harness.verify(q2, o)
+
+
+# ---------------------------------------------------------------------------
+# long-poll hang scenarios on the port's subscription hub
+# (tests/test_chaos_dataplane.py:399, :422, :455)
+# ---------------------------------------------------------------------------
+
+def _sub_rig():
+    import numpy as np
+
+    from druid_tpu_torch.cluster.metadata import MetadataStore
+    from druid_tpu_torch.ingest import (Appenderator, RowBatch,
+                                        SegmentAllocator,
+                                        StreamAppenderatorDriver)
+    from druid_tpu_torch.query.aggregators import (CountAggregator,
+                                                   LongSumAggregator)
+    from druid_tpu_torch.query.model import TimeseriesQuery
+    from druid_tpu_torch.server.subscriptions import SubscriptionHub
+    from druid_tpu_torch.utils.intervals import Interval as PInterval
+
+    day = PInterval.of("2026-03-01", "2026-03-02")
+    md = MetadataStore()
+    app = Appenderator("rt", [CountAggregator("rows"),
+                              LongSumAggregator("v", "value")],
+                       query_granularity="none")
+    driver = StreamAppenderatorDriver(app, SegmentAllocator(md, "day"), md)
+    hub = SubscriptionHub(idle_timeout_s=0, device="cpu")
+    hub.attach(app)
+    rng = np.random.default_rng(7)
+
+    def feed(n, off=0):
+        ts = [int(day.start + (off + i) * 1000) for i in range(n)]
+        driver.add_batch(RowBatch(ts, {
+            "page": [f"p{int(x)}" for x in rng.integers(5, size=n)],
+            "value": [int(x) for x in rng.integers(10, size=n)]}))
+
+    q = TimeseriesQuery.of(
+        "rt", [day],
+        [LongSumAggregator("rows", "rows"), LongSumAggregator("v", "v")],
+        granularity="all")
+    return hub, feed, q
+
+
+def test_slow_consumer_poll_parks_clamped_not_wire_bounded():
+    """A consumer that asks for an hour of long-poll parks for the hub's
+    clamp, not the hour."""
+    hub, feed, q = _sub_rig()
+    try:
+        sid, etag = hub.subscribe(q)
+        feed(100)
+        hub.tick()
+        _rows, etag, _ch = hub.poll(sid, etag=None)
+        hub.MAX_POLL_TIMEOUT_S = 0.5      # instance override: fast test
+        t0 = time.monotonic()
+        rows, new_etag, changed = hub.poll(sid, etag=etag,
+                                           timeout_s=3600.0)
+        elapsed = time.monotonic() - t0
+        assert not changed and rows is None and new_etag == etag
+        assert 0.4 <= elapsed < 5.0, (
+            f"poll parked {elapsed:.2f}s against a 0.5s clamp")
+    finally:
+        hub.stop()
+
+
+def test_mid_poll_hub_teardown_frees_waiter_with_typed_error():
+    """stop() while a consumer is parked mid-poll wakes the waiter promptly
+    with UnknownSubscriptionError, and the waiter thread joins."""
+    from druid_tpu_torch.server.subscriptions import UnknownSubscriptionError
+
+    hub, feed, q = _sub_rig()
+    sid, etag = hub.subscribe(q)
+    feed(50)
+    hub.tick()
+    _rows, etag, _ch = hub.poll(sid, etag=None)
+    outcome = []
+
+    def poller():
+        try:
+            outcome.append(hub.poll(sid, etag=etag, timeout_s=30.0))
+        except UnknownSubscriptionError as e:
+            outcome.append(e)
+
+    t = threading.Thread(target=poller, name="chaos-slow-poller")
+    t.start()
+    time.sleep(0.2)
+    t0 = time.monotonic()
+    hub.stop()
+    t.join(timeout=5.0)
+    elapsed = time.monotonic() - t0
+    assert not t.is_alive(), "mid-poll teardown leaked the waiter"
+    assert elapsed < 5.0, f"teardown took {elapsed:.2f}s to free the waiter"
+    assert len(outcome) == 1
+    assert isinstance(outcome[0], UnknownSubscriptionError)
+
+
+def test_tick_hook_wakes_parked_poll_within_deadline():
+    """The scheduler-driven tick path: a poll parked on an unchanged etag
+    is woken by the tick hook observing new data, well inside its
+    deadline; teardown removes the hook from the driver."""
+    class _TickDriver:
+        def __init__(self):
+            self.hooks = []
+            self._stop = threading.Event()
+            self._t = None
+
+        def add_tick_hook(self, fn):
+            self.hooks.append(fn)
+
+        def remove_tick_hook(self, fn):
+            self.hooks.remove(fn)
+
+        def start(self):
+            def loop():
+                while not self._stop.wait(0.05):
+                    for fn in list(self.hooks):
+                        fn()
+            self._t = threading.Thread(target=loop, name="chaos-ticker")
+            self._t.start()
+
+        def stop(self):
+            self._stop.set()
+            self._t.join(timeout=5.0)
+            assert not self._t.is_alive()
+
+    hub, feed, q = _sub_rig()
+    driver = _TickDriver()
+    hub.drive_with(driver)
+    driver.start()
+    try:
+        sid, etag = hub.subscribe(q)
+        feed(60)
+        deadline_wait = time.monotonic() + 10.0
+        while time.monotonic() < deadline_wait:
+            rows, etag, changed = hub.poll(sid, etag=etag, timeout_s=0.0)
+            if changed:
+                break
+            time.sleep(0.05)
+        t0 = time.monotonic()
+        feed(40, off=60)
+        rows, new_etag, changed = hub.poll(sid, etag=etag, timeout_s=10.0)
+        elapsed = time.monotonic() - t0
+        assert changed and rows is not None
+        assert rows[0]["result"]["rows"] == 100
+        assert elapsed < 5.0, (
+            f"tick hook took {elapsed:.2f}s to wake a 10s poll")
+    finally:
+        hub.stop()
+        driver.stop()
+        assert driver.hooks == [], "hub.stop() left its tick hook behind"

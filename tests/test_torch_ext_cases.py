@@ -6,9 +6,9 @@ every type the port registers.
 
 test_extension_sql is in tests/test_torch_sql.py. Left out, each with
 the ROADMAP item it waits for: test_extension_sharded_merge (the broker
-and sharded merge: A11, A12), the three protobuf parser cases (A15,
-ingestion) and the seven URI namespace lookup cases (A18, the cluster's
-lookups).
+and sharded merge: A11, A12) and the seven URI namespace lookup cases
+(A18, the cluster's lookups). The protobuf parser cases are in
+tests/test_torch_protobuf.py.
 """
 import numpy as np
 import pytest

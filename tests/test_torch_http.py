@@ -143,12 +143,12 @@ def test_http_status_and_errors(segs, served):
 
 
 @pytest.mark.parametrize("arg,item", [
-    ("leader_clients", "A18"), ("subscription_hub", "A15"),
-    ("coordination", "A18"), ("overlord", "A18")])
+    ("leader_clients", "A18"), ("coordination", "A18"), ("overlord", "A18")])
 def test_waiting_surfaces_refuse_construction(segs, arg, item):
     """The router's control-plane proxy (`leader_clients`) waits with the
     coordination endpoints; SQL is served since A16
-    (tests/test_torch_sql.py)."""
+    (tests/test_torch_sql.py), and the subscription hub since A15
+    (tests/test_torch_subscriptions.py)."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         if arg == "leader_clients":
             RouterHttpServer(TieredBrokerSelector({"_default": []},

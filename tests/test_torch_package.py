@@ -30,8 +30,12 @@ def test_import_pulls_in_neither_jax_nor_druid_tpu():
     server/ and obs/ among them (the HTTP data node, the wire, the query
     resource, the scheduler, security and /metrics), the SQL layer with
     Avatica and the router, and segment storage (storage/, the host codec's
-    native/, data/bitmap.py, the load queue and the chaos harness), loads
-    neither jax nor druid_tpu, druid_tpu.native included."""
+    native/, data/bitmap.py, the load queue and the chaos harness), and
+    ingestion (ingest/, the MetadataStore, the realtime server, standing
+    queries, the subscription hub and the protobuf parser), loads neither
+    jax nor druid_tpu, druid_tpu.native included; nor does `import
+    druid_tpu_torch.ext` load google.protobuf (the parser imports it when
+    it is built)."""
     code = ("import sys, druid_tpu_torch, druid_tpu_torch.engine, "
             "druid_tpu_torch.data.generator, druid_tpu_torch.data.convert, "
             "druid_tpu_torch.data.packed, druid_tpu_torch.data.cascade, "
@@ -62,12 +66,22 @@ def test_import_pulls_in_neither_jax_nor_druid_tpu():
             "druid_tpu_torch.storage.plan, druid_tpu_torch.storage.deep, "
             "druid_tpu_torch.native, druid_tpu_torch.native.lz4block, "
             "druid_tpu_torch.data.bitmap, druid_tpu_torch.cluster.loadqueue, "
-            "druid_tpu_torch.cluster.chaos; "
+            "druid_tpu_torch.cluster.chaos, druid_tpu_torch.ingest, "
+            "druid_tpu_torch.ingest.input, druid_tpu_torch.ingest.incremental, "
+            "druid_tpu_torch.ingest.merger, "
+            "druid_tpu_torch.ingest.appenderator, "
+            "druid_tpu_torch.ingest.receiver, "
+            "druid_tpu_torch.ingest.streaming, "
+            "druid_tpu_torch.cluster.realtime, "
+            "druid_tpu_torch.engine.standing, "
+            "druid_tpu_torch.server.subscriptions, "
+            "druid_tpu_torch.ext.protobuf_parser; "
             "from druid_tpu_torch.native import lz4block; "
             "lz4block.compress(b'abcd' * 64); "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'druid_tpu' "
-            "or m.startswith('druid_tpu.')); print(bad)")
+            "or m.startswith('druid_tpu.') or m == 'google.protobuf' "
+            "or m.startswith('google.protobuf.')); print(bad)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -92,6 +106,27 @@ def test_no_source_imports_jax_or_druid_tpu(path):
     bad = [m for m in _imports(ROOT / path)
            if m.split(".")[0] in ("jax", "jaxlib", "druid_tpu")]
     assert bad == []
+
+
+def _environment_reads(path: Path):
+    """os.environ / os.getenv / os.putenv uses in one source file."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Attribute) and node.attr in (
+                "environ", "getenv", "putenv", "environb"):
+            yield f"{path.name}:{node.lineno} {node.attr}"
+        elif isinstance(node, ast.ImportFrom) and node.module == "os" \
+                and any(a.name in ("environ", "getenv") for a in node.names):
+            yield f"{path.name}:{node.lineno} from os import"
+
+
+def test_port_reads_no_environment_variable():
+    """The port reads no environment flag (the reference's DRUID_TPU_*
+    switches are module functions here: standing.set_enabled,
+    packed.set_enabled, ...); no source under druid_tpu_torch/ touches
+    os.environ or os.getenv."""
+    found = [r for p in sorted((ROOT / "druid_tpu_torch").rglob("*.py"))
+             for r in _environment_reads(p)]
+    assert found == []
 
 
 def test_executor_without_device_needs_cuda(monkeypatch):
@@ -201,6 +236,34 @@ def test_serving_entry_points_need_cuda_without_a_device(monkeypatch):
         Broker(InventoryView())
     assert DataNode("n0", device="cpu").device.type == "cpu"
     assert Broker(InventoryView(), device="cpu").device.type == "cpu"
+
+
+def test_ingestion_entry_points_need_cuda_without_a_device(monkeypatch):
+    """The realtime server, a standing query and the subscription hub run
+    their folds on CUDA unless the caller passes device="cpu"."""
+    from druid_tpu_torch.cluster import InventoryView, RealtimeServer
+    from druid_tpu_torch.engine.standing import StandingQuery
+    from druid_tpu_torch.query.model import query_from_json
+    from druid_tpu_torch.server.subscriptions import SubscriptionHub
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    q = query_from_json({"queryType": "timeseries", "dataSource": "rt",
+                         "intervals": ["2026-03-01/2026-03-02"],
+                         "granularity": "all",
+                         "aggregations": [{"type": "count", "name": "n"}]})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RealtimeServer("rt0", InventoryView())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StandingQuery(q)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SubscriptionHub()
+    assert RealtimeServer("rt1", InventoryView(),
+                          device="cpu").device.type == "cpu"
+    sq = StandingQuery(q, device="cpu")
+    assert sq.device.type == "cpu"
+    sq.close()
+    hub = SubscriptionHub(device="cpu")
+    assert hub.device.type == "cpu"
+    hub.stop()
 
 
 def test_launch_counters_are_guarded():
