@@ -288,7 +288,20 @@ Phases, each fatal on failure:
      published segment only where its count column is not constant (none
      here; ROADMAP C). No pool eviction; the
      directory is removed; the phase must take at most 150 s.
-The device pool's snapshot is printed after phases 6-10 and 12-21; at the
+22. the mesh (druid_tpu_torch/parallel/; right after phase 7, on phase 6's
+     8 segments): the four main-path queries through
+     QueryExecutor(segments, mesh=make_mesh()) (the one card), 1 cold and
+     3 warm runs each: rows against numpy, exactly one `sharded` dispatch a
+     run and no per-segment, batched or run-domain one, the same strategy
+     every run (the projection becomes mixed), B1 and B2 launched 0 times;
+     warm p50, partials and merge+finish (split_times) and
+     query/sharded/stackBytes printed beside the same query's warm p50 and
+     split without a mesh, with the card's name and power limit. Then one
+     groupBy through a DataNode(mesh=...) behind the in-process broker
+     (rows against numpy, one sharded run), and release_device_caches()
+     must take stackBytes from above 0 to 0. The phase must take at most
+     120 s (run alone it also pays the meshless queries' cold runs).
+The device pool's snapshot is printed after phases 6-10 and 12-22; at the
 default budget none may show an eviction.
 `python3 chip_smoke.py batching` runs the build and phase 14 alone;
 `python3 chip_smoke.py extensions` the build and phase 16 with E5;
@@ -299,14 +312,17 @@ main-path queries (phase 18's yardstick), and phase 18;
 `python3 chip_smoke.py sql` the same and phase 19;
 `python3 chip_smoke.py storage` the build, phase 6's data and numpy
 reference, and phase 20;
-`python3 chip_smoke.py ingest` the build and phase 21.
+`python3 chip_smoke.py ingest` the build and phase 21;
+`python3 chip_smoke.py sharded` the build, phase 6's data and numpy
+reference, and phase 22.
 The line before the last is the kernels JSON line (each kernel's
 `launches` counted on phase 6's path, `launches_expressions` on phase
 12's, `launches_aggregators` on phase 13's, `launches_native_surface` on
 phase 15's, `launches_extensions` on phase 16's, `launches_serving` on
 phase 17's, `launches_http` on phase 18's, `launches_sql` on phase
 19's, `launches_storage` on phase 20's, `launches_ingest` on phase
-21's); the last line is {"ok": true,
+21's, `launches_sharded` on phase 22's mesh runs); the last line is
+{"ok": true,
 "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 import dataclasses
@@ -1259,12 +1275,14 @@ def check_timeseries(rows, ref, buckets=24):
             raise AssertionError(f"timeseries bucket {i}: {v}")
 
 
-def split_times(q, segments, dev, reps=3):
+def split_times(q, segments, dev, reps=3, mesh=None):
     """Where a warm query's time goes: producing the per-segment partials
     (host planning + device work + copy back) against merging and finishing
-    them on the host, medians of `reps`."""
+    them on the host, medians of `reps`. With `mesh`, the partials are the
+    one sharded run's, merged on the card."""
     import torch
     from druid_tpu_torch.engine import engines, sorted_reduce as sr
+    from druid_tpu_torch.parallel import use_mesh
     from druid_tpu_torch.engine.executor import apply_interval_chunking
     from druid_tpu_torch.query.model import (GroupByQuery, TimeseriesQuery,
                                              query_from_json)
@@ -1277,7 +1295,8 @@ def split_times(q, segments, dev, reps=3):
     saved = (sr.LAUNCHES, mk.LAUNCHES)
     for _ in range(reps):
         t = time.perf_counter()
-        ap = engines.make_aggregate_partials(query, segments, dev)
+        with use_mesh(mesh):
+            ap = engines.make_aggregate_partials(query, segments, dev)
         torch.cuda.synchronize()
         part.append((time.perf_counter() - t) * 1e3)
         t = time.perf_counter()
@@ -6648,6 +6667,183 @@ def phase_ingest(dev):
     return out, counted
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the mesh (druid_tpu_torch/parallel/)
+# ---------------------------------------------------------------------------
+
+SHARDED_WARM = 3                     # warm runs a query (p50 of 3)
+SHARDED_PHASE_LIMIT_S = 120.0        # alone, it pays phase 6's cold runs too
+
+
+def sharded_metrics():
+    """query/sharded/* as ShardedMonitor emits them now."""
+    from druid_tpu_torch.parallel.distributed import ShardedMonitor
+    from druid_tpu_torch.utils.emitter import InMemoryEmitter, ServiceEmitter
+    sink = InMemoryEmitter()
+    ShardedMonitor().do_monitor(ServiceEmitter("chip_smoke", "card", sink))
+    return {e.metric: e.value for e in sink.metrics()}
+
+
+def phase_sharded(dev, segments, qs, ref):
+    """Phase 22: the four main-path queries through QueryExecutor(segments,
+    mesh=make_mesh()) on phase 6's 8 segments, beside the same queries
+    without a mesh, and one groupBy through a DataNode(mesh=...) behind the
+    in-process broker. Returns (report, {"B1": n, "B2": n} launched by the
+    mesh runs)."""
+    import torch
+    from druid_tpu_torch.cluster import (Broker, DataNode, InventoryView,
+                                         descriptor_for)
+    from druid_tpu_torch.data.devicepool import device_pool
+    from druid_tpu_torch.engine import QueryExecutor, release_device_caches
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    from druid_tpu_torch.obs import dispatch
+    from druid_tpu_torch.parallel import distributed, make_mesh
+    t_phase = time.perf_counter()
+    card = card_line()
+    checks = {"groupby": check_groupby, "topn": check_topn,
+              "timeseries": check_timeseries,
+              "groupby_filtered": check_filtered}
+    mesh = make_mesh()
+    log(f"  mesh {[str(d) for d in mesh.devices]} (axis {mesh.axis!r}); "
+        f"{card}")
+    if mesh.size != torch.cuda.device_count():
+        raise AssertionError(f"make_mesh() gave {mesh.size} shards")
+    ex_mesh = QueryExecutor(segments, device=dev, mesh=mesh)
+    ex_plain = QueryExecutor(segments, device=dev)
+    strategies = []
+    orig_try = distributed.try_sharded
+
+    def try_spy(*a, **k):
+        got = orig_try(*a, **k)
+        strategies.append(None if got is None else got.spec.strategy)
+        return got
+
+    def mesh_run(name, q):
+        """One mesh run: its rows checked, one sharded dispatch and no
+        per-segment, batched or run-domain one."""
+        kinds = dispatch.stats().snapshot()
+        before = distributed.sharded_stats().snapshot()
+        t = time.perf_counter()
+        rows = ex_mesh.run_json(q)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        after = distributed.sharded_stats().snapshot()
+        kinds_after = dispatch.stats().snapshot()
+        checks[name](rows, ref)
+        # the cold run's filter words stage in "filterFill" waves
+        delta = {k: kinds_after.get(k, 0) - kinds.get(k, 0)
+                 for k in ("sharded", "segment", "batched", "runDomain")}
+        if delta != {"sharded": 1, "segment": 0, "batched": 0,
+                     "runDomain": 0} or after[0] - before[0] != 1 \
+                or after[1] - before[1] != len(segments):
+            raise AssertionError(f"{name} on the mesh: dispatches {delta}, "
+                                 f"sharded stats {before} -> {after}")
+        return ms
+
+    out = {"card": card, "mesh": [str(d) for d in mesh.devices]}
+    base = (sr.LAUNCHES, mk.LAUNCHES)
+    # (B1, B2) launched by the mesh runs alone: each query's cold and warm
+    # runs, read before its comparison runs, and the DataNode's run
+    counted = {"B1": 0, "B2": 0}
+
+    def count_mesh_launches():
+        counted["B1"] += sr.LAUNCHES
+        counted["B2"] += mk.LAUNCHES
+    distributed.try_sharded = try_spy
+    try:
+        for name, q in qs.items():
+            sr.LAUNCHES = mk.LAUNCHES = 0
+            strategies.clear()
+            cold = mesh_run(name, q)
+            warm = [mesh_run(name, q) for _ in range(SHARDED_WARM)]
+            count_mesh_launches()
+            if (sr.LAUNCHES, mk.LAUNCHES) != (0, 0):
+                raise AssertionError(f"{name} on the mesh launched (B1, B2) "
+                                     f"{(sr.LAUNCHES, mk.LAUNCHES)} times")
+            if len(set(strategies)) != 1 or strategies[0] is None:
+                raise AssertionError(f"{name}: mesh strategies {strategies}")
+            split = split_times(q, segments, dev, mesh=mesh)
+            stack = sharded_metrics()["query/sharded/stackBytes"]
+            # the same query without a mesh, beside it (measurement: its
+            # B1/B2 launches are not the phase's); its first run is cold
+            # where phase 6 has not run in this process
+            pw = []
+            for _ in range(1 + SHARDED_WARM):
+                t = time.perf_counter()
+                rows = ex_plain.run_json(q)
+                torch.cuda.synchronize()
+                pw.append((time.perf_counter() - t) * 1e3)
+            checks[name](rows, ref)
+            psplit = split_times(q, segments, dev)
+            r = out[name] = {
+                "strategy": strategies[0], "cold_ms": cold, "warm_ms": warm,
+                "p50_ms": float(np.median(warm)),
+                "partials_ms": split["partials_ms"],
+                "finish_ms": split["finish_ms"], "stack_bytes": stack,
+                "plain_first_ms": pw[0], "plain_warm_ms": pw[1:],
+                "plain_p50_ms": float(np.median(pw[1:])),
+                "plain_partials_ms": psplit["partials_ms"],
+                "plain_finish_ms": psplit["finish_ms"]}
+            log(f"  {name}: mesh ({r['strategy']}) cold {cold:.1f} ms, warm "
+                f"p50 {r['p50_ms']:.1f} ms, partials "
+                f"{r['partials_ms']:.1f} ms, merge+finish "
+                f"{r['finish_ms']:.1f} ms, stackBytes {stack / 1e9:.3f} GB"
+                f" | no mesh: first run {pw[0]:.1f} ms, warm p50 "
+                f"{r['plain_p50_ms']:.1f} ms, partials "
+                f"{r['plain_partials_ms']:.1f} ms, merge+finish "
+                f"{r['plain_finish_ms']:.1f} ms; rows equal numpy; {card}")
+        sr.LAUNCHES = mk.LAUNCHES = 0
+        # one groupBy through a data node on the mesh, behind the broker
+        node = DataNode("mesh0", device=dev, mesh=mesh)
+        view = InventoryView()
+        view.register(node)
+        for s in segments:
+            node.load_segment(s)
+            view.announce(node.name, descriptor_for(s))
+        broker = Broker(view, device=dev)
+        try:
+            before = distributed.sharded_stats().snapshot()
+            t = time.perf_counter()
+            rows = broker.run_json(qs["groupby"])
+            torch.cuda.synchronize()
+            node_ms = (time.perf_counter() - t) * 1e3
+            after = distributed.sharded_stats().snapshot()
+        finally:
+            broker.stop()
+        count_mesh_launches()
+        check_groupby(rows, ref)
+        if after[0] - before[0] != 1 or (sr.LAUNCHES, mk.LAUNCHES) != (0, 0):
+            raise AssertionError(f"DataNode(mesh=): sharded stats {before} "
+                                 f"-> {after}, (B1, B2) "
+                                 f"{(sr.LAUNCHES, mk.LAUNCHES)}")
+        out["data_node_groupby_ms"] = node_ms
+        log(f"  groupby through DataNode(mesh=) behind the broker: "
+            f"{node_ms:.1f} ms (cold node), one sharded run, rows equal "
+            f"numpy; {card}")
+    finally:
+        distributed.try_sharded = orig_try
+    sr.LAUNCHES, mk.LAUNCHES = base
+    before = device_pool().snapshot()
+    out["stack_bytes_before_release"] = before.stacked_bytes
+    released = release_device_caches()
+    after = sharded_metrics()
+    out["released"] = released
+    if before.stacked_bytes <= 0 or after["query/sharded/stackBytes"] != 0:
+        raise AssertionError(f"stack bytes {before.stacked_bytes} before "
+                             f"release_device_caches(), "
+                             f"{after['query/sharded/stackBytes']} after")
+    log(f"  release_device_caches(): {released}; stackBytes "
+        f"{before.stacked_bytes / 1e9:.3f} GB -> 0; {card}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase sharded took {out['phase_s']:.1f} s; the mesh runs "
+        f"launched (B1, B2) {counted}")
+    if out["phase_s"] > SHARDED_PHASE_LIMIT_S:
+        raise AssertionError(f"phase sharded took {out['phase_s']:.1f} s, "
+                             f"over {SHARDED_PHASE_LIMIT_S} s")
+    return out, counted
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6770,6 +6966,18 @@ def main():
                                "chip_smoke_ingest.json"), "w") as f:
             json.dump(out, f, indent=1, default=float)
         return 0
+    if sys.argv[1:] == ["sharded"]:
+        # the build, phase 6's data and numpy reference, and phase 22
+        log("phase sharded, the 8 headline segments")
+        segments = headline_segments()
+        out, counted = phase_sharded(dev, segments, queries(segments),
+                                     numpy_reference(segments))
+        out["launches"] = counted
+        os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(root, "chiprun_out",
+                               "chip_smoke_sharded.json"), "w") as f:
+            json.dump(out, f, indent=1, default=float)
+        return 0
     if sys.argv[1:] == ["extensions"]:
         # the build and phase 16 alone, E5 on phase 14's segments made here
         # (a quicker check of that phase; its numbers are in the log)
@@ -6808,6 +7016,12 @@ def main():
     log("phase packing off, 2 segments")
     report["packing_off"] = phase_packing_off(dev, segments, qs)
     pools["packing_off"] = pool_snapshot("packing off")
+
+    log("phase sharded: the four main-path queries on a mesh of the card, "
+        "the 8 headline segments")
+    report["sharded"], sharded_launches = phase_sharded(dev, segments, qs,
+                                                        ref)
+    pools["sharded"] = pool_snapshot("sharded")
 
     log("phase strategies, the 8 headline segments")
     report["strategies"] = phase_strategies(dev, segments, qs, ref, captured)
@@ -6943,6 +7157,7 @@ def main():
             "launches_sql": sql_launches[which],
             "launches_storage": storage_launches[which],
             "launches_ingest": ingest_launches[which],
+            "launches_sharded": sharded_launches[which],
             "max_abs_err": max(err, parity["max_abs_err"],
                                report["packed_parity"]["max_abs_err"],
                                expr_errs[which]),

@@ -316,13 +316,14 @@ class DataNodeServer:
         from druid_tpu_torch.engine.filters import FilterBitmapMonitor
         from druid_tpu_torch.engine.megakernel import MegakernelMonitor
         from druid_tpu_torch.obs.dispatch import DispatchMonitor
+        from druid_tpu_torch.parallel.distributed import ShardedMonitor
         from druid_tpu_torch.storage.format_v2 import SegmentLoadMonitor
         from druid_tpu_torch.utils.emitter import MonitorScheduler
         monitors = [DevicePoolMonitor(), BatchMetricsMonitor(),
                     FilterBitmapMonitor(), MegakernelMonitor(),
                     CodeDomainMonitor(), DispatchMonitor(),
-                    wire.WireStatsMonitor(), SegmentLoadMonitor(),
-                    self._query_counts]
+                    ShardedMonitor(), wire.WireStatsMonitor(),
+                    SegmentLoadMonitor(), self._query_counts]
         if self._scheduler_config is not None:
             self.scheduler = DataNodeScheduler(
                 node, self._scheduler_config, emitter=emitter)

@@ -20,8 +20,11 @@ wire — shapes and dtypes are all plain host arrays by construction.
 Every DataNode runs its segments on one torch device (CUDA unless the
 caller passes device="cpu"); nodes of one process may share a card and the
 process-wide device pool, and a segment held by two nodes of one process
-stages once. There is no mesh here: a sharded node waits for the
-multi-GPU slice.
+stages once. A node given a mesh (parallel.make_mesh, of its device's type)
+runs its aggregate partials as one sharded run over it, merged on the card
+(parallel/distributed.py): one timing over the set, the segment-cache miss
+set run per miss (a merged partial cannot split back into per-segment
+entries), and no cross-query fusion with flush-mates.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from druid_tpu_torch.data.segment import Segment
 from druid_tpu_torch.engine import engines
 from druid_tpu_torch.engine.engines import (AggregatePartials,
                                             make_aggregate_partials)
+from druid_tpu_torch.parallel import context as mesh_context
 from druid_tpu_torch.query.model import (GroupByQuery, Query, TimeseriesQuery,
                                          TopNQuery)
 
@@ -78,9 +82,12 @@ class DataNode:
                  cache: Optional[LruCache] = None,
                  cache_config: Optional[CacheConfig] = None,
                  device=None, emitter=None,
-                 per_segment_metrics: bool = False):
+                 per_segment_metrics: bool = False,
+                 mesh: Optional[mesh_context.Mesh] = None):
         """device: where this node's segments run (None: CUDA, through
         device.resolve; "cpu" runs the plain PyTorch versions).
+        mesh: the node's aggregate partials run sharded over it (its
+        devices of the node's device type).
         emitter: optional ServiceEmitter — per-segment query metrics
         (query/segment/time, query/segmentAndCache/time, query/cpu/time)
         emit here, the MetricsEmittingQueryRunner layer of the reference.
@@ -94,6 +101,8 @@ class DataNode:
         self.cache = cache
         self.cache_config = cache_config or CacheConfig()
         self.device = device_mod.resolve(device)
+        mesh_context.check_device(mesh, self.device)
+        self.mesh = mesh
         self.emitter = emitter
         self.per_segment_metrics = per_segment_metrics
         self._segments: Dict[str, Segment] = {}
@@ -178,21 +187,29 @@ class DataNode:
         segment cache is enabled (CachingQueryRunner analog).
 
         `check` (cancel/timeout probe) runs at every dispatch boundary —
-        between per-segment runs and between batched shape-bucket runs (the
-        engine threads it through make_aggregate_partials); an individual
-        device run is uninterruptible once launched."""
+        between per-segment runs, between batched shape-bucket runs, and
+        before the sharded run (the engine threads it through
+        make_aggregate_partials); an individual device run is
+        uninterruptible once launched. With a mesh the partials run under
+        it."""
         if not self.alive:
             raise ConnectionError(f"server [{self.name}] is down")
+        with mesh_context.use_mesh(self.mesh):
+            return self._run_partials(query, segment_ids, check)
+
+    def _run_partials(self, query: Query, segment_ids: Sequence[str],
+                      check: Optional[Callable[[], None]]
+                      ) -> Tuple[AggregatePartials, Set[str]]:
         segs, served = self._select(segment_ids)
         use_cache = self._segment_cache_active(query)
         if not use_cache:
             if not (self.emitter is not None and self.per_segment_metrics) \
-                    or len(segs) <= 1:
+                    or self.mesh is not None or len(segs) <= 1:
                 t0, c0 = time.monotonic(), time.thread_time()
                 ap = make_aggregate_partials(query, segs, self.device,
                                              clamp=False, check=check)
                 if segs:
-                    # fused/batched execution: one timing over the set
+                    # fused/mesh/batched execution: one timing over the set
                     self._emit_segment(
                         query, f"{len(segs)}-segments",
                         (time.monotonic() - t0) * 1e3,
@@ -214,10 +231,13 @@ class DataNode:
                 ap = AggregatePartials.concat(parts)
             return ap, served
         qkey, parts, to_compute = self._cache_scan(query, segs)
-        if to_compute and self.emitter is not None \
-                and self.per_segment_metrics:
-            # per_segment_metrics: observability trade, per-segment
-            # timings require per-segment dispatches
+        if to_compute and (self.mesh is not None
+                           or (self.emitter is not None
+                               and self.per_segment_metrics)):
+            # mesh: the sharded run may merge the miss set into one partial
+            # that cannot split back into per-segment cache entries — keep
+            # the per-miss loop. per_segment_metrics: observability trade,
+            # per-segment timings require per-segment dispatches
             for s in to_compute:
                 if check is not None:
                     check()
@@ -288,17 +308,17 @@ class DataNode:
 
     def fusable(self, query: Query) -> bool:
         """Whether run_partials_group would FUSE this query with its
-        flush-mates. Work this node cannot fuse — per-segment metrics,
-        non-aggregate queries, batching opted out (process switch or
-        {"batchSegments": false}) — gains nothing from a scheduler hold and
-        runs through run_partials instead.
+        flush-mates. Work this node cannot fuse — mesh execution,
+        per-segment metrics, non-aggregate queries, batching opted out
+        (process switch or {"batchSegments": false}) — gains nothing from a
+        scheduler hold and runs through run_partials instead.
 
         Segment-cache-active queries DO fuse: run_partials_group resolves
         cache hits inline during the flush and sends only the MISS set into
         the fused wave, splitting the results back into per-segment cache
         entries."""
         from druid_tpu_torch.engine import batching
-        return (_is_aggregate(query)
+        return (_is_aggregate(query) and self.mesh is None
                 and batching.query_enabled(query.context_map)
                 and not (self.emitter is not None
                          and self.per_segment_metrics))
@@ -395,7 +415,7 @@ class DataNode:
             raise ConnectionError(f"server [{self.name}] is down")
         segs, served = self._select(segment_ids)
         from druid_tpu_torch.engine.executor import QueryExecutor
-        ex = QueryExecutor(device=self.device)
+        ex = QueryExecutor(device=self.device, mesh=self.mesh)
         rows = ex.run(query, segments=segs)
         return rows, served
 

@@ -20,11 +20,14 @@ that a running query still holds stays on the card until the query lets go
 of it, and a tensor cached under two keys counts twice. The pool's count
 is of what the pool holds, not of what the card holds.
 
+The mesh's stacked blocks (parallel/distributed.py) live here too, under
+the stack owner, with keys that lead with STACKED_KIND: they count against
+the same budget and feed the `stacked_*` accounting besides.
+
 `DevicePoolMonitor` emits the pool's metrics. A build runs under a
 `pool/h2d` trace span (its bytes as attributes) when a trace is open.
 
-Not ported: `take` (the donated megakernel carries; the port has none) and
-the STACKED_KIND accounting of the mesh's stacked blocks.
+Not ported: `take` (the donated megakernel carries; the port has none).
 """
 from __future__ import annotations
 
@@ -39,6 +42,10 @@ import torch
 
 from druid_tpu_torch.obs.trace import span as trace_span
 from druid_tpu_torch.utils.emitter import Monitor
+
+#: key[0] of the mesh's stacked blocks (the parallel/distributed.py stack
+#: owner's entries): they feed PoolStats.stacked_* besides the budget
+STACKED_KIND = "shardStack"
 
 
 def _default_budget() -> int:
@@ -124,6 +131,8 @@ class PoolStats:
     logical_bytes: int = 0
     cascade_bytes: int = 0
     cascade_logical_bytes: int = 0
+    stacked_bytes: int = 0
+    stacked_entries: int = 0
     entries: int = 0
     budget_bytes: int = 0
 
@@ -165,6 +174,8 @@ class DeviceSegmentPool:
         self._logical = 0
         self._cascade = 0
         self._cascade_logical = 0
+        self._stacked = 0
+        self._stacked_entries = 0
         self._hits = 0
         self._misses = 0
         self._evictions = 0
@@ -215,11 +226,22 @@ class DeviceSegmentPool:
             freed += self._purge_locked(owner)
         return freed
 
-    def _forget_locked(self, entry: Tuple) -> None:
-        self._resident -= entry[1]
-        self._logical -= entry[2]
-        self._cascade -= entry[3]
-        self._cascade_logical -= entry[4]
+    @staticmethod
+    def _is_stacked(full_key: Tuple) -> bool:
+        # full_key = (owner,) + key; stacked blocks lead with STACKED_KIND
+        return len(full_key) > 1 and full_key[1] == STACKED_KIND
+
+    def _count_locked(self, full_key: Tuple, entry: Tuple, sign: int) -> None:
+        """Caller holds the lock: add (sign 1) or take away (sign -1) an
+        entry's bytes. Every insert and every removal (purge, evict,
+        replace) goes through here, so the counters cannot drift."""
+        self._resident += sign * entry[1]
+        self._logical += sign * entry[2]
+        self._cascade += sign * entry[3]
+        self._cascade_logical += sign * entry[4]
+        if self._is_stacked(full_key):
+            self._stacked += sign * entry[1]
+            self._stacked_entries += sign
 
     def _purge_locked(self, owner: int) -> int:
         freed = 0
@@ -227,7 +249,7 @@ class DeviceSegmentPool:
             entry = self._entries.pop(key, None)
             if entry is not None:
                 freed += entry[1]
-                self._forget_locked(entry)
+                self._count_locked(key, entry, -1)
         return freed
 
     def purge_owner(self, owner: int) -> int:
@@ -303,13 +325,10 @@ class DeviceSegmentPool:
                 return value
             old = self._entries.pop(full_key, None)
             if old is not None:
-                self._forget_locked(old)
+                self._count_locked(full_key, old, -1)
             self._entries[full_key] = entry
             keys.add(full_key)
-            self._resident += entry[1]
-            self._logical += entry[2]
-            self._cascade += entry[3]
-            self._cascade_logical += entry[4]
+            self._count_locked(full_key, entry, 1)
             budget = self.budget_bytes
             if budget > 0:
                 self._evict_to(budget, keep=full_key)
@@ -328,7 +347,7 @@ class DeviceSegmentPool:
                 continue
             entry = self._entries.pop(key)
             self._owner_keys.get(key[0], set()).discard(key)
-            self._forget_locked(entry)
+            self._count_locked(key, entry, -1)
             self._evictions += 1
             self._evicted_bytes += entry[1]
 
@@ -341,6 +360,8 @@ class DeviceSegmentPool:
                 keys.clear()
             self._resident = self._logical = 0
             self._cascade = self._cascade_logical = 0
+            self._stacked = 0
+            self._stacked_entries = 0
 
     # ---- observability --------------------------------------------------
     def snapshot(self) -> PoolStats:
@@ -353,6 +374,8 @@ class DeviceSegmentPool:
                              logical_bytes=self._logical,
                              cascade_bytes=self._cascade,
                              cascade_logical_bytes=self._cascade_logical,
+                             stacked_bytes=self._stacked,
+                             stacked_entries=self._stacked_entries,
                              entries=len(self._entries),
                              budget_bytes=self.budget_bytes)
 

@@ -34,6 +34,11 @@ run is the port's design. What the port builds once per structure (the
 run's closure and its device constants) is cached per signature, K, R and
 device (`_PROGRAM_CACHE`, capped at 64 like the reference's jit cache).
 
+The mesh's sharded run (parallel/distributed.py) is this module's stacked
+run once per shard: it shares the plan-constant check (`plan_constants`,
+`constants_equal`), the window rule (`windowed_all`), the stacker
+(`stack_blocks`) and the program cache (`stacked_program`).
+
 Switches: `set_enabled` (the process default, on) and the per-query context
 {"batchSegments": false}. An exception inside a batched run is raised, never
 turned into a per-segment retry.
@@ -41,6 +46,7 @@ turned into a per-segment retry.
 from __future__ import annotations
 
 import collections
+import functools
 import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -222,8 +228,7 @@ class _Plan:
     req: int = 0
     #: False = straggler (runs alone, through this gplan)
     eligible: bool = False
-    f_aux: List[np.ndarray] = None
-    k_aux: List[np.ndarray] = None
+    consts: Tuple = ()               # plan_constants(gplan)
     columns: Tuple[str, ...] = ()
     col_dtypes: Dict[str, np.dtype] = None
     rung: int = 0
@@ -250,6 +255,20 @@ class _Plan:
     @property
     def vc_luts(self) -> List[np.ndarray]:
         return self.gplan.vc_luts
+
+
+def plan_constants(gplan: GroupPlan) -> Tuple[List[np.ndarray], ...]:
+    """The array constants one stacked run shares over its segments, in
+    the reference's order: the filter's tables, the kernels' tables, the
+    virtual columns' LUTs."""
+    f_aux = gplan.filter_node.aux_arrays() if gplan.filter_node else []
+    k_aux = [a for k in gplan.kernels for a in k.aux_arrays()]
+    return (f_aux, k_aux, gplan.vc_luts)
+
+
+def constants_equal(a: Tuple, b: Tuple) -> bool:
+    """Two plans' `plan_constants` equal (dtypes, shapes and values)."""
+    return all(aux_equal(x, y) for x, y in zip(a, b))
 
 
 def _plan_for(segment: Segment, kds: Sequence[KeyDim], index: int,
@@ -293,8 +312,7 @@ def _plan_for(segment: Segment, kds: Sequence[KeyDim], index: int,
         for c in columns if c in segment.metrics
         and np.asarray(segment.metrics[c].values).ndim > 1))
     plan.eligible = True
-    plan.f_aux = filter_node.aux_arrays() if filter_node else []
-    plan.k_aux = [a for k in kernels for a in k.aux_arrays()]
+    plan.consts = plan_constants(gplan)
     plan.columns = columns
     plan.col_dtypes = staged_col_dtypes(segment, spec, columns)
     plan.rung = row_rung(segment.n_rows)
@@ -315,9 +333,7 @@ def _compatible(ref: _Plan, cand: _Plan) -> bool:
     tables, remaps, virtual-column LUTs) that the stacked run shares: they
     must be equal."""
     return (keydims_equal(ref.kds, cand.kds)
-            and aux_equal(ref.f_aux, cand.f_aux)
-            and aux_equal(ref.k_aux, cand.k_aux)
-            and aux_equal(ref.vc_luts, cand.vc_luts))
+            and constants_equal(ref.consts, cand.consts))
 
 
 def _shape_buckets(plans: Sequence[_Plan]) -> List[List[_Plan]]:
@@ -356,6 +372,73 @@ def _build_stacked_fn(spec: GroupSpec, vc_plans: Tuple, K: int,
     return make_stacked_segment_fn(spec, vc_plans, K, device)
 
 
+def stacked_program(structure: str, spec: GroupSpec, vc_plans: Tuple,
+                    K: int, R: int, device: torch.device):
+    """(the stacked run of `structure` over K segments of R rows on
+    `device`, whether it was built now): built once, then served from the
+    LRU `_PROGRAM_CACHE`. The batched chunks and the mesh's shards share
+    it."""
+    sig = f"{structure}|K={K}|R={R}|dev={device}"
+    with _PROGRAM_CACHE_LOCK:
+        fn = _PROGRAM_CACHE.get(sig)
+        if fn is not None:
+            _PROGRAM_CACHE.move_to_end(sig)
+            return fn, False
+        fn = _build_stacked_fn(spec, vc_plans, K, device)
+        _PROGRAM_CACHE[sig] = fn
+        while len(_PROGRAM_CACHE) > _PROGRAM_CACHE_CAP:
+            _PROGRAM_CACHE.popitem(last=False)
+        return fn, True
+
+
+def clear_program_cache() -> int:
+    """Drop the built stacked runs; returns how many there were."""
+    with _PROGRAM_CACHE_LOCK:
+        n = len(_PROGRAM_CACHE)
+        _PROGRAM_CACHE.clear()
+        return n
+
+
+def windowed_all(items: Sequence[Tuple]) -> int:
+    """The window one stacked run shares over its (segment, intervals,
+    granularity, spec) items: the largest of theirs, or 0 where one has
+    none (select_strategy calls it only when it weighs windowed)."""
+    w_all = 0
+    for segment, intervals, granularity, spec in items:
+        w = windowed_window(segment, intervals, granularity, spec)
+        if not w:
+            return 0
+        w_all = max(w_all, w)
+    return w_all
+
+
+def stack_blocks(items: Sequence[Tuple], columns: Sequence[str], R: int,
+                 device: torch.device) -> Dict[str, torch.Tensor]:
+    """{name: [K, R, ...]} on `device` for K (segment, kds, filter_node,
+    kernels) items, stacked from the pool's staged blocks: each segment's
+    block of `columns` at R rows (a segment whose own padding is R shares
+    the block the per-segment path stages), the id columns of numeric
+    dimensions, and each item's own bitmap words (items may carry
+    different filters under one structure), staged in one wave."""
+    slots = []
+    for segment, kds, _, _ in items:
+        align = DEFAULT_ROW_ALIGN if segment.padded_rows() == R else R
+        block = segment.device_block(list(columns), device, row_align=align)
+        assert block.padded_rows == R, \
+            "every stacked block must stage exactly R rows"
+        arrs = dict(block.arrays)
+        for d in kds:
+            if d.host_ids is not None:
+                arrs[d.column] = grouping._pad_device(
+                    segment, d.ids_key, d.host_ids, R, 0, device)
+        slots.append(arrs)
+    words = filters_mod.stage_device_bitmaps_multi(
+        [(segment, f, k) for segment, _, f, k in items], R, device)
+    for arrs, w in zip(slots, words):
+        arrs.update(w)
+    return {name: torch.stack([s[name] for s in slots]) for name in slots[0]}
+
+
 def _to_host(state):
     if isinstance(state, tuple):
         return tuple(_to_host(s) for s in state)
@@ -379,44 +462,21 @@ def _run_batch(chunk: List[_Plan], device: torch.device
     R = ref.rung
     K = len(chunk)                  # a power of two (_pow2_chunks)
 
-    def _windowed_all():
-        w_all = 0
-        for p in chunk:
-            w = windowed_window(p.segment, p.intervals, p.granularity,
-                                p.spec)
-            if not w:
-                return 0
-            w_all = max(w_all, w)
-        return w_all
-
     vc_dtypes = {v.name: vc_dtype(v.output_type)
                  for v in ref.virtual_columns}
     strategy, window = grouping.select_strategy(
-        ref.spec, ref.kernels, ref.col_dtypes, R, _windowed_all, vc_dtypes)
+        ref.spec, ref.kernels, ref.col_dtypes, R,
+        functools.partial(windowed_all, [
+            (p.segment, p.intervals, p.granularity, p.spec) for p in chunk]),
+        vc_dtypes)
     if strategy == "projection":
         return None
     for p in chunk:
         p.spec.strategy, p.spec.window = strategy, window
 
-    blocks = [p.segment.device_block(list(ref.columns), device, row_align=R)
-              for p in chunk]
-    assert all(b.padded_rows == R for b in blocks), \
-        "the ladder rung must equal the staged row count"
-    # per-segment inputs: derived id columns and each plan's own bitmap
-    # words (a chunk may carry different filters under one structure)
-    words = filters_mod.stage_device_bitmaps_multi(
-        [(p.segment, p.filter_node, p.kernels) for p in chunk], R, device)
-    slots = []
-    for p, b, w in zip(chunk, blocks, words):
-        arrs = dict(b.arrays)
-        for d in p.kds:
-            if d.host_ids is not None:
-                arrs[d.column] = grouping._pad_device(
-                    p.segment, d.ids_key, d.host_ids, R, 0, device)
-        arrs.update(w)
-        slots.append(arrs)
-    arrays = {name: torch.stack([s[name] for s in slots])
-              for name in slots[0]}
+    arrays = stack_blocks(
+        [(p.segment, p.kds, p.filter_node, p.kernels) for p in chunk],
+        ref.columns, R, device)
 
     time0s = torch.tensor([p.segment.interval.start for p in chunk],
                           dtype=torch.int64, device=device)
@@ -428,19 +488,11 @@ def _run_batch(chunk: List[_Plan], device: torch.device
          else 0 for p in chunk], dtype=torch.int64, device=device)
     aux = assemble_stacked_aux(ref.spec, ref.kds, ref.filter_node,
                                ref.kernels, ref.granularity, ref.vc_luts)
-    sig = "batched|" + grouping._structure_sig(
-        ref.spec, len(ref.intervals), ref.filter_node, ref.kernels,
-        ref.vc_plans, ref.packs, ref.cascades) \
-        + f"|K={K}|R={R}|dev={device}"
-    with _PROGRAM_CACHE_LOCK:
-        fn = _PROGRAM_CACHE.get(sig)
-        if fn is None:
-            fn = _build_stacked_fn(ref.spec, ref.vc_plans, K, device)
-            _PROGRAM_CACHE[sig] = fn
-            while len(_PROGRAM_CACHE) > _PROGRAM_CACHE_CAP:
-                _PROGRAM_CACHE.popitem(last=False)
-        else:
-            _PROGRAM_CACHE.move_to_end(sig)
+    fn, _ = stacked_program(
+        grouping._structure_sig(ref.spec, len(ref.intervals),
+                                ref.filter_node, ref.kernels, ref.vc_plans,
+                                ref.packs, ref.cascades),
+        ref.spec, ref.vc_plans, K, R, device)
 
     with trace_span("engine/batch/dispatch", segments=K, rows=R):
         counts, states = fn(arrays, time0s, iv_rel, bucket_off, aux)

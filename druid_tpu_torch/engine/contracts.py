@@ -76,3 +76,10 @@ DEVICE_POOL_BUDGET_SHARE = 0.4
 #: the pool's byte budget where there is no CUDA card (the plain PyTorch
 #: versions on the CPU). DeviceSegmentPool.configure(0) means unbounded
 DEVICE_POOL_BUDGET_BYTES = 4 * 1024 ** 3
+
+# ---- AggKernel shape (engine/kernels.py) ------------------------------------
+
+#: methods a kernel whose reduce_kind is "fold" must define: the sharded
+#: merge (parallel/distributed.py) folds its states pairwise on the device.
+#: kernels.make_kernel refuses a kernel that breaks it
+AGG_FOLD_REQUIRED = ("device_combine",)

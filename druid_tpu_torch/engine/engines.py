@@ -6,11 +6,13 @@ timeseries, topN and groupBy (with having, subtotals and bySegment),
 dimension specs become KeyDims here
 (`_keydim_for`: extraction and listFiltered remaps, numeric and expression
 dimensions as query-time dictionaries, unified across the query's segments
-by `unify_query_dims`). Partials come from `_make_partials`: batching
-first (engine/batching.py: one stacked run per chunk of shape-compatible
-small segments), then one grouped-aggregate run per segment for whatever it
-returns None for (no sharding: the mesh is not ported). They merge on the
-host (engine/merge.py) and finish into the reference's JSON row shapes
+by `unify_query_dims`). Partials come from `_make_partials`: with a mesh
+installed (parallel/context.py), one sharded run over the whole segment set
+first (parallel/distributed.py), whose states merge on the card into one
+partial; else batching (engine/batching.py: one stacked run per chunk of
+shape-compatible small segments), then one grouped-aggregate run per
+segment for whatever it returns None for. The partials merge on the host
+(engine/merge.py) and finish into the reference's JSON row shapes
 (timestamps as epoch millis ints).
 
 Scan, select, search and timeBoundary mask each segment on the device
@@ -39,6 +41,7 @@ from druid_tpu_torch.engine.filters import (_bind_string_dims,
 from druid_tpu_torch.engine.grouping import KeyDim, run_grouped_aggregate
 from druid_tpu_torch.engine.merge import merge_partials
 from druid_tpu_torch.obs.trace import span as trace_span
+from druid_tpu_torch.parallel import distributed
 from druid_tpu_torch.query.model import (DataSourceMetadataQuery,
                                          DefaultLimitSpec, DimensionSpec,
                                          ExpressionDimensionSpec,
@@ -375,15 +378,23 @@ class AggregatePartials:
         return out
 
 
-def _make_partials(segs, intervals, query, kds_per_seg,
+def _make_partials(segs, intervals, query, kds_per_seg, vals_per_seg,
                    device: torch.device, check=None):
-    """One partial per segment: batched runs over shape-compatible
-    segments, and one run per segment for the rest (or for all, where
-    batching returns None). `check` (a cancel or timeout probe) runs at
-    every run boundary."""
+    """(partials, dim_values): one sharded run merged on the card where a
+    mesh is installed and the segments agree on their plan (one partial,
+    decoded through the first segment's values); else one partial per
+    segment, from batched runs over shape-compatible segments and one run
+    per segment for the rest (or for all, where batching returns None).
+    `check` (a cancel or timeout probe) runs at every run boundary, and
+    before the sharded run."""
     if check is not None:
         check()
     with trace_span("engine/partials", segments=len(segs)):
+        merged = distributed.try_sharded(
+            segs, intervals, query.granularity, kds_per_seg,
+            query.aggregations, query.filter, query.virtual_columns)
+        if merged is not None:
+            return [merged], [vals_per_seg[0]]
         partials = batching.run_with_batching(
             segs, intervals, query.granularity, kds_per_seg,
             query.aggregations, query.filter, device, query.virtual_columns,
@@ -396,7 +407,7 @@ def _make_partials(segs, intervals, query, kds_per_seg,
                 partials.append(run_grouped_aggregate(
                     s, intervals, query.granularity, kds, query.aggregations,
                     query.filter, device, query.virtual_columns))
-    return partials
+    return partials, list(vals_per_seg)
 
 
 def _query_plan(query, segments: Sequence[Segment], clamp: bool = True):
@@ -423,10 +434,11 @@ def _partials_with_segs(query, segments: Sequence[Segment],
                                                              segments, clamp)
     if not segs:
         return AggregatePartials([], [], [], intervals), segs
-    partials = _make_partials(segs, intervals, query, kds_per_seg, device,
-                              check=check)
+    partials, dim_values = _make_partials(segs, intervals, query,
+                                          kds_per_seg, vals_per_seg, device,
+                                          check=check)
     spans = [(s.min_time, s.max_time) for s in segs]
-    return AggregatePartials(partials, vals_per_seg, spans, intervals), segs
+    return AggregatePartials(partials, dim_values, spans, intervals), segs
 
 
 def make_aggregate_partials(query, segments: Sequence[Segment],
@@ -449,6 +461,16 @@ def make_partials_by_segment(query, segments: Sequence[Segment],
     here: one call, so shape-compatible misses batch into shared runs
     (engine/batching.py), split back into per-segment cache entries."""
     ap, segs = _partials_with_segs(query, segments, device, clamp, check)
+    if len(ap.partials) != len(segs):
+        # a mesh merged the set into one partial, which cannot split back:
+        # each segment runs alone (the cancel probe between runs)
+        out = []
+        for i, s in enumerate(segments):
+            if check is not None and i:
+                check()
+            out.append(make_aggregate_partials(query, [s], device,
+                                               clamp=clamp))
+        return out
     return _split_by_segment(ap, segs, segments)
 
 

@@ -5,9 +5,11 @@ segments grouped by datasource, the ten query types dispatched to the
 engines, over a table, union or query dataSource (a query dataSource's
 inner groupBy rows become a segment, `subquery_segment`), with the
 `chunkPeriod` and `bySegment` contexts. Queries run on CUDA unless the
-caller passes device="cpu". Shape-compatible small segments batch into one
-stacked run per chunk (engine/batching.py; a query opts out with the
-context {"batchSegments": false}).
+caller passes device="cpu". With a mesh (parallel/context.py), an eligible
+grouped aggregate runs as one sharded run over it, merged on the card
+(parallel/distributed.py); without one, shape-compatible small segments
+batch into one stacked run per chunk (engine/batching.py; a query opts out
+with the context {"batchSegments": false}).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from druid_tpu_torch import device as device_mod
 from druid_tpu_torch.data.devicepool import device_pool
 from druid_tpu_torch.data.segment import Segment, SegmentBuilder
 from druid_tpu_torch.engine import engines
+from druid_tpu_torch.parallel import context as mesh_context
 from druid_tpu_torch.query.model import (DataSourceMetadataQuery,
                                          GroupByQuery, Query, ScanQuery,
                                          SearchQuery, SegmentMetadataQuery,
@@ -49,13 +52,19 @@ class QueryExecutor:
     """Runs queries over an in-process set of segments on one device."""
 
     def __init__(self, segments: Optional[Sequence[Segment]] = None,
-                 device=None, device_pool_bytes: Optional[int] = None):
+                 device=None, device_pool_bytes: Optional[int] = None,
+                 mesh: Optional[mesh_context.Mesh] = None):
         """`device`: None or "cuda" runs on the current CUDA device and
         raises when there is none; "cpu" runs the plain PyTorch versions.
         `device_pool_bytes`: the byte budget of the process-wide device
         pool (data/devicepool.py; 0 = unbounded); None keeps the current
-        one."""
+        one. `mesh` (parallel.make_mesh): eligible grouped aggregates run
+        as one sharded run over it; its devices must be of the executor's
+        device type (a CUDA mesh with device="cpu", or a CPU mesh on CUDA,
+        raises)."""
         self.device = device_mod.resolve(device)
+        mesh_context.check_device(mesh, self.device)
+        self.mesh = mesh
         if device_pool_bytes is not None:
             device_pool().configure(device_pool_bytes)
         self._by_ds: Dict[str, List[Segment]] = {}
@@ -100,6 +109,9 @@ class QueryExecutor:
             segs = [subquery_segment(query.inner_query, inner_rows)]
         else:
             segs = self._table_segments(query)
+        if self.mesh is not None:
+            with mesh_context.use_mesh(self.mesh):
+                return self._dispatch(query, segs)
         return self._dispatch(query, segs)
 
     def run_streaming(self, query: Query,

@@ -1070,8 +1070,9 @@ def make_stacked_segment_fn(spec: GroupSpec, vc_plans: Tuple, K: int,
     start), int64 bucket_off [K] (each segment's first bucket start less
     its start) and a StackedAux; returns (counts int64 [K, G], per-kernel
     states with a leading K axis). Built once per structure and cached by
-    engine/batching.py: it holds the structure and its device constants
-    (the k * G slot offsets), never a value of a plan."""
+    engine/batching.py, and per shard by the mesh's sharded run
+    (parallel/distributed.py): it holds the structure and its device
+    constants (the k * G slot offsets), never a value of a plan."""
     bucket_mode, num_total = spec.bucket_mode, spec.num_total
     strategy, window = spec.strategy, spec.window
     slot_base = torch.arange(K, dtype=torch.int64, device=device)[:, None] \

@@ -12,7 +12,10 @@ kernel to the sorted-projection reduction (engine/sorted_reduce.py) with
 the reference's op vocabulary. The blocked hooks
 (`blocked_supported/init/step/finish`) serve the masked broadcast-reduce of
 the blocked and windowed strategies (engine/grouping.py), and `mm_plan` the
-one-hot matmul of the mm strategy (engine/mmagg.py). Every eligibility rule
+one-hot matmul of the mm strategy (engine/mmagg.py), and the device merge
+hooks (`reduce_kind`, `device_post`, `device_combine`, `host_from_device`)
+the sharded run's merge on the card (parallel/distributed.py), with the
+reference's merge kind for every kernel. Every eligibility rule
 is the reference's, so both packages choose the same strategy for the same
 plan: a first/last, filtered or HLL kernel has neither an mm plan nor a
 blocked step, so a plan holding one is "mixed". Extension kernels
@@ -31,6 +34,7 @@ import torch
 
 from druid_tpu_torch.data.segment import Segment, ValueType
 from druid_tpu_torch.engine import hll
+from druid_tpu_torch.engine.contracts import AGG_FOLD_REQUIRED
 from druid_tpu_torch.engine.filters import FilterNode, plan_filter
 from druid_tpu_torch.query import aggregators as A
 
@@ -71,8 +75,13 @@ class MMPlan:
 class AggKernel:
     """One aggregator's device update + host combine/finalize."""
 
-    #: how grid slots of one group combine: "sum", "min" or "max"
-    reduce_kind = "sum"
+    #: how states combine on the device, the reference's kind: "sum", "min"
+    #: or "max" elementwise, or "fold", a pairwise `device_combine`. The
+    #: sharded merge (parallel/distributed.py) combines the per-segment and
+    #: per-shard states by it; the blocked and windowed reductions combine
+    #: one group's grid slots by it (their kernels are "sum", "min" or
+    #: "max")
+    reduce_kind = "fold"
 
     def __init__(self, spec: A.AggregatorSpec):
         self.spec = spec
@@ -115,6 +124,37 @@ class AggKernel:
         """Device state -> host combine-ready state."""
         return state.cpu().numpy() if isinstance(state, torch.Tensor) \
             else np.asarray(state)
+
+    # ---- the device merge (the sharded run, parallel/distributed.py) -----
+
+    def device_post(self, state, time0):
+        """One segment's device state made independent of its time origin
+        (relative to absolute time), so that states of segments with
+        different origins combine on the device. `time0` (int64) broadcasts
+        against the state: a scalar for one segment's state, [K, 1] for a
+        stack of K segments' [K, G] states."""
+        return state
+
+    def device_combine(self, a, b):
+        """Pairwise combine of two device_post-ed states (a tensor, or a
+        tuple of them), elementwise by reduce_kind: "sum" adds, "max" and
+        "min" keep the larger and the smaller, and a bool state ORs (ANDs
+        under "min"). A kernel that folds defines its own."""
+        kind = self.reduce_kind
+        if kind == "fold":
+            raise NotImplementedError
+        if isinstance(a, tuple):
+            return tuple(self.device_combine(x, y) for x, y in zip(a, b))
+        if a.dtype == torch.bool:
+            return a & b if kind == "min" else a | b
+        if kind == "sum":
+            return a + b
+        return torch.maximum(a, b) if kind == "max" else torch.minimum(a, b)
+
+    def host_from_device(self, state):
+        """A device_post-ed, device-combined state -> the host form
+        host_post gives."""
+        return self.host_post(state, None)
 
     def combine(self, a, b):
         raise NotImplementedError
@@ -176,6 +216,7 @@ def expand_batch(state: torch.Tensor, batch: Tuple[int, ...]):
 
 
 class CountKernel(AggKernel):
+    reduce_kind = "sum"
 
     def signature(self):
         return "count"
@@ -237,6 +278,7 @@ def _exact_int_sum(w: torch.Tensor, chunk: int) -> torch.Tensor:
 
 
 class SumKernel(AggKernel):
+    reduce_kind = "sum"
     _DTYPES = {ValueType.LONG: np.dtype(np.int64),
                ValueType.FLOAT: np.dtype(np.float32),
                ValueType.DOUBLE: np.dtype(np.float64)}
@@ -658,6 +700,28 @@ class FirstLastKernel(AggKernel):
         return {"time": np.where(has, t_abs, self._ident), "value": v,
                 "has": has}
 
+    def device_post(self, state, time0):
+        # absolute int64 time before segments of other origins combine
+        t, v, has = state
+        t64 = t.to(torch.int64)
+        if self.time_field is None:
+            t64 = t64 + time0
+        return torch.where(has, t64, int(self._ident)), v, has
+
+    def device_combine(self, a, b):
+        at, av, ah = a
+        bt, bv, bh = b
+        if self.is_last:
+            take_b = (bt > at) | (~ah & bh)
+        else:
+            take_b = (bt < at) | (~ah & bh)
+        return (torch.where(take_b, bt, at), torch.where(take_b, bv, av),
+                ah | bh)
+
+    def host_from_device(self, state):
+        t, v, has = (s.cpu().numpy() for s in state)
+        return {"time": t, "value": v, "has": has}
+
     def combine(self, a, b):
         if self.is_last:
             take_b = (b["time"] > a["time"]) | (~a["has"] & b["has"])
@@ -716,6 +780,15 @@ class FilteredKernel(AggKernel):
 
     def host_post(self, state, segment):
         return self.child.host_post(state, segment)
+
+    def device_post(self, state, time0):
+        return self.child.device_post(state, time0)
+
+    def device_combine(self, a, b):
+        return self.child.device_combine(a, b)
+
+    def host_from_device(self, state):
+        return self.child.host_from_device(state)
 
     def combine(self, a, b):
         return self.child.combine(a, b)
@@ -859,12 +932,33 @@ def register_kernel(spec_cls: type, factory: Callable) -> None:
     _EXTENSION_KERNELS[spec_cls] = factory
 
 
+def fold_contract_missing(kernel: AggKernel) -> List[str]:
+    """The methods of contracts.AGG_FOLD_REQUIRED a kernel whose
+    reduce_kind is "fold" leaves to AggKernel's stubs ([] when it keeps the
+    contract, or does not fold)."""
+    if kernel.reduce_kind != "fold":
+        return []
+    return [m for m in AGG_FOLD_REQUIRED
+            if getattr(type(kernel), m) is getattr(AggKernel, m)]
+
+
 def make_kernel(spec: A.AggregatorSpec, segment: Segment,
                 device_bitmap: Optional[bool] = None) -> AggKernel:
     """`device_bitmap` plans a filtered aggregator's filter: None follows
     the process default (filters.device_bitmap_enabled), so its
     bitmap-eligible subtrees read staged or fused words like the query
-    filter's."""
+    filter's. A kernel that folds without the methods the fold needs is
+    refused (contracts.AGG_FOLD_REQUIRED)."""
+    kernel = _make_kernel(spec, segment, device_bitmap)
+    missing = fold_contract_missing(kernel)
+    if missing:
+        raise TypeError(f"{type(kernel).__name__} folds (reduce_kind "
+                        f"'fold') without {missing}")
+    return kernel
+
+
+def _make_kernel(spec: A.AggregatorSpec, segment: Segment,
+                 device_bitmap: Optional[bool]) -> AggKernel:
     factory = _EXTENSION_KERNELS.get(type(spec))
     if factory is not None:
         return factory(spec, segment)

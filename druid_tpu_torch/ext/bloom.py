@@ -149,6 +149,9 @@ class BloomKernel(AggKernel):
         return _presence(keys[:, None] * self.m + pos, mask[:, None],
                          num * self.m, torch.uint8).view(num, self.m)
 
+    def host_from_device(self, state):
+        return state.cpu().numpy().astype(np.uint8, copy=False)
+
     def combine(self, a, b):
         return np.maximum(a, b)
 

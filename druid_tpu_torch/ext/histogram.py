@@ -126,6 +126,10 @@ class HistogramKernel(AggKernel):
         # the device, so both packages write the same wire bytes
         return {"counts": counts, "max": mx, "min": mn}
 
+    def device_combine(self, a, b):
+        return (a[0] + b[0], torch.minimum(a[1], b[1]),
+                torch.maximum(a[2], b[2]))
+
     def combine(self, a, b):
         return {"counts": a["counts"] + b["counts"],
                 "min": np.minimum(a["min"], b["min"]),

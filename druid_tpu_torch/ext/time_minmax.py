@@ -82,6 +82,13 @@ class TimeMinMaxKernel(AggKernel):
         return np.where(st == self._narrow_ident, self.identity,
                         st.astype(np.int64) + segment.interval.start)
 
+    def device_post(self, state, time0):
+        return torch.where(state == self._narrow_ident, int(self.identity),
+                           state.to(torch.int64) + time0)
+
+    def host_from_device(self, state):
+        return state.cpu().numpy()
+
     def combine(self, a, b):
         return np.maximum(a, b) if self.is_max else np.minimum(a, b)
 

@@ -1,12 +1,13 @@
 """The single-source metrics catalog: every metric name the system emits
 (the port's own copy of the reference package's `obs/catalog.py`).
 
-The entries are the reference's, those of monitors the port does not have
-yet among them (engine/standing.py, parallel/distributed.py,
-storage/format_v2.py, server/subscriptions.py, coordination/latch.py): the
-catalog is the contract between a node and the dashboards that read it, and
-a name must not change meaning between the two packages. Keep the dict a
-PLAIN LITERAL.
+The entries are the reference's, those the port does not emit among them
+(coordination/latch.py's, and `query/sharded/packedRatio`, constant for the
+port's dense stack): the catalog is the contract between a node and the
+dashboards that read it, and a name must not change meaning between the
+two packages (the `query/sharded/*` help text names the reference's
+collectives; the port's sharded merge on the card counts the same way).
+Keep the dict a PLAIN LITERAL.
 
 Each entry: unit, the per-site dims (service/host are stamped on everything
 by ServiceEmitter and not repeated), the emitting site, and a help string

@@ -4,10 +4,11 @@ arrays), the same queries through `druid_tpu_torch.engine.QueryExecutor`
 on the CPU, the same checks against numpy, plus the JSON round trip of
 every type the port registers.
 
-test_extension_sql is in tests/test_torch_sql.py. Left out, each with
-the ROADMAP item it waits for: test_extension_sharded_merge (the broker
-and sharded merge: A11, A12) and the seven URI namespace lookup cases
-(A18, the cluster's lookups). The protobuf parser cases are in
+test_extension_sql is in tests/test_torch_sql.py. test_extension_sharded_merge
+runs the extension states through the broker over two data nodes and
+through the port's mesh (8 CPU shards) besides. Left out, with the ROADMAP
+item it waits for: the seven URI namespace lookup cases (A18, the
+cluster's lookups). The protobuf parser cases are in
 tests/test_torch_protobuf.py.
 """
 import numpy as np
@@ -350,6 +351,50 @@ def test_hllsketch_grouped_matches_hyperunique(ex):
     def key(rows):
         return {r["event"]["dimA"]: r["event"]["u"] for r in rows}
     assert key(got) == key(want)
+
+
+def test_extension_sharded_merge(week):
+    """Extension states merge across segments: on the host, through the
+    broker over two data nodes, and on a mesh of 8 CPU shards (the sharded
+    merge: variance sums, quantile counts and theta minima exactly as the
+    host merge has them)."""
+    from druid_tpu_torch.cluster import (Broker, DataNode, InventoryView,
+                                         descriptor_for)
+    from druid_tpu_torch.parallel import distributed, make_mesh
+    segs, frames = week
+    allf = np.concatenate([f["metFloat"] for f in frames]).astype(np.float64)
+    q = TimeseriesQuery.of(
+        "test", [Interval.of("2026-01-01", "2026-01-08")],
+        [VarianceAggregator("v", "metFloat"),
+         QuantilesSketchAggregator("qs", "metFloat"),
+         ThetaSketchAggregator("u", "dimHi")],
+        post_aggregations=[
+            QuantilePostAgg("p50", FieldAccessPostAgg("qs", "qs"), 0.5)])
+    local = QueryExecutor(segs, device="cpu").run(q)[0]["result"]
+    assert local["v"] == pytest.approx(allf.var(), rel=1e-6)
+    assert local["p50"] == pytest.approx(np.quantile(allf, 0.5), rel=0.05)
+    view = InventoryView()
+    nodes = [DataNode(f"n{i}", device="cpu") for i in range(2)]
+    for n in nodes:
+        view.register(n)
+    for i, s in enumerate(segs):
+        nodes[i % 2].load_segment(s)
+        view.announce(nodes[i % 2].name, descriptor_for(s))
+    broker = Broker(view, device="cpu")
+    try:
+        remote = broker.run(q)[0]["result"]
+    finally:
+        broker.stop()
+    assert remote["v"] == pytest.approx(local["v"], rel=1e-12)
+    assert remote["p50"] == local["p50"]
+    assert remote["u"] == local["u"]       # exact state merge across nodes
+    before = distributed.sharded_stats().snapshot()[0]
+    mesh = QueryExecutor(segs, device="cpu",
+                         mesh=make_mesh(8, device="cpu")).run(q)[0]["result"]
+    assert distributed.sharded_stats().snapshot()[0] == before + 1
+    assert mesh["v"] == pytest.approx(local["v"], rel=1e-12)
+    assert mesh["p50"] == local["p50"]
+    assert mesh["u"] == local["u"]
 
 
 def test_time_min_max_grouped(ex, data):

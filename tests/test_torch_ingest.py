@@ -13,9 +13,10 @@ non-negative, so sum|v| is the sum). Then the two cases of
 tests/test_representations.py, the cross-package identity of the index and
 of the persisted hydrant's V2 bytes, and merge_segments in both packages.
 
-The reference's two mesh cases run the reference with its 8-device CPU
-mesh; the port has no mesh (ROADMAP A12), so its plain run is held against
-both of the reference's.
+The reference's two mesh cases run each package with and without its mesh
+(the reference's 8 virtual CPU devices, the port's 8 CPU shards): a complex
+column and a dtype mismatch keep both off the sharded run, and the four
+runs agree.
 """
 import json
 import os
@@ -499,9 +500,11 @@ def test_first_last_merge_uses_event_time():
 
 def test_complex_column_segments_match_reference_plain_and_sharded():
     """The reference's test_sharded_complex_column_falls_back: hyperUnique
-    complex columns over 2 segments; the port's rows equal the reference's
-    plain and mesh runs."""
+    complex columns over 2 segments; the port's plain and mesh rows equal
+    the reference's plain and mesh runs."""
     from druid_tpu.parallel import make_mesh, use_mesh
+    from druid_tpu_torch.parallel import make_mesh as port_mesh
+    from druid_tpu_torch.parallel.distributed import sharded_stats
 
     def run(pk):
         specs = [pk.A.CountAggregator("count"),
@@ -526,7 +529,11 @@ def test_complex_column_segments_match_reference_plain_and_sharded():
     with use_mesh(make_mesh()):
         sharded = RefExecutor(rsegs).run(rq)
     got = PortExecutor(psegs, device="cpu").run(pq)
-    assert plain == sharded == got
+    before = sharded_stats().snapshot()
+    on_mesh = PortExecutor(psegs, device="cpu",
+                           mesh=port_mesh(8, device="cpu")).run(pq)
+    assert sharded_stats().snapshot() == before      # fell back
+    assert plain == sharded == got == on_mesh
     assert 36 <= got[0]["result"]["u"] <= 44
 
 
@@ -534,6 +541,8 @@ def test_dtype_mismatch_segments_match_reference_plain_and_sharded():
     """The reference's test_sharded_dtype_mismatch_falls_back: a LONG and a
     DOUBLE metric of one name in two segments."""
     from druid_tpu.parallel import make_mesh, use_mesh
+    from druid_tpu_torch.parallel import make_mesh as port_mesh
+    from druid_tpu_torch.parallel.distributed import sharded_stats
 
     def run(pk):
         b1 = pk.S.SegmentBuilder("dm", pk.IV, partition=0)
@@ -551,8 +560,13 @@ def test_dtype_mismatch_segments_match_reference_plain_and_sharded():
     with use_mesh(make_mesh()):
         sharded = RefExecutor(rsegs).run(rq)
     got = PortExecutor(psegs, device="cpu").run(pq)
+    before = sharded_stats().snapshot()
+    on_mesh = PortExecutor(psegs, device="cpu",
+                           mesh=port_mesh(8, device="cpu")).run(pq)
+    assert sharded_stats().snapshot() == before      # fell back
     assert abs(got[0]["result"]["s"] - (45 + 50)) < 1e-9
     assert plain == sharded
+    assert got == on_mesh
     close(plain, got)
 
 

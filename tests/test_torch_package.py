@@ -32,7 +32,8 @@ def test_import_pulls_in_neither_jax_nor_druid_tpu():
     Avatica and the router, and segment storage (storage/, the host codec's
     native/, data/bitmap.py, the load queue and the chaos harness), and
     ingestion (ingest/, the MetadataStore, the realtime server, standing
-    queries, the subscription hub and the protobuf parser), loads neither
+    queries, the subscription hub and the protobuf parser), and the mesh
+    (parallel/: the context, the layout, the sharded run), loads neither
     jax nor druid_tpu, druid_tpu.native included; nor does `import
     druid_tpu_torch.ext` load google.protobuf (the parser imports it when
     it is built)."""
@@ -75,7 +76,10 @@ def test_import_pulls_in_neither_jax_nor_druid_tpu():
             "druid_tpu_torch.cluster.realtime, "
             "druid_tpu_torch.engine.standing, "
             "druid_tpu_torch.server.subscriptions, "
-            "druid_tpu_torch.ext.protobuf_parser; "
+            "druid_tpu_torch.ext.protobuf_parser, "
+            "druid_tpu_torch.parallel, druid_tpu_torch.parallel.context, "
+            "druid_tpu_torch.parallel.speclayout, "
+            "druid_tpu_torch.parallel.distributed; "
             "from druid_tpu_torch.native import lz4block; "
             "lz4block.compress(b'abcd' * 64); "
             "bad = sorted(m for m in sys.modules if m == 'jax' "

@@ -156,6 +156,7 @@ def test_every_monitor_metric_is_cataloged(segs):
     from druid_tpu_torch.engine.filters import FilterBitmapMonitor
     from druid_tpu_torch.engine.megakernel import MegakernelMonitor
     from druid_tpu_torch.obs.dispatch import DispatchMonitor
+    from druid_tpu_torch.parallel.distributed import ShardedMonitor
     from druid_tpu_torch.query.model import query_from_json
     from druid_tpu_torch.server.scheduler import (DataNodeScheduler,
                                                   SchedulerConfig,
@@ -189,14 +190,15 @@ def test_every_monitor_metric_is_cataloged(segs):
         em, [SysMonitor(), ProcessMonitor(), qc, CacheMonitor(cache),
              DevicePoolMonitor(), BatchMetricsMonitor(),
              FilterBitmapMonitor(), MegakernelMonitor(),
-             CodeDomainMonitor(), DispatchMonitor(),
+             CodeDomainMonitor(), DispatchMonitor(), ShardedMonitor(),
              ResilienceMetricsMonitor(broker.resilience),
              wire.WireStatsMonitor(), SchedulerMetricsMonitor(sched)], 999)
     monitors.tick()
     monitors.tick()
     names = {e.metric for e in sink.metrics()}
     assert {"query/queue/depth", "query/wire/bytes",
-            "segment/devicePool/entries", "query/count"} <= names
+            "segment/devicePool/entries", "query/count",
+            "query/sharded/stackBytes"} <= names
     missing = catalog.validate_emitted(names)
     assert not missing, f"monitors emit uncataloged metrics: {missing}"
 
