@@ -58,8 +58,9 @@ Phases, each fatal on failure:
      windowed (W printed), rows against numpy, cold and warm p50; windowed
      twice with a floatSum (the same float bits); forced projection (B1)
      gives the same rows;
- 10. run domain: the headline schema in the rollup order (8 segments of
-     12.5M rows) with a constant LONG `cnt`, and 2 of them re-ordered by
+ 10. run domain: the headline schema in the rollup order (4 segments of
+     12.5M rows, cut from 8 for time) with a constant LONG `cnt`, and 2 of
+     them re-ordered by
      (hour, dimA, dimB): a timeseries (all, `in` dimA), a timeseries with a
      filtered longSum of `cnt` and a filtered count (each `in` dimA), a
      topN on dimA, an
@@ -147,8 +148,8 @@ Phases, each fatal on failure:
      run_streaming; N8 two select pages of 1000; N9 search "7" over dimA
      and dimB; N10 timeBoundary under the filter; N11 segmentMetadata,
      merged, every analysis; N12 dataSourceMetadata. Each query
-     round-trips through to_json, runs cold and 3 times warm with its
-     B1/B2 launches per run required (N1-N4 B1 x8, N5 B2 x8, the union B1
+     round-trips through to_json, runs cold and once warm (cut from 3
+     warm runs for time) with its B1/B2 launches per run required (N1-N4 B1 x8, N5 B2 x8, the union B1
      x10, the rest none), and its rows hold against numpy.
  16. the extension aggregators (druid_tpu_torch.ext, run after phase 15 on
      its 8 headline segments, B1/B2 counts set to 0 before it and read
@@ -249,7 +250,7 @@ Phases, each fatal on failure:
      groupBy filtered on a dimB tail value whose leaf ships sparse, through
      B2 x8, against numpy; segment 0 loaded from V1 equal to the in-memory
      one bit for bit, its groupBy equal to the V2 copy's; no pool
-     eviction. The directory is removed at the end; the phase must take at
+     eviction. The directory stays for phase 23; the phase must take at
      most 150 s.
  21. ingest (right after phase 20; B1/B2 counts set to 0 before it and
      read after it): Druid's Kafka indexing service with its documented
@@ -301,7 +302,35 @@ Phases, each fatal on failure:
      (rows against numpy, one sharded run), and release_device_caches()
      must take stackBytes from above 0 to 0. The phase must take at most
      120 s (run alone it also pays the meshless queries' cold runs).
-The device pool's snapshot is printed after phases 6-10 and 12-22; at the
+ 23. the control plane (right after phase 20, on its deep storage, which
+     phase 23 removes at its end; B1/B2 counts set to 0 before the four
+     main-path queries and read after them): the 8 pushed descriptors
+     published in a MetadataStore file with a loadForever rule of one
+     replica, and the port's `server` command (cli.main, the CLI's entry
+     point) run on a thread of this process with 2 data nodes on the card
+     and a coordinator period of 1 s; the coordinator loads the 8 segments
+     from deep storage (the broker's segmentMetadata sees all 8, the
+     trace's broker/node spans put them on both nodes; assign_s printed);
+     the four main-path queries posted to the server's /druid/v2, 1 cold
+     and 3 warm runs each (a post-aggregator named after the run keeps
+     the server's caches from answering), rows against numpy, B1 x8
+     a groupBy run and B2 x8 a filtered run, cold s and warm p50 beside
+     phase 20's; a batch IndexTask (2,000,000 headline-schema events, seed
+     1234, over 2 hours, as newline-delimited JSON in a local file;
+     segmentGranularity HOUR, queryGranularity NONE) run by a
+     ForkingTaskRunner beside an Overlord on the same metadata file and
+     deep storage: SUCCESS in a peon subprocess that reports no CUDA
+     context and neither jax nor the reference imported, the
+     coordinator's next cycles load its segments, and an hourly timeseries
+     and a groupBy by dimA over `indexed` through the server equal numpy
+     over the events; a CompactionTask over the 2 hours, also in a peon:
+     the coordinator marks the 2 hourly segments overshadowed (unused),
+     the broker sees 1, the same queries equal numpy again; `python3 -m
+     druid_tpu_torch version` and `validate-segment` on a phase 20
+     segment exit 0; then _STOP ends the server's thread, and
+     release_device_caches() and the pool's snapshot. The phase must take
+     at most 300 s.
+The device pool's snapshot is printed after phases 6-10 and 12-23; at the
 default budget none may show an eviction.
 `python3 chip_smoke.py batching` runs the build and phase 14 alone;
 `python3 chip_smoke.py extensions` the build and phase 16 with E5;
@@ -313,6 +342,8 @@ main-path queries (phase 18's yardstick), and phase 18;
 `python3 chip_smoke.py storage` the build, phase 6's data and numpy
 reference, and phase 20;
 `python3 chip_smoke.py ingest` the build and phase 21;
+`python3 chip_smoke.py control` the build, phase 6's data and numpy
+reference, phase 20 and phase 23;
 `python3 chip_smoke.py sharded` the build, phase 6's data and numpy
 reference, and phase 22.
 The line before the last is the kernels JSON line (each kernel's
@@ -321,7 +352,8 @@ The line before the last is the kernels JSON line (each kernel's
 phase 15's, `launches_extensions` on phase 16's, `launches_serving` on
 phase 17's, `launches_http` on phase 18's, `launches_sql` on phase
 19's, `launches_storage` on phase 20's, `launches_ingest` on phase
-21's, `launches_sharded` on phase 22's mesh runs); the last line is
+21's, `launches_sharded` on phase 22's mesh runs, `launches_control`
+on phase 23's main-path runs through the server); the last line is
 {"ok": true,
 "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -1737,7 +1769,8 @@ def phase_strategies(dev, segments, qs, ref, main_out):
 # phase 15: the native surface (run after phase 8, on its segments)
 # ---------------------------------------------------------------------------
 
-NATIVE_WARM = 3                      # warm runs a query (p50 of 3)
+NATIVE_WARM = 1                      # warm runs a query (cut from 3 for
+                                     # time: reduced)
 N1_MIN_ROWS, N1_LSUM, N1_LIMIT = 200, (1_000_000, 50_000_000), 5000
 SCAN_LIMIT, SCAN_BATCH = 10_000, 4096
 SCAN_COLUMNS = ["__time", "dimA", "dimB", "metLong", "metFloat"]
@@ -2277,8 +2310,8 @@ def phase_sorted(dev):
 # phase 10: code-domain aggregation over run tables
 # ---------------------------------------------------------------------------
 
-RUN_SEGMENTS = 8
-HOUR_SEGMENTS = 2                    # the hour-ordered shape: 2 of the 8
+RUN_SEGMENTS = 4                     # cut from 8 for time (reduced)
+HOUR_SEGMENTS = 2                    # the hour-ordered shape: 2 of them
 
 
 class PartialLog:
@@ -5580,7 +5613,7 @@ def tail_value_reference(segments, tail):
     return out
 
 
-def phase_storage(dev, segments, qs, ref, kept, http_report):
+def phase_storage(dev, segments, qs, ref, kept, http_report, keep=None):
     """Phase 20 on phase 6's 8 in-memory headline segments and numpy
     reference: the golden fixtures loaded and answered on the card; the 8
     segments persisted (V2) to a LocalDeepStorage in a temporary directory,
@@ -5593,7 +5626,10 @@ def phase_storage(dev, segments, qs, ref, kept, http_report):
     filtered groupBy's leaves on loaded segment 0 against lut[ids]; a
     sparse leaf (a dimB tail value) through B2; V1 equal to V2; no pool
     eviction. `kept` and `http_report` are phase 17-18's (None where they
-    did not run). Returns (report, {"B1": launches, "B2": launches})."""
+    did not run). With `keep` (a dict), the temporary directory stays for
+    phase 23: keep["dir"] is it, keep["descs"] the 8 pushed descriptors
+    (deep storage under dir/deep). Returns (report, {"B1": launches, "B2":
+    launches})."""
     import shutil
     import tempfile
     import torch
@@ -5615,6 +5651,7 @@ def phase_storage(dev, segments, qs, ref, kept, http_report):
     out = {}
     tmp = tempfile.mkdtemp(prefix="chip_storage_")
     servers, broker, http, peon = [], None, None, None
+    kept_dir = False
     try:
         # 1. the golden fixtures the reference wrote, loaded on the card
         fresh = golden_segment()
@@ -5807,6 +5844,9 @@ def phase_storage(dev, segments, qs, ref, kept, http_report):
 
         # 7. the pool
         out["pool"] = pool_snapshot("storage")
+        if keep is not None:
+            keep.update(dir=tmp, descs=descs)
+            kept_dir = True
     finally:
         if peon is not None:
             peon.stop()
@@ -5815,12 +5855,14 @@ def phase_storage(dev, segments, qs, ref, kept, http_report):
                 x.stop()
         for srv in servers:
             srv.stop()
-        shutil.rmtree(tmp, ignore_errors=True)
+        if not kept_dir:
+            shutil.rmtree(tmp, ignore_errors=True)
     counted = {"B1": sr.LAUNCHES, "B2": mk.LAUNCHES}
     sr.LAUNCHES, mk.LAUNCHES = base
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase storage took {out['phase_s']:.1f} s; (B1, B2) launched "
-        f"{counted}; temporary directory removed; {card_line()}")
+        f"{counted}; temporary directory "
+        f"{'kept for phase 23' if kept_dir else 'removed'}; {card_line()}")
     if out["phase_s"] > STORAGE_PHASE_LIMIT_S:
         raise AssertionError(f"phase storage took {out['phase_s']:.1f} s, "
                              f"over {STORAGE_PHASE_LIMIT_S} s")
@@ -6844,6 +6886,346 @@ def phase_sharded(dev, segments, qs, ref):
     return out, counted
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the control plane (coordinator, indexing service, CLI)
+# ---------------------------------------------------------------------------
+
+CONTROL_WARM = 3                     # warm runs a query (p50 of 3)
+CONTROL_NODES = 2                    # the server's data nodes
+CONTROL_PERIOD_S = 1.0               # the coordinator's period
+CONTROL_EVENTS = 2_000_000           # the batch index task's events
+CONTROL_PHASE_LIMIT_S = 300.0
+CONTROL_WAIT_S = 180.0               # a coordinator load, a task
+
+
+def control_run(q, run):
+    """`q` with a post-aggregator named after the run, a copy of its
+    `rows`. The `server` command's broker and data nodes keep an LruCache
+    keyed by the query (its context aside): a new key each run keeps every
+    run on the kernels, the rows are the query's plus that one field. (A
+    constant post-aggregator would fail the groupBy in both packages,
+    ROADMAP §C.)"""
+    return dict(q, postAggregations=list(q.get("postAggregations", []))
+                + [{"type": "fieldAccess", "name": f"run{run}",
+                    "fieldName": "rows"}])
+
+
+def control_wait(what, fn, timeout=CONTROL_WAIT_S, every=0.25):
+    """Poll fn() until it returns a true value; (value, seconds)."""
+    t = time.perf_counter()
+    while True:
+        got = fn()
+        if got:
+            return got, time.perf_counter() - t
+        if time.perf_counter() - t > timeout:
+            raise AssertionError(f"control: {what} not within {timeout} s")
+        time.sleep(every)
+
+
+def control_visible(port, datasource, iv, qid):
+    """The segments the server's broker sees for a datasource (ids and row
+    counts, from a segmentMetadata query that analyses no column)."""
+    status, _, rows, _, _ = http_post(port, {
+        "queryType": "segmentMetadata", "dataSource": datasource,
+        "intervals": [iv], "merge": False, "analysisTypes": [],
+        "toInclude": {"type": "list", "columns": []},
+        "context": {"queryId": qid}})
+    if status != 200:
+        raise AssertionError(f"control: segmentMetadata answered {status}")
+    return {r["id"]: r["numRows"] for r in rows}
+
+
+def control_nodes(port, qid):
+    """Segments a server answered for the query `qid`, from its trace."""
+    _, _, tr, _ = http_get(port, f"/druid/v2/trace/{qid}")
+    by = {}
+    for sp in (tr or {}).get("spans", []):
+        if sp.get("name") == "broker/node":
+            a = sp.get("attrs", {})
+            by[a["server"]] = by.get(a["server"], 0) + a["segments"]
+    return by
+
+
+def control_events_file(path, events):
+    """The events as newline-delimited JSON (Druid's batch tutorial
+    format): one record a line, metFloat the float32 value's repr."""
+    with open(path, "w") as f:
+        for ev in events:
+            f.write("".join(
+                f'{{"timestamp": {t}, "dimA": "{_NAMES_A[a]}", '
+                f'"dimB": "{_NAMES_B[b]}", "metLong": {ml}, '
+                f'"metFloat": {mf!r}}}\n'
+                for t, a, b, ml, mf in zip(
+                    ev["t"].tolist(), ev["a"].tolist(), ev["b"].tolist(),
+                    ev["ml"].tolist(), ev["mf"].tolist())))
+    return os.path.getsize(path)
+
+
+def control_check_indexed(name, rows, tally):
+    """Phase 23's two queries over `indexed` against numpy over every
+    event (ingest's standing queries' rule)."""
+    got = check_standing(name, rows, tally)
+    if got != tally.n:
+        raise AssertionError(f"control {name}: {got} rows counted, "
+                             f"{tally.n} events")
+
+
+def phase_control(dev, qs, ref, kept, storage_report):
+    """Phase 23 on phase 20's deep storage (`kept`: its directory and the 8
+    pushed descriptors, removed here at the end) and phase 6's numpy
+    reference: the port's `server` command on a thread of this process,
+    its coordinator loading the 8 segments into 2 data nodes, the four
+    main-path queries over HTTP; a batch IndexTask and a CompactionTask in
+    forked peons; `python3 -m druid_tpu_torch`. Returns (report,
+    {"B1": n, "B2": n} launched by the server's main-path runs)."""
+    import shutil
+    import socket
+    import threading
+    import torch
+    from druid_tpu_torch import cli
+    from druid_tpu_torch.cluster import MetadataStore
+    from druid_tpu_torch.engine import release_device_caches
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    from druid_tpu_torch.indexing import (CompactionTask, ForkingTaskRunner,
+                                          IndexTask, Overlord)
+    from druid_tpu_torch.ingest.input import (DimensionsSpec, InputRowParser,
+                                              LocalFirehose, TimestampSpec)
+    from druid_tpu_torch.query import aggregators as A
+    from druid_tpu_torch.storage.deep import LocalDeepStorage
+    from druid_tpu_torch.utils.intervals import Interval
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp, descs = kept["dir"], kept["descs"]
+    deep_dir = os.path.join(tmp, "deep")
+    base = (sr.LAUNCHES, mk.LAUNCHES)
+    counted = {"B1": 0, "B2": 0}
+    out = {}
+    thread, runner, overlord, errors = None, None, None, []
+    try:
+        # 1. publish the 8 descriptors, one replica a segment
+        md_path = os.path.join(tmp, "metadata.db")
+        md = MetadataStore(md_path)
+        md.publish_segments(descs)
+        md.set_rules("_default", [{"type": "loadForever",
+                                   "tieredReplicants": {"_default_tier": 1}}])
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        cfg = os.path.join(tmp, "server.json")
+        with open(cfg, "w") as f:
+            json.dump({"metadata": {"path": md_path},
+                       "storage": {"dir": deep_dir},
+                       "server": {"dataNodes": CONTROL_NODES, "port": port},
+                       "coordinator": {"period": CONTROL_PERIOD_S}}, f)
+
+        # 2. the server on a thread of this process (the launch counts see
+        # its kernels); its data nodes on the default device, the card
+        def serve():
+            try:
+                rc = cli.main(["server", "--config", cfg])
+                if rc != 0:
+                    errors.append(f"server exited {rc}")
+            except BaseException as e:     # reported by the phase
+                errors.append(f"{type(e).__name__}: {e}")
+        cli._STOP.clear()
+        t = time.perf_counter()
+        thread = threading.Thread(target=serve, name="control-server")
+        thread.start()
+
+        # 3. load: the coordinator assigns the 8, both nodes serve them
+        iv = f"{DAY[0]}/{DAY[1]}"
+        want = {d.id: d.num_rows for d in descs}
+
+        polls = []
+
+        def loaded():
+            if errors:
+                raise AssertionError(f"control server: {errors}")
+            polls.append(f"control-ready-{len(polls)}")
+            try:
+                got = control_visible(port, "bench", iv, polls[-1])
+            except OSError:
+                return None
+            return got if got == want else None
+        control_wait("the 8 segments' load", loaded)
+        out["assign_s"] = time.perf_counter() - t
+        nodes = control_nodes(port, polls[-1])
+        if len(nodes) != CONTROL_NODES or sum(nodes.values()) != SEGMENTS:
+            raise AssertionError(f"control: segments by node {nodes}")
+        out["segments_by_node"] = nodes
+        log(f"  server up and the 8 segments assigned and served in "
+            f"{out['assign_s']:.2f} s (a coordinator period "
+            f"{CONTROL_PERIOD_S} s, one replica a segment): by node {nodes}")
+
+        # 4. the four main-path queries over HTTP, B1/B2 counted a run
+        wants = {"groupby": (SEGMENTS, 0), "groupby_filtered": (0, SEGMENTS)}
+        checks = {"groupby": check_groupby, "topn": check_topn,
+                  "timeseries": check_timeseries,
+                  "groupby_filtered": check_filtered}
+        queries_out = out["queries"] = {}
+        sr.LAUNCHES = mk.LAUNCHES = 0
+        for name, q in qs.items():
+            want_l = wants.get(name, (0, 0))
+            runs = []
+            for i in range(1 + CONTROL_WARM):
+                l0 = (sr.LAUNCHES, mk.LAUNCHES)
+                status, _, rows, ms, _ = http_post(port, control_run(q, i))
+                got = (sr.LAUNCHES - l0[0], mk.LAUNCHES - l0[1])
+                if status != 200 or got != want_l:
+                    raise AssertionError(f"control {name}: status {status}, "
+                                         f"(B1, B2) {got}, expected "
+                                         f"{want_l}")
+                checks[name](rows, ref)
+                runs.append(ms)
+            p20 = ((storage_report or {}).get("serve") or {}).get(name, {})
+            res = queries_out[name] = {
+                "cold_s": runs[0] / 1e3, "warm_ms": runs[1:],
+                "p50_ms": float(np.median(runs[1:])),
+                "phase20_cold_s": (p20.get("cold_ms") or 0) / 1e3 or None,
+                "phase20_p50_ms": p20.get("p50_ms"),
+                "b1_b2_launches_per_run": list(want_l)}
+            log(f"  {name} through the server: rows equal numpy every run; "
+                f"cold {res['cold_s']:.2f} s, warm p50 {res['p50_ms']:.1f} ms "
+                f"(phase 20: cold {res['phase20_cold_s']} s, p50 "
+                f"{res['phase20_p50_ms']} ms); (B1, B2) {want_l} a run")
+        counted = {"B1": sr.LAUNCHES, "B2": mk.LAUNCHES}
+
+        # 5. index: 2M headline-schema events through a forked peon
+        events = ingest_events(n=CONTROL_EVENTS)
+        t0 = Interval.of(*INGEST_IV).start
+        tally = IngestTally(t0)
+        for ev in events:
+            tally.add(ev, 0, len(ev["t"]))
+        src = os.path.join(tmp, "events")
+        os.makedirs(src)
+        t = time.perf_counter()
+        nbytes = control_events_file(os.path.join(src, "events.json"),
+                                     events)
+        out["events_file"] = {"bytes": nbytes,
+                              "write_s": time.perf_counter() - t}
+        del events
+        md_tasks = MetadataStore(md_path)
+        overlord = Overlord(md_tasks, LocalDeepStorage(deep_dir))
+        runner = ForkingTaskRunner(md_tasks, deep_storage_dir=deep_dir,
+                                   lockbox=overlord.lockbox)
+        parser = InputRowParser(TimestampSpec("timestamp", "millis"),
+                                DimensionsSpec(("dimA", "dimB")), fmt="json")
+        task = IndexTask("indexed", LocalFirehose(src, "*.json"), parser,
+                         ingest_specs(), dimensions=["dimA", "dimB"],
+                         segment_granularity="hour",
+                         query_granularity="none", rollup=True,
+                         task_id="control-index")
+        ivx = f"{INGEST_IV[0]}/{INGEST_IV[1]}"
+        sq = ingest_standing_queries("indexed")
+        task_out = out["index"] = {}
+        for tag, tk in (("index", task), ("compact", CompactionTask(
+                "indexed", Interval.of(*INGEST_IV),
+                [A.LongSumAggregator("count", "count"),
+                 A.LongSumAggregator("metLong", "metLong"),
+                 A.FloatSumAggregator("metFloat", "metFloat"),
+                 A.FloatMaxAggregator("metFloatMax", "metFloatMax")],
+                task_id="control-compact"))):
+            before = sorted(control_visible(port, "indexed", ivx,
+                                            f"control-{tag}-before"))
+            t = time.perf_counter()
+            st = runner.run_task(tk, timeout=CONTROL_WAIT_S)
+            task_s = time.perf_counter() - t
+            report = runner.actions.peon_report(tk.id)
+            if st.state != "SUCCESS" or report is None \
+                    or report["cudaInitialized"] or report["importedJax"] \
+                    or report["importedReference"]:
+                raise AssertionError(f"control {tag}: {st}, peon {report}; "
+                                     f"log {runner.task_log(tk.id)[-2000:]}")
+            visible = sorted(d.id for d in
+                             md_tasks.visible_segments("indexed"))
+            t = time.perf_counter()
+            got, _ = control_wait(
+                f"the {tag} task's segments' load",
+                lambda: (lambda v: v if sorted(v) == visible else None)(
+                    control_visible(port, "indexed", ivx,
+                                    f"control-{tag}-load")))
+            load_s = time.perf_counter() - t
+            res = task_out[tag] = {
+                "task_s": task_s, "load_s": load_s, "peon": report,
+                "attempts": runner.attempts[tk.id],
+                "segments_before": len(before), "segments_after": len(got),
+                "rows_by_segment": got,
+                "unused_after": len(md_tasks.unused_segments("indexed")),
+                "queries": {}}
+            for name, q in sq.items():
+                status, _, rows, ms, _ = http_post(port, dict(
+                    q, context={"queryId": f"control-{tag}-{name}"}))
+                if status != 200:
+                    raise AssertionError(f"control {tag} {name}: {status}")
+                control_check_indexed(name, rows, tally)
+                res["queries"][name] = {
+                    "ms": ms, "rows": len(rows),
+                    "segments_by_node": control_nodes(
+                        port, f"control-{tag}-{name}")}
+            log(f"  {tag}: {tk.task_type} task {tk.id} SUCCESS in "
+                f"{task_s:.1f} s in a forked peon (attempts "
+                f"{res['attempts']}; the peon: {report}); segments of "
+                f"`indexed` the broker sees {len(before)} -> {len(got)} "
+                f"({got}), loaded {load_s:.2f} s after; unused "
+                f"{res['unused_after']}; the timeseries and the groupBy by "
+                f"dimA equal numpy over the {tally.n} events, "
+                + ", ".join(f"{n} {v['ms']:.1f} ms over "
+                            f"{v['segments_by_node']}"
+                            for n, v in res["queries"].items()))
+        comp = task_out["compact"]
+        if comp["segments_after"] != 1 or comp["segments_before"] < 2 \
+                or comp["unused_after"] != comp["segments_before"]:
+            raise AssertionError(f"control: compaction {comp}")
+
+        # 6. the module entry, as a process of its own
+        mod = out["module"] = {}
+        seg_dir = descs[0].load_spec["path"]
+        for tag, argv in (("version", ["version"]),
+                          ("validate-segment", ["validate-segment",
+                                                seg_dir])):
+            t = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "druid_tpu_torch"]
+                               + argv, cwd=root, capture_output=True,
+                               text=True, timeout=300)
+            mod[tag] = {"rc": r.returncode, "s": time.perf_counter() - t,
+                        "stdout": r.stdout.strip()[-300:]}
+            if r.returncode != 0:
+                raise AssertionError(f"python3 -m druid_tpu_torch {argv}: "
+                                     f"{r.returncode} {r.stderr[-2000:]}")
+        log(f"  python3 -m druid_tpu_torch: version -> "
+            f"{mod['version']['stdout']!r}, validate-segment -> "
+            f"{mod['validate-segment']['stdout']!r} "
+            f"({mod['validate-segment']['s']:.1f} s); both exit 0")
+    finally:
+        cli._STOP.set()
+        if thread is not None:
+            thread.join(60)
+        cli._STOP.clear()
+        if runner is not None:
+            runner.shutdown()
+        if overlord is not None:
+            overlord.shutdown()
+        sr.LAUNCHES, mk.LAUNCHES = base
+        shutil.rmtree(tmp, ignore_errors=True)
+    # 7. stop: the server's thread ended, the device caches released
+    if thread.is_alive() or errors:
+        raise AssertionError(f"control: server thread alive "
+                             f"{thread.is_alive()}, errors {errors}")
+    out["released"] = release_device_caches()
+    torch.cuda.synchronize()
+    out["pool"] = pool_snapshot("control")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase control took {out['phase_s']:.1f} s; (B1, B2) launched "
+        f"{counted} by the main-path runs; server stopped by _STOP; "
+        f"released {out['released']}; temporary directory removed; "
+        f"{card_line()}")
+    if out["phase_s"] > CONTROL_PHASE_LIMIT_S:
+        raise AssertionError(f"phase control took {out['phase_s']:.1f} s, "
+                             f"over {CONTROL_PHASE_LIMIT_S} s")
+    return out, counted
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6956,6 +7338,25 @@ def main():
                                "chip_smoke_storage.json"), "w") as f:
             json.dump(out, f, indent=1, default=float)
         return 0
+    if sys.argv[1:] == ["control"]:
+        # the build, phase 6's data and numpy reference, phase 20 (its deep
+        # storage kept), and phase 23
+        log("phase storage, the 8 headline segments")
+        segments = headline_segments()
+        qs, ref, keep = queries(segments), numpy_reference(segments), {}
+        storage, _ = phase_storage(dev, segments, qs, ref, None, None,
+                                   keep=keep)
+        del segments
+        log("phase control: the server command, its coordinator and 2 data "
+            "nodes over phase 20's deep storage; index and compaction tasks "
+            "in forked peons; python3 -m druid_tpu_torch")
+        out, counted = phase_control(dev, qs, ref, keep, storage)
+        out["launches"], out["storage"] = counted, storage
+        os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(root, "chiprun_out",
+                               "chip_smoke_control.json"), "w") as f:
+            json.dump(out, f, indent=1, default=float)
+        return 0
     if sys.argv[1:] == ["ingest"]:
         # the build and phase 21 alone (it makes its own events)
         log("phase ingest: a stream of the headline schema into the port")
@@ -7056,10 +7457,19 @@ def main():
 
     log("phase storage: the 8 segments persisted to deep storage, loaded by "
         "a load queue into a data node, and served over HTTP")
+    keep = {}
     report["storage"], storage_launches = phase_storage(
-        dev, segments, qs, ref, kept, report["http"])
+        dev, segments, qs, ref, kept, report["http"], keep=keep)
     pools["storage"] = report["storage"]["pool"]
-    del segments, captured, ref, kept
+    del segments, captured, kept
+
+    log("phase control: the server command, its coordinator and 2 data "
+        "nodes over phase 20's deep storage; index and compaction tasks in "
+        "forked peons; python3 -m druid_tpu_torch")
+    report["control"], control_launches = phase_control(
+        dev, qs, ref, keep, report["storage"])
+    pools["control"] = report["control"]["pool"]
+    del ref
 
     log("phase ingest: a stream of the headline schema through the "
         "realtime path, standing queries, publish and handoff")
@@ -7158,6 +7568,7 @@ def main():
             "launches_storage": storage_launches[which],
             "launches_ingest": ingest_launches[which],
             "launches_sharded": sharded_launches[which],
+            "launches_control": control_launches[which],
             "max_abs_err": max(err, parity["max_abs_err"],
                                report["packed_parity"]["max_abs_err"],
                                expr_errs[which]),

@@ -8,15 +8,32 @@ loads segments from deep storage into a node (storage/deep.py), and
 (`cluster/realtime.py`) announces streaming ingestion's in-flight sinks
 beside the DataNodes, so they answer through the broker before publish;
 the MetadataStore (`cluster/metadata.py`) records published segments with
-their stream offsets. The coordinator and lookups wait for a later slice
-(ROADMAP A18)."""
+their stream offsets. The Coordinator (`cluster/coordinator.py`) decides
+from the MetadataStore's used segments and their load/drop rules which
+node loads which segment (through LoadQueuePeons when loading is
+asynchronous), marks overshadowed versions unused and balances the nodes;
+`cluster/lookups.py` keeps the nodes' lookups in step with the specs the
+coordinator stores."""
 from druid_tpu_torch.cluster.broker import Broker, MissingSegmentsError
 from druid_tpu_torch.cluster.cache import (Cache, CacheConfig, HybridCache,
                                            LruCache, RemoteCacheClient,
                                            RemoteCacheServer)
+from druid_tpu_torch.cluster.coordinator import (CoordinatorStats,
+                                                 Coordinator, DynamicConfig,
+                                                 ForeverDropRule,
+                                                 ForeverLoadRule,
+                                                 IntervalDropRule,
+                                                 IntervalLoadRule,
+                                                 PeriodDropRule,
+                                                 PeriodLoadRule,
+                                                 placement_cost,
+                                                 rule_from_json)
 from druid_tpu_torch.cluster.dataserver import (DataNodeServer,
                                                 RemoteDataNodeClient,
                                                 RemoteQueryError)
+from druid_tpu_torch.cluster.lookups import (LookupCoordinatorManager,
+                                             LookupNodeSync,
+                                             register_namespace_loader)
 from druid_tpu_torch.cluster.metadata import (MetadataStore,
                                               SegmentAllocationError,
                                               SegmentDescriptor,
@@ -48,5 +65,10 @@ __all__ = [
     "RemoteCacheClient", "RemoteCacheServer", "CacheConfig",
     "ResiliencePolicy", "BrokerResilience", "PartialResult",
     "ResilienceMetricsMonitor", "DataNodeServer", "RemoteDataNodeClient",
-    "RemoteQueryError", "MetadataStore", "RealtimeServer",
+    "RemoteQueryError", "MetadataStore", "RealtimeServer", "Coordinator",
+    "CoordinatorStats", "DynamicConfig", "ForeverLoadRule", "PeriodLoadRule",
+    "IntervalLoadRule", "ForeverDropRule", "PeriodDropRule",
+    "IntervalDropRule", "rule_from_json", "placement_cost",
+    "LookupCoordinatorManager", "LookupNodeSync",
+    "register_namespace_loader",
 ]

@@ -1,5 +1,7 @@
 """Extensions: sketches, histogram, stats, bloom filter, HLL sketch,
-distinctCount, time min/max and the protobuf input parser.
+distinctCount, time min/max, the protobuf input parser and the URI
+namespace lookups (the "uri" extractionNamespace loader of the cluster's
+lookup sync).
 
 The port's counterpart of the reference package's `ext/`. Each module
 registers its aggregators, post-aggregators, filters and kernels into the
@@ -31,6 +33,7 @@ from druid_tpu_torch.ext.protobuf_parser import ProtobufInputRowParser
 from druid_tpu_torch.ext.time_minmax import (TimeMaxAggregator,
                                              TimeMinAggregator)
 from druid_tpu_torch.ext.distinctcount import DistinctCountAggregator
+from druid_tpu_torch.ext.namespace_lookup import load_uri_namespace
 
 __all__ = [
     "HLLSketchBuildAggregator", "HLLSketchMergeAggregator",
@@ -43,4 +46,5 @@ __all__ = [
     "HistogramQuantilePostAgg", "BloomFilterAggregator", "BloomFilterValue",
     "BloomDimFilter", "TimeMinAggregator", "TimeMaxAggregator",
     "DistinctCountAggregator", "ProtobufInputRowParser",
+    "load_uri_namespace",
 ]

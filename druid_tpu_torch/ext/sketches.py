@@ -302,6 +302,13 @@ class QuantilesSketchValue:
     def merge(self, other: "QuantilesSketchValue") -> "QuantilesSketchValue":
         return QuantilesSketchValue(self.counts + other.counts)
 
+    def to_json(self) -> int:
+        """The value in a JSON reply: the number of values the sketch has
+        seen, as Druid finalizes a quantilesDoublesSketch
+        (DoublesSketchAggregatorFactory.finalizeComputation). The
+        reference's reply fails on it (ROADMAP §C)."""
+        return self.count
+
     def __repr__(self):
         return f"QuantilesSketchValue(n={self.count})"
 

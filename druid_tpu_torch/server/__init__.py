@@ -4,8 +4,9 @@ router in front of the brokers (RouterHttpServer, TieredBrokerSelector),
 the per-query lifecycle (auth, request log, metrics), security, the
 data-node scheduler, and query admission, cancellation and deadlines; the
 standing-query subscription hub (server/subscriptions.py) behind
-/druid/v2/subscriptions. The coordination endpoints and the router's
-control-plane proxy wait for a later slice (ROADMAP A18)."""
+/druid/v2/subscriptions; the coordination endpoints (leader discovery,
+the 307 to the leader, task submission on the overlord's leader) and the
+router's control-plane proxy to the current leader."""
 from druid_tpu_torch.server.avatica import AvaticaServer
 from druid_tpu_torch.server.deadline import Deadline, context_timeout_ms
 from druid_tpu_torch.server.http import QueryHttpServer

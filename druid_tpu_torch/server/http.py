@@ -9,12 +9,15 @@ Reference analogs:
   /status — the common status endpoint every node serves
   POST/GET/DELETE /druid/v2/subscriptions[/<id>] — standing-query
     subscriptions (server/subscriptions.py) with long-poll and ETag/304
+  /druid/coordinator/v1/*, /druid/indexer/v1/* — leader discovery
+    (/leader, /isLeader), the 307 to the leader (503 while none is live)
+    and, on the overlord's leader, task submission and status
+    (DruidLeaderClient's redirect contract), given `coordination=` and
+    `overlord=`
 
-What waits for a later slice, refused with NotImplementedError naming its
-ROADMAP item when its constructor argument is given: `coordination` and
-`overlord` (A18). Their paths answer 404, as the reference's do when they
-are not enabled; so do the SQL paths when no `sql_executor` is given, and
-the subscription paths when no `subscription_hub` is.
+Paths of a surface that is not enabled answer 404: the coordination paths
+without `coordination`, the SQL paths without `sql_executor`, the
+subscription paths without `subscription_hub`.
 
 stdlib ThreadingHTTPServer stands in for Jetty; the wire format (JSON
 payloads/results) matches the reference so existing Druid HTTP clients map
@@ -77,18 +80,22 @@ class QueryHttpServer:
         sql_executor: optional sql.SqlExecutor — serves POST
         /druid/v2/sql and, through an AvaticaServer over it, POST
         /druid/v2/sql/avatica; both answer 404 "SQL not enabled" without
-        it. coordination and overlord (A18) wait for a later slice.
+        it.
+
+        coordination: optional {"coordinator"|"overlord":
+        LeaderParticipant} — adds the leader discovery endpoints
+        (/druid/coordinator/v1/leader, .../isLeader and the indexer
+        equivalents) and the DruidLeaderClient redirect contract: any
+        other coordinator/overlord API request on a NON-leader answers
+        307 with Location on the current leader (503 while no leader is
+        live). overlord: the local Overlord — leader-only task submission
+        (POST /druid/indexer/v1/task) and status reads serve from it.
 
         subscription_hub: optional server.subscriptions.SubscriptionHub —
         adds the standing-query subscription surface (POST/GET/DELETE
         /druid/v2/subscriptions[/<id>]): long-poll fan-out composing with
         the same ETag/If-None-Match contract the one-shot query path
         speaks, so an unchanged window is a 304."""
-        for name, arg in (("coordination", coordination),
-                          ("overlord", overlord)):
-            if arg is not None:
-                raise NotImplementedError(f"QueryHttpServer({name}=...) is "
-                                          "not ported yet (ROADMAP A18)")
         self.lifecycle = lifecycle
         self.subscription_hub = subscription_hub
         self.sql_executor = sql_executor
@@ -97,6 +104,16 @@ class QueryHttpServer:
         if sql_executor is not None:
             from druid_tpu_torch.server.avatica import AvaticaServer
             self.avatica = AvaticaServer(sql_executor)
+        self.coordination = coordination or {}
+        self.overlord = overlord
+        # one lease-liveness reader per hosted service — the SAME
+        # expiry/None semantics clients use (no duplicated logic here)
+        self._leader_clients = {}
+        if self.coordination:
+            from druid_tpu_torch.coordination.discovery import LeaderClient
+            self._leader_clients = {
+                svc: LeaderClient(p.store, p.service, clock=p.clock)
+                for svc, p in self.coordination.items()}
 
         # ---- observability: /metrics registry + query-count monitor ----
         from druid_tpu_torch.obs.prometheus import MetricRegistry, compose_sink
@@ -180,6 +197,81 @@ class QueryHttpServer:
                     return False
                 return True
 
+            # ---- coordination (leader discovery + redirect) ------------
+            def _leader_lease(self, service: str):
+                """The current UNEXPIRED lease, or None (mid-election /
+                store unreachable) — read through the same LeaderClient
+                semantics redirecting clients use."""
+                return outer._leader_clients[service].leader()
+
+            def _redirect_to_leader(self, service: str) -> None:
+                """307 on the live leader (DruidLeaderClient contract);
+                503 while no leader is live — clients retry, they never
+                get a non-leader's answer."""
+                lease = self._leader_lease(service)
+                if lease is None or not lease.url:
+                    self._reply(503, {"error": "no live leader for "
+                                      f"[{service}]"})
+                    return
+                self.send_response(307)
+                self.send_header("Location",
+                                 lease.url.rstrip("/") + self.path)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def _handle_coordination(self, service: str, payload) -> None:
+                """One coordinator/overlord API request (payload None for
+                GET). Leader/isLeader serve everywhere; everything else
+                redirects off non-leaders."""
+                p = outer.coordination[service]
+                prefix = ("/druid/coordinator/v1" if service == "coordinator"
+                          else "/druid/indexer/v1")
+                sub = self.path.rstrip("/")[len(prefix):]
+                if sub == "/leader":
+                    lease = self._leader_lease(service)
+                    if lease is None:
+                        self._reply(503, {"error": "no live leader for "
+                                          f"[{p.service}]"})
+                    else:
+                        self._reply(200, {"leader": lease.url,
+                                          "term": lease.term,
+                                          "holder": lease.holder})
+                    return
+                if sub == "/isLeader":
+                    # Druid's semantics: 200 on the leader, 404 elsewhere
+                    code = 200 if p.is_leader() else 404
+                    self._reply(code, {"leader": p.is_leader()})
+                    return
+                if not p.is_leader():
+                    self._redirect_to_leader(service)
+                    return
+                if service == "overlord" and outer.overlord is not None:
+                    from druid_tpu_torch.coordination.latch import NotLeaderError
+                    if sub == "/task" and payload is not None:
+                        from druid_tpu_torch.indexing.task import task_from_json
+                        try:
+                            tid = outer.overlord.submit(
+                                task_from_json(payload))
+                        except NotLeaderError:
+                            # deposed between is_leader() and submit()
+                            self._redirect_to_leader(service)
+                            return
+                        self._reply(200, {"task": tid})
+                        return
+                    if sub.startswith("/task/") and sub.endswith("/status") \
+                            and payload is None:
+                        tid = sub[len("/task/"):-len("/status")]
+                        st = outer.overlord.status(tid)
+                        if st is None:
+                            self._reply(404,
+                                        {"error": f"unknown task {tid!r}"})
+                        else:
+                            self._reply(200, {"task": tid,
+                                              "status": st.state})
+                        return
+                self._reply(404, {"error": "unknown path", "leader": True,
+                                  "term": p.term, "node": p.node_id})
+
             def do_GET(self):
                 if self.path == "/status":
                     self._reply(200, {"version": "druid-tpu-0.1",
@@ -221,6 +313,14 @@ class QueryHttpServer:
                                    "/druid/v2/datasources/"):
                     if self._authenticated():
                         self._reply(200, outer._datasources())
+                elif outer._coord_service(self.path) is not None:
+                    if self._authenticated():
+                        try:
+                            self._handle_coordination(
+                                outer._coord_service(self.path), None)
+                        except Exception as e:
+                            self._reply(500,
+                                        {"error": f"{type(e).__name__}: {e}"})
                 else:
                     self._reply(404, {"error": "unknown path"})
 
@@ -238,7 +338,10 @@ class QueryHttpServer:
                             self._reply(401, {"error": "unauthenticated"})
                             return
                         identity = auth
-                    if self.path.rstrip("/") == \
+                    svc = outer._coord_service(self.path)
+                    if svc is not None:
+                        self._handle_coordination(svc, payload)
+                    elif self.path.rstrip("/") == \
                             "/druid/v2/subscriptions":
                         if outer.subscription_hub is None:
                             self._reply(404, {"error": "subscriptions not "
@@ -488,6 +591,16 @@ class QueryHttpServer:
     def _datasources(self):
         r = self.lifecycle.runner
         return list(getattr(r, "datasources", []) or [])
+
+    def _coord_service(self, path: str) -> Optional[str]:
+        """Which coordination service a path addresses (None when it is
+        not a coordination path or that service is not hosted here)."""
+        for prefix, svc in (("/druid/coordinator/v1", "coordinator"),
+                            ("/druid/indexer/v1", "overlord")):
+            if (path == prefix or path.startswith(prefix + "/")) \
+                    and svc in self.coordination:
+                return svc
+        return None
 
     def _authorize_sql(self, identity, statement: str,
                        parameters=()) -> bool:

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import logging
 import threading
 import urllib.error
 import urllib.request
@@ -141,22 +142,64 @@ class RouterHttpServer:
     def __init__(self, selector: TieredBrokerSelector,
                  host: str = "127.0.0.1", port: int = 0,
                  leader_clients=None):
-        """leader_clients: in the reference, {"coordinator"|"overlord":
+        """leader_clients: optional {"coordinator"|"overlord":
         coordination.LeaderClient} — the router then also fronts the
-        control plane, proxying /druid/coordinator/* and /druid/indexer/*
-        to the CURRENT leader of that service. The port's coordination
-        layer waits for a later slice (ROADMAP A18): given, it raises
-        NotImplementedError; without it those paths answer 404, as the
-        reference's do when no leader client is configured."""
-        if leader_clients:
-            raise NotImplementedError(
-                "RouterHttpServer(leader_clients=...) is not ported yet "
-                "(ROADMAP A18)")
+        control plane: /druid/coordinator/* and /druid/indexer/* proxy to
+        the CURRENT leader of that service (resolved from the lease row,
+        re-resolved on failure), so clients keep one stable URL across
+        failovers (AsyncQueryForwardingServlet does the same via its
+        /proxy/coordinator paths)."""
         outer_selector = selector
+        outer_leaders = leader_clients or {}
 
         class Handler(BaseHTTPRequestHandler):
             def log_message(self, fmt, *args):
                 pass
+
+            def _leader_service(self):
+                for prefix, svc in (("/druid/coordinator", "coordinator"),
+                                    ("/druid/indexer", "overlord")):
+                    if self.path.startswith(prefix + "/") \
+                            and svc in outer_leaders:
+                        return svc
+                return None
+
+            def _proxy_leader(self, svc: str) -> None:
+                """Forward the raw request to the service's current
+                leader; one same-request retry after invalidating the
+                cached leader (it may have just been deposed)."""
+                client = outer_leaders[svc]
+                n = int(self.headers.get("Content-Length", 0))
+                raw = self.rfile.read(n) if n else None
+                for attempt in (0, 1):
+                    url = client.leader_url(use_cache=(attempt == 0))
+                    if url is None:
+                        continue
+                    # credentials travel with the proxied request, same as
+                    # the broker proxy path below
+                    fwd = {"Content-Type": self.headers.get(
+                        "Content-Type", "application/json")}
+                    for h in ("Authorization", "X-Druid-Identity"):
+                        if self.headers.get(h):
+                            fwd[h] = self.headers[h]
+                    req = urllib.request.Request(
+                        url.rstrip("/") + self.path, data=raw,
+                        headers=fwd, method=self.command)
+                    try:
+                        with urllib.request.urlopen(req, timeout=60.0) as r:
+                            self._send(r.status, r.read())
+                            return
+                    except urllib.error.HTTPError as e:
+                        self._send(e.code, e.read())
+                        return
+                    except Exception:
+                        # re-resolve the leader and retry the next attempt
+                        logging.getLogger(__name__).debug(
+                            "control-plane proxy attempt for [%s] failed; "
+                            "invalidating cached leader", svc, exc_info=True)
+                        client.invalidate()
+                self._send(503, json.dumps(
+                    {"error": f"no reachable leader for [{svc}]"}).encode())
 
             def _proxy(self):
                 n = int(self.headers.get("Content-Length", 0))
@@ -210,14 +253,20 @@ class RouterHttpServer:
                     pass
 
             def do_POST(self):
-                if self.path.rstrip("/") in ("/druid/v2", "/druid/v2/sql",
-                                             "/druid/v2/sql/avatica"):
+                svc = self._leader_service()
+                if svc is not None:
+                    self._proxy_leader(svc)
+                elif self.path.rstrip("/") in ("/druid/v2", "/druid/v2/sql",
+                                               "/druid/v2/sql/avatica"):
                     self._proxy()
                 else:
                     self._send(404, b'{"error": "unknown path"}')
 
             def do_GET(self):
-                if self.path == "/status":
+                svc = self._leader_service()
+                if svc is not None:
+                    self._proxy_leader(svc)
+                elif self.path == "/status":
                     self._send(200, b'{"service": "router"}')
                 else:
                     self._send(404, b'{"error": "unknown path"}')

@@ -6,9 +6,8 @@ every type the port registers.
 
 test_extension_sql is in tests/test_torch_sql.py. test_extension_sharded_merge
 runs the extension states through the broker over two data nodes and
-through the port's mesh (8 CPU shards) besides. Left out, with the ROADMAP
-item it waits for: the seven URI namespace lookup cases (A18, the
-cluster's lookups). The protobuf parser cases are in
+through the port's mesh (8 CPU shards) besides. The URI namespace lookup
+cases are in tests/test_torch_lookups.py, the protobuf parser cases in
 tests/test_torch_protobuf.py.
 """
 import numpy as np

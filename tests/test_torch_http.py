@@ -132,8 +132,7 @@ def test_http_status_and_errors(segs, served):
     assert _get(srv.port, "/druid/v2/datasources") == (200, ["test"])
     status, err, _ = _post(srv.port, {"queryType": "bogus"})
     assert status == 400 and "error" in err
-    # the surfaces that wait for later slices answer 404, as the
-    # reference's do when they are not enabled
+    # the surfaces that are not enabled answer 404, as the reference's do
     assert _post(srv.port, {"query": "SELECT 1"},
                  path="/druid/v2/sql")[:2] == (404,
                                                {"error": "SQL not enabled"})
@@ -144,18 +143,56 @@ def test_http_status_and_errors(segs, served):
 
 @pytest.mark.parametrize("arg,item", [
     ("leader_clients", "A18"), ("coordination", "A18"), ("overlord", "A18")])
-def test_waiting_surfaces_refuse_construction(segs, arg, item):
-    """The router's control-plane proxy (`leader_clients`) waits with the
-    coordination endpoints; SQL is served since A16
-    (tests/test_torch_sql.py), and the subscription hub since A15
-    (tests/test_torch_subscriptions.py)."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        if arg == "leader_clients":
-            RouterHttpServer(TieredBrokerSelector({"_default": []},
-                                                  "_default"),
-                             leader_clients={"coordinator": object()})
+def test_waiting_surfaces_refuse_construction(segs, served, arg, item):
+    """The control-plane surfaces are served (ROADMAP A18): a
+    QueryHttpServer given `coordination` answers the leader endpoints
+    beside the native resource, given `overlord` it takes task
+    submissions on the leader, and a RouterHttpServer given
+    `leader_clients` proxies the control plane to the current leader
+    (tests/test_torch_coordination.py holds each against the
+    reference)."""
+    from druid_tpu_torch.cluster import MetadataStore
+    from druid_tpu_torch.coordination import (ChaosHarness, LeaderClient,
+                                              ManualClock)
+    from druid_tpu_torch.indexing import Overlord
+    service = "overlord" if arg == "overlord" else "coordinator"
+    prefix = ("/druid/indexer/v1" if service == "overlord"
+              else "/druid/coordinator/v1")
+    md, clock = MetadataStore(), ManualClock()
+    h = ChaosHarness.over_metadata(md, service, lease_ms=1_000, clock=clock)
+    p = h.participant("node0")
+    ov = Overlord(md, leader=p) if arg == "overlord" else None
+    try:
+        srv = served(QueryHttpServer(QueryLifecycle(_ex(segs)),
+                                     coordination={service: p},
+                                     overlord=ov))
+        p.meta["url"] = f"http://127.0.0.1:{srv.port}"
+        assert _get(srv.port, prefix + "/isLeader")[0] == 404, item
+        p.tick()
+        assert _get(srv.port, prefix + "/isLeader") == (200,
+                                                        {"leader": True})
+        assert _post(srv.port, TS)[0] == 200
+        if arg == "coordination":
+            assert _get(srv.port, prefix + "/leader") == (200, {
+                "leader": p.meta["url"], "term": 1, "holder": "node0"})
+        elif arg == "overlord":
+            status, body, _ = _post(srv.port, {
+                "type": "kill", "dataSource": "test", "interval": WEEK,
+                "id": "kill-http"}, path=prefix + "/task")
+            assert (status, body) == (200, {"task": "kill-http"})
+            assert ov.await_task("kill-http").state == "SUCCESS"
+            assert _get(srv.port, prefix + "/task/kill-http/status") == (
+                200, {"task": "kill-http", "status": "SUCCESS"})
         else:
-            QueryHttpServer(QueryLifecycle(_ex(segs)), **{arg: object()})
+            router = served(RouterHttpServer(
+                TieredBrokerSelector({"_default": []}, "_default"),
+                leader_clients={service: LeaderClient(h.store, service,
+                                                      clock=clock)}))
+            assert _get(router.port, prefix + "/leader")[1]["leader"] \
+                == p.meta["url"]
+    finally:
+        if ov is not None:
+            ov.shutdown()
 
 
 def test_http_serializes_extension_values(segs, served):
@@ -172,6 +209,29 @@ def test_http_serializes_extension_values(segs, served):
     r = rows[0]["result"]
     assert isinstance(r["b"], str)                       # base64 bloom
     assert sum(r["h"]["counts"]) == segs[1][0].n_rows    # structured hist
+
+
+def test_http_serializes_quantiles_sketch_divergence(segs, served):
+    """A quantilesDoublesSketch value in a reply: the reference's
+    resource answers 500 (its values have no JSON form), the port's
+    answers the number of values the sketch has seen, Druid's finalized
+    value. A divergence on purpose (ROADMAP §C)."""
+    import druid_tpu.ext  # noqa: F401  (the reference's sketch types)
+    from druid_tpu.server import QueryHttpServer as RefHttpServer
+    from druid_tpu.server import QueryLifecycle as RefLifecycle
+    q = {"queryType": "timeseries", "dataSource": "test", "intervals": [DAY],
+         "granularity": "all", "aggregations": [
+             {"type": "quantilesDoublesSketch", "name": "q",
+              "fieldName": "metFloat"},
+             {"type": "count", "name": "n"}]}
+    ref = served(RefHttpServer(RefLifecycle(RefExecutor([segs[0][0]]))))
+    assert _post(ref.port, q)[0] == 500
+    srv = served(QueryHttpServer(QueryLifecycle(
+        QueryExecutor([segs[1][0]], device="cpu"))))
+    status, rows, _ = _post(srv.port, q)
+    assert status == 200
+    assert rows[0]["result"] == {"q": segs[1][0].n_rows,
+                                 "n": segs[1][0].n_rows}
 
 
 # ---------------------------------------------------------------------------

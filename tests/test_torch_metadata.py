@@ -5,8 +5,9 @@ The MetadataStore cases of tests/test_cluster.py (publish with the
 datasource-metadata CAS, unused segments and rules, the published set a
 coordinator assigns from) and the store side of tests/test_loadqueue_sync.py
 run on both stores: every call's answer must be equal (wall-clock fields
-aside). The coordinator waits for ROADMAP A18, so the loading cases drive
-the port's LoadQueuePeon from the store's used segments, as its duty does.
+aside). The loading cases drive the port's LoadQueuePeon from the store's
+used segments, as the coordinator's duty does (tests/test_torch_coordinator.py
+runs the Coordinator itself against the reference's).
 Then one sequence over the whole surface (leases and fencing, allocation,
 pending segments, MVCC visibility, config, audit, tasks, supervisors) on
 both stores, and the store on a file shared by two instances.

@@ -33,7 +33,10 @@ def test_import_pulls_in_neither_jax_nor_druid_tpu():
     native/, data/bitmap.py, the load queue and the chaos harness), and
     ingestion (ingest/, the MetadataStore, the realtime server, standing
     queries, the subscription hub and the protobuf parser), and the mesh
-    (parallel/: the context, the layout, the sharded run), loads neither
+    (parallel/: the context, the layout, the sharded run), and the control
+    plane and the CLI (the coordinator, cluster lookups, the URI namespace
+    loader, coordination/, indexing/ with the forking runner and the
+    peon's entry, utils/config.py, utils/lifecycle.py, cli.py), loads neither
     jax nor druid_tpu, druid_tpu.native included; nor does `import
     druid_tpu_torch.ext` load google.protobuf (the parser imports it when
     it is built)."""
@@ -79,7 +82,21 @@ def test_import_pulls_in_neither_jax_nor_druid_tpu():
             "druid_tpu_torch.ext.protobuf_parser, "
             "druid_tpu_torch.parallel, druid_tpu_torch.parallel.context, "
             "druid_tpu_torch.parallel.speclayout, "
-            "druid_tpu_torch.parallel.distributed; "
+            "druid_tpu_torch.parallel.distributed, "
+            "druid_tpu_torch.cluster.coordinator, "
+            "druid_tpu_torch.cluster.lookups, "
+            "druid_tpu_torch.ext.namespace_lookup, "
+            "druid_tpu_torch.coordination, "
+            "druid_tpu_torch.coordination.latch, "
+            "druid_tpu_torch.coordination.discovery, "
+            "druid_tpu_torch.coordination.chaos, "
+            "druid_tpu_torch.indexing, druid_tpu_torch.indexing.locks, "
+            "druid_tpu_torch.indexing.task, "
+            "druid_tpu_torch.indexing.overlord, "
+            "druid_tpu_torch.indexing.forking, "
+            "druid_tpu_torch.indexing.autoscaling, druid_tpu_torch.peon, "
+            "druid_tpu_torch.utils.config, "
+            "druid_tpu_torch.utils.lifecycle, druid_tpu_torch.cli; "
             "from druid_tpu_torch.native import lz4block; "
             "lz4block.compress(b'abcd' * 64); "
             "bad = sorted(m for m in sys.modules if m == 'jax' "

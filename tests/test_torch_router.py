@@ -193,16 +193,27 @@ def test_router_proxies_avatica(stack, segments):
 
 
 def test_router_paths(stack):
-    """The control-plane paths wait with coordination (A18): without
-    leader clients they answer 404, as the reference's do."""
+    """The control-plane paths: without leader clients they answer 404, as
+    the reference's do; with a leader client and no live leader, 503
+    (tests/test_torch_coordination.py proxies to a live one)."""
+    from druid_tpu_torch.cluster import MetadataStore
+    from druid_tpu_torch.coordination import (LeaderClient, ManualClock,
+                                              MetadataLeaseStore)
     assert _post(stack, {}, path="/druid/coordinator/v1/leader")[0] == 404
     assert _post(stack, {}, path="/druid/indexer/v1/task")[0] == 404
     with urllib.request.urlopen(f"http://127.0.0.1:{stack}/status",
                                 timeout=TIMEOUT) as r:
         assert json.loads(r.read()) == {"service": "router"}
-    with pytest.raises(NotImplementedError, match="ROADMAP A18"):
-        RouterHttpServer(TieredBrokerSelector({"_default": []}, "_default"),
-                         leader_clients={"overlord": object()})
+    router = RouterHttpServer(
+        TieredBrokerSelector({"_default": []}, "_default"),
+        leader_clients={"overlord": LeaderClient(
+            MetadataLeaseStore(MetadataStore()), "overlord",
+            clock=ManualClock())}).start()
+    try:
+        assert _post(router.port, {}, path="/druid/indexer/v1/task")[:2] \
+            == (503, {"error": "no reachable leader for [overlord]"})
+    finally:
+        router.stop()
 
 
 def test_sql_endpoint_authorizes_tables(segments):
