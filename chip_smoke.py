@@ -35,7 +35,8 @@ Phases, each fatal on failure:
      metLong; through B2: +8 launches per run, B1 none), each checked
      against an independent numpy result; each query's staged block
      (descriptor, resident and decoded bytes) is printed, and only the
-     columns B1/B2 read may be packed (topN and timeseries stage dense).
+     columns B1/B2 read may be packed (topN and timeseries pack nothing;
+     their `__time_offset` takes its cascade rung, delta).
      The first B1 and B2 calls keep their inputs, and must hold metLong as
      w16 words, not decoded. Each query's reduction strategy per segment
      is printed and must be: groupBy projection (B1), filtered groupBy
@@ -58,9 +59,9 @@ Phases, each fatal on failure:
      windowed (W printed), rows against numpy, cold and warm p50; windowed
      twice with a floatSum (the same float bits); forced projection (B1)
      gives the same rows;
- 10. run domain: the headline schema in the rollup order (4 segments of
-     12.5M rows, cut from 8 for time) with a constant LONG `cnt`, and 2 of
-     them re-ordered by
+ 10. run domain: the headline schema in the rollup order (2 segments of
+     12.5M rows, cut from 8 for time) with a constant LONG `cnt`, and the 2
+     re-ordered by
      (hour, dimA, dimB): a timeseries (all, `in` dimA), a timeseries with a
      filtered longSum of `cnt` and a filtered count (each `in` dimA), a
      topN on dimA, an
@@ -86,17 +87,18 @@ Phases, each fatal on failure:
      with the B1/B2 counts set to 0 before it and read after it): X1 the
      headline
      groupBy with a FLOAT virtual column vf = metFloat * 2 + metLong and
-     floatMax(vf) (projection, B1 x8 a run; its first B1 call held
+     floatMax(vf) (projection, B1 x4 a run; its first B1 call held
      against the plain version, vf read dense and metLong as w16 words;
      vf's device time on segment 0); X2 a groupBy filtered by and(in dimA,
-     regex dimB, expression "metLong % 10 < 7") (megakernel, B2 x8, the
+     regex dimB, expression "metLong % 10 < 7") (megakernel, B2 x4, the
      expression as B2's residual row mask; its first call held against
      the plain version; the live row share); X3 a topN on a substring
      extraction of dimB filtered by search dimA "5" (mm); X4 a groupBy on
      the expression dimension div(metLong, 100) x dimA with a DOUBLE
      virtual column summed, filtered by not(columnComparison [dimA,
-     dimB]) (windowed over the projection: B1 has no float64 sum); X3 and
-     X4 on 2 of the 8 segments (reduced). Each against numpy (exact, vf
+     dimB]) (windowed over the projection: B1 has no float64 sum); X1 and
+     X2 on 4 of the 8 segments, X3 and X4 on 2 (reduced, for the script's
+     limit). Each against numpy (exact, vf
      within 1e-6 relative, the double sum within 1e-9), with its strategy
      per segment, cold time, warm p50 of 5 and split_times;
  13. aggregators, on phase 12's segments (before phase 11, B1/B2 counts
@@ -235,17 +237,20 @@ Phases, each fatal on failure:
      the golden fixtures tests/golden/segment_v1 and segment_v2 (written by
      the reference) loaded on the card, their columns against the
      fixture's arrays rebuilt with no RNG (NaN and -0.0 bit for bit) and
-     their groupBy against numpy; the 8 segments pushed (format V2) to a
-     LocalDeepStorage in a temporary directory, segment 0 again as V1,
-     each push's seconds, on-disk bytes by part kind and logical bytes
-     printed; a LoadQueuePeon loading the 8 into a fresh DataNode announced
+     their groupBy against numpy; the 8 segments pushed (format V2), 4 at
+     a time, to a LocalDeepStorage in a temporary directory, segment 0
+     again as V1, the pushes' wall seconds and each push's, on-disk bytes
+     by part kind and logical bytes printed; a LoadQueuePeon loading the 8 into a fresh DataNode announced
      on an InventoryView (none failed, no lazy column materialized by the
      load) and one tick of its DataNodeServer's SegmentLoadMonitor
      (segment/load/{time,bytes,compressedBytes} > 0); the four main-path
      queries posted to /druid/v2 of a broker over it, 1 cold and 3 warm
      runs each, against numpy and phase 18's rows, B1 x8 a groupBy run and
      B2 x8 a filtered run, cold and warm p50 beside phase 18's p50, and
-     cascade.decode_stats before and after; the filtered groupBy's leaves
+     cascade.decode_stats before and after; topN and timeseries run first,
+     and their cold runs must stage encoded columns (the persisted packed
+     words, cascade rungs) with no host:rle, host:lz4 or host:packed
+     decode; the filtered groupBy's leaves
      on loaded segment 0 (the words B2 read) against lut[ids]'s words; a
      groupBy filtered on a dimB tail value whose leaf ships sparse, through
      B2 x8, against numpy; segment 0 loaded from V1 equal to the in-memory
@@ -258,13 +263,15 @@ Phases, each fatal on failure:
      maxRowsPerSegment 5,000,000 checked against every sink, not
      enforced; maxTotalRows 20,000,000 as the task roll-over, which no
      task reaches; segmentGranularity HOUR, queryGranularity NONE,
-     taskCount 2 over 2 partitions). 10,000,000 events of the headline
-     schema (seed 1234, numpy), 5,000,000 a partition in time order over
+     taskCount 2 over 2 partitions). 6,000,000 events of the headline
+     schema (seed 1234, numpy), 3,000,000 a partition in time order over
      2 hours, each at its own millisecond (nothing rolls up: every stored
      count is 1), go into a SimulatedStream; a StreamSupervisor with a sqlite MetadataStore, a
      LocalDeepStorage, an InputRowParser and a RealtimeServer in the
-     broker's InventoryView ingests them (4 sinks of ~2.5M events, each
-     with 2 persisted hydrants and a live one). Two standing queries
+     broker's InventoryView ingests them (4 sinks of ~1.5M events, hydrants
+     persisted at 1M rows; 6M events, not 10M, so that the phase stays
+     inside its limit on a host that runs a fifth slower). Two standing
+     queries
      (hourly timeseries; groupBy by dimA with doubleMax) are subscribed on
      a SubscriptionHub before the first event and ticked every 500,000
      events: every snapshot against numpy over the events so far and
@@ -278,10 +285,10 @@ Phases, each fatal on failure:
      version. The four main-path queries posted to /druid/v2 of a broker
      (hedging off) over the realtime server before publish, 1 cold and 3
      warm runs, against numpy; checkpoint_all() publishes the 4 sinks
-     (merged, pushed as V2, committed with the offsets {"0": 5000000,
-     "1": 5000000}), the handoff loads them into a DataNode through a
+     (merged, pushed as V2, committed with the offsets {"0": 3000000,
+     "1": 3000000}), the handoff loads them into a DataNode through a
      LoadQueuePeon, the sinks unannounce, each standing program cuts over
-     once a sink (every emission across the boundary counts 10,000,000);
+     once a sink (every emission across the boundary counts 6,000,000);
      the four queries again, rows equal numpy and the ones before publish,
      each segment's strategy printed and checked against the planner's
      rule: a longSum over a constant LONG column (count) keeps the
@@ -297,7 +304,10 @@ Phases, each fatal on failure:
      every run (the projection becomes mixed), B1 and B2 launched 0 times;
      warm p50, partials and merge+finish (split_times) and
      query/sharded/stackBytes printed beside the same query's warm p50 and
-     split without a mesh, with the card's name and power limit. Then one
+     split without a mesh, with the card's name and power limit, and
+     query/sharded/packedRatio (the stack holds encoded columns: packed
+     words, the delta `__time_offset`, `__valid` as run tables); the four
+     stacks' bytes against their decoded bytes. Then one
      groupBy through a DataNode(mesh=...) behind the in-process broker
      (rows against numpy, one sharded run), and release_device_caches()
      must take stackBytes from above 0 to 0. The phase must take at most
@@ -315,7 +325,7 @@ Phases, each fatal on failure:
      and 3 warm runs each (a post-aggregator named after the run keeps
      the server's caches from answering), rows against numpy, B1 x8
      a groupBy run and B2 x8 a filtered run, cold s and warm p50 beside
-     phase 20's; a batch IndexTask (2,000,000 headline-schema events, seed
+     phase 20's; a batch IndexTask (1,000,000 headline-schema events, seed
      1234, over 2 hours, as newline-delimited JSON in a local file;
      segmentGranularity HOUR, queryGranularity NONE) run by a
      ForkingTaskRunner beside an Overlord on the same metadata file and
@@ -330,7 +340,23 @@ Phases, each fatal on failure:
      segment exit 0; then _STOP ends the server's thread, and
      release_device_caches() and the pool's snapshot. The phase must take
      at most 300 s.
-The device pool's snapshot is printed after phases 6-10 and 12-23; at the
+ 24. cascade (right after phase 10, on 2 of phase 6's segments and
+     phase 10's first 2 rollup-order segments with their numpy reference;
+     B1/B2 counts restored after it): each staged rung at full width
+     (12,500,000 rows), encoded on the host and decoded on the card, bit
+     for bit against the host's padded column: RLE (dimA in the rollup
+     order), delta (a headline segment's `__time_offset`), FOR (the same
+     columns over 200 ms), LZ4 (`price`, a float fixed by dimA in the
+     rollup order); its bytes on the card against dense and its decode's
+     p50 of 5 (synchronized). Then the four main-path queries on the 2
+     headline and the 2 rollup-order segments, and a timeseries over
+     `price` (the LZ4 rung on the main path), with the rungs on and off
+     (cascade.set_enabled): rows against numpy in both modes, exact
+     aggregators equal between them and float sums within 1e-5 of their
+     magnitude; warm p50 of 3 in each mode, the decodes a warm run made by
+     kind, the rung each staged column took, and the pool's cascadeRatio.
+     The phase must take at most 120 s.
+The device pool's snapshot is printed after phases 6-10, 12-24; at the
 default budget none may show an eviction.
 `python3 chip_smoke.py batching` runs the build and phase 14 alone;
 `python3 chip_smoke.py extensions` the build and phase 16 with E5;
@@ -345,7 +371,9 @@ reference, and phase 20;
 `python3 chip_smoke.py control` the build, phase 6's data and numpy
 reference, phase 20 and phase 23;
 `python3 chip_smoke.py sharded` the build, phase 6's data and numpy
-reference, and phase 22.
+reference, and phase 22;
+`python3 chip_smoke.py cascade` the build, 2 headline and 2 rollup-order
+segments made for it, and phase 24.
 The line before the last is the kernels JSON line (each kernel's
 `launches` counted on phase 6's path, `launches_expressions` on phase
 12's, `launches_aggregators` on phase 13's, `launches_native_surface` on
@@ -361,6 +389,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -374,6 +403,19 @@ DAY = ("2026-01-01", "2026-01-02")
 
 def log(msg):
     print(msg, flush=True)
+
+
+_T0 = time.perf_counter()
+TIMELINE = []           # (phase heading, seconds since the script started)
+
+
+def phase_start(msg):
+    """Log a phase's heading with the seconds since the script started,
+    and keep them for the timeline the whole run prints at its end."""
+    at = time.perf_counter() - _T0
+    TIMELINE.append((re.split(r"[:,;(]", msg[len("phase "):])[0].strip(),
+                     at))
+    log(f"{msg} [at {at:.1f} s]")
 
 
 def card_line():
@@ -1130,9 +1172,11 @@ def ab_ms(fn_a, fn_b, reps=20):
 # phase 6: the main path at full size
 # ---------------------------------------------------------------------------
 
-def headline_segments(n_seg=SEGMENTS, sort_by_dims=False):
+def headline_segments(n_seg=SEGMENTS, sort_by_dims=False, first_of=None):
     """The headline data: n_seg segments of ROWS // SEGMENTS rows each (in
-    the rollup sort order with `sort_by_dims`)."""
+    the rollup sort order with `sort_by_dims`), over consecutive slices of
+    the day; with `first_of` = m, the first n_seg of m such segments (the
+    same rows: each covers 1/m of the day)."""
     from druid_tpu_torch.data.generator import ColumnSpec, DataGenerator
     from druid_tpu_torch.utils.intervals import Interval
     schema = (
@@ -1143,7 +1187,10 @@ def headline_segments(n_seg=SEGMENTS, sort_by_dims=False):
                    std=25.0),
     )
     gen = DataGenerator(schema, seed=SEED)
-    return gen.segments(n_seg, ROWS // SEGMENTS, Interval.of(*DAY),
+    day = Interval.of(*DAY)
+    if first_of is not None:
+        day = Interval(day.start, day.start + n_seg * (day.width // first_of))
+    return gen.segments(n_seg, ROWS // SEGMENTS, day,
                         datasource="bench", sort_by_dims=sort_by_dims)
 
 
@@ -1192,70 +1239,86 @@ def queries(segments):
             "groupby_filtered": filtered}
 
 
+REFERENCE_THREADS = 4                # segments a numpy reference reads at once
+
+
+def map_segments(fn, segments):
+    """fn over each segment, REFERENCE_THREADS at a time (numpy's array
+    loops release the GIL), the results in the segments' order."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(REFERENCE_THREADS) as pool:
+        return list(pool.map(fn, segments))
+
+
+def _numpy_reference_terms(s, t0, head):
+    """One segment's terms of numpy_reference: its bincounts and maxima."""
+    G = 100 * 1000
+    r = {}
+    a = s.dims["dimA"].ids.astype(np.int64)
+    b = s.dims["dimB"].ids.astype(np.int64)
+    ml = s.metrics["metLong"].values
+    mf = s.metrics["metFloat"].values
+    keep = (ml >= 100) & (ml <= 9900)
+    key = (a * 1000 + b)[keep]
+    r["cnt"] = np.bincount(key, minlength=G)
+    r["lsum"] = np.bincount(key, weights=ml[keep].astype(np.float64),
+                            minlength=G)
+    r["fmax"] = np.full(G, -np.inf, np.float32)
+    np.maximum.at(r["fmax"], key, mf[keep])
+    r["g_fsum"] = np.bincount(key, weights=mf[keep].astype(np.float64),
+                              minlength=G)
+    r["g_abs"] = np.bincount(key, weights=np.abs(mf[keep].astype(
+        np.float64)), minlength=G)
+    even = (a % 2) == 0
+    fk = keep & even & (b != head)
+    key = a[fk] * 1000 + b[fk]
+    r["f_cnt"] = np.bincount(key, minlength=G)
+    r["f_lsum"] = np.bincount(key, weights=ml[fk].astype(np.float64),
+                              minlength=G)
+    r["f_fmax"] = np.full(G, -np.inf, np.float32)
+    np.maximum.at(r["f_fmax"], key, mf[fk])
+    r["tb_cnt"] = np.bincount(b[even], minlength=1000)
+    r["tb_lsum"] = np.bincount(b[even], weights=ml[even].astype(np.float64),
+                               minlength=1000)
+    r["tb_fsum"] = np.bincount(b[even], weights=mf[even].astype(np.float64),
+                               minlength=1000)
+    r["tb_abs"] = np.bincount(b[even], weights=np.abs(
+        mf[even].astype(np.float64)), minlength=1000)
+    h = (s.time_ms - t0) // 3_600_000
+    r["h_cnt"] = np.bincount(h, minlength=24)
+    r["h_lsum"] = np.bincount(h, weights=ml.astype(np.float64), minlength=24)
+    r["h_fmax"] = np.full(24, -np.inf, np.float32)
+    np.maximum.at(r["h_fmax"], h, mf)
+    r["h_dsum"] = np.bincount(h, weights=mf.astype(np.float64), minlength=24)
+    r["h_abs"] = np.bincount(h, weights=np.abs(mf.astype(np.float64)),
+                             minlength=24)
+    return r
+
+
 def numpy_reference(segments):
-    """Independent numpy results for the four main-path queries."""
+    """Independent numpy results for the four main-path queries: each
+    segment's terms (map_segments), added in the segments' order."""
     t0 = segments[0].interval.start
     head = dimb_head(segments)
     G = 100 * 1000
-    cnt = np.zeros(G, np.int64)
-    lsum = np.zeros(G, np.float64)
-    fmax = np.full(G, -np.inf, np.float32)
-    f_cnt = np.zeros(G, np.int64)
-    f_lsum = np.zeros(G, np.float64)
-    f_fmax = np.full(G, -np.inf, np.float32)
-    g_fsum = np.zeros(G, np.float64)
-    g_abs = np.zeros(G, np.float64)
-    tb_cnt = np.zeros(1000, np.int64)
-    tb_lsum = np.zeros(1000, np.float64)
-    tb_fsum = np.zeros(1000, np.float64)
-    tb_abs = np.zeros(1000, np.float64)
-    h_cnt = np.zeros(24, np.int64)
-    h_lsum = np.zeros(24, np.float64)
-    h_fmax = np.full(24, -np.inf, np.float32)
-    h_dsum = np.zeros(24, np.float64)
-    h_abs = np.zeros(24, np.float64)
-    for s in segments:
-        a = s.dims["dimA"].ids.astype(np.int64)
-        b = s.dims["dimB"].ids.astype(np.int64)
-        ml = s.metrics["metLong"].values
-        mf = s.metrics["metFloat"].values
-        keep = (ml >= 100) & (ml <= 9900)
-        key = (a * 1000 + b)[keep]
-        cnt += np.bincount(key, minlength=G)
-        lsum += np.bincount(key, weights=ml[keep].astype(np.float64),
-                            minlength=G)
-        np.maximum.at(fmax, key, mf[keep])
-        g_fsum += np.bincount(key, weights=mf[keep].astype(np.float64),
-                              minlength=G)
-        g_abs += np.bincount(key, weights=np.abs(mf[keep].astype(
-            np.float64)), minlength=G)
-        even = (a % 2) == 0
-        fk = keep & even & (b != head)
-        key = a[fk] * 1000 + b[fk]
-        f_cnt += np.bincount(key, minlength=G)
-        f_lsum += np.bincount(key, weights=ml[fk].astype(np.float64),
-                              minlength=G)
-        np.maximum.at(f_fmax, key, mf[fk])
-        tb_cnt += np.bincount(b[even], minlength=1000)
-        tb_lsum += np.bincount(b[even], weights=ml[even].astype(np.float64),
-                               minlength=1000)
-        tb_fsum += np.bincount(b[even], weights=mf[even].astype(np.float64),
-                               minlength=1000)
-        tb_abs += np.bincount(b[even], weights=np.abs(
-            mf[even].astype(np.float64)), minlength=1000)
-        h = (s.time_ms - t0) // 3_600_000
-        h_cnt += np.bincount(h, minlength=24)
-        h_lsum += np.bincount(h, weights=ml.astype(np.float64), minlength=24)
-        np.maximum.at(h_fmax, h, mf)
-        h_dsum += np.bincount(h, weights=mf.astype(np.float64), minlength=24)
-        h_abs += np.bincount(h, weights=np.abs(mf.astype(np.float64)),
-                             minlength=24)
-    return dict(cnt=cnt, lsum=lsum.astype(np.int64), fmax=fmax,
-                f_cnt=f_cnt, f_lsum=f_lsum.astype(np.int64), f_fmax=f_fmax,
-                g_fsum=g_fsum, g_abs=g_abs, tb_fsum=tb_fsum, tb_abs=tb_abs,
-                tb_cnt=tb_cnt, tb_lsum=tb_lsum.astype(np.int64),
-                h_cnt=h_cnt, h_lsum=h_lsum.astype(np.int64), h_fmax=h_fmax,
-                h_dsum=h_dsum, h_abs=h_abs, t0=t0)
+    acc = {k: np.zeros(n, np.int64) for k, n in (
+        ("cnt", G), ("f_cnt", G), ("tb_cnt", 1000), ("h_cnt", 24))}
+    acc.update({k: np.zeros(n, np.float64) for k, n in (
+        ("lsum", G), ("f_lsum", G), ("g_fsum", G), ("g_abs", G),
+        ("tb_lsum", 1000), ("tb_fsum", 1000), ("tb_abs", 1000),
+        ("h_lsum", 24), ("h_dsum", 24), ("h_abs", 24))})
+    acc.update({k: np.full(n, -np.inf, np.float32) for k, n in (
+        ("fmax", G), ("f_fmax", G), ("h_fmax", 24))})
+    for terms in map_segments(
+            lambda s: _numpy_reference_terms(s, t0, head), segments):
+        for k, v in terms.items():
+            if k.endswith("fmax"):
+                np.maximum(acc[k], v, out=acc[k])
+            else:
+                acc[k] += v
+    for k in ("lsum", "f_lsum", "tb_lsum", "h_lsum"):
+        acc[k] = acc[k].astype(np.int64)
+    return dict(acc, t0=t0)
 
 
 def check_groupby(rows, ref, pre=""):
@@ -2310,7 +2373,7 @@ def phase_sorted(dev):
 # phase 10: code-domain aggregation over run tables
 # ---------------------------------------------------------------------------
 
-RUN_SEGMENTS = 4                     # cut from 8 for time (reduced)
+RUN_SEGMENTS = 2                     # cut from 8 for time (reduced)
 HOUR_SEGMENTS = 2                    # the hour-ordered shape: 2 of them
 
 
@@ -2555,10 +2618,12 @@ def check_run_leaves(segments, q, dev):
     return out
 
 
-def phase_rundomain(dev):
+def phase_rundomain(dev, keep=None):
     """Code-domain aggregation at full width: the queries over run tables
     where the rule holds, against numpy and against the row program; the
-    run-table filter leaves against the row-built words."""
+    run-table filter leaves against the row-built words. With `keep` (a
+    dict), keep["segments"] and keep["ref"] are the rollup-order segments
+    the leaves ran on and their numpy reference (for the cascade phase)."""
     import torch
     from druid_tpu_torch.data import cascade
     from druid_tpu_torch.engine import QueryExecutor
@@ -2639,11 +2704,263 @@ def phase_rundomain(dev):
         finally:
             mk.set_enabled(prev)
     out["filter_leaves"] = leaves
+    if keep is not None:
+        keep.update(segments=sub, ref=fref)
     log(f"  filtered groupBy leaves on {len(sub)} segments (dim, staged "
         f"form, mega leaf run-built): {leaves[0]}; run-table and run-built "
         f"words = row-built words; rows = numpy with megakernel off and on")
     sr.LAUNCHES, mk.LAUNCHES = saved  # not the B1/B2 main path
     torch.cuda.synchronize()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the cascade phase: the staged rungs (data/cascade.py) on the card
+# ---------------------------------------------------------------------------
+
+CASCADE_WARM = 3                     # warm runs a query a mode (p50 of 3)
+CASCADE_HEAD_SEGMENTS = 2            # phase 6's segments the phase reuses
+CASCADE_DECODES = 5                  # decodes a rung is timed over (p50)
+CASCADE_PHASE_LIMIT_S = 120.0
+#: a float metric fixed by dimA in the rollup order (a unit price): its
+#: bytes repeat run after run, so LZ4 plans it
+PRICE = (np.arange(100, dtype=np.float32) * np.float32(0.25)
+         + np.float32(1.5))
+
+
+def narrow_time_segment(seg):
+    """`seg`'s columns over 200 ms of its day (offsets 1024..1223, in a
+    shuffled order): the shape whose `__time_offset` takes the FOR rung."""
+    from druid_tpu_torch.data.segment import Segment
+    t = seg.interval.start + 1024 + (seg.time_ms * 7919) % 200
+    return Segment(seg.id, t, seg.dims, seg.metrics)
+
+
+def with_price(seg):
+    """`seg` (rollup order) with the float metric `price` = PRICE[dimA]."""
+    from druid_tpu_torch.data.segment import NumericColumn, ValueType
+    seg.metrics["price"] = NumericColumn(PRICE[seg.dims["dimA"].ids],
+                                         ValueType.FLOAT)
+    return seg
+
+
+def rung_expected(seg, name, entry, pad_n):
+    """The host's padded column for `name`, padding rows as the rung's
+    decode gives them (0 for RLE and LZ4, the last value for delta, the
+    base for FOR)."""
+    if name == "__time_offset":
+        raw = (seg.time_ms - seg.interval.start).astype(np.int32)
+    elif name in seg.dims:
+        raw = seg.dims[name].ids
+    else:
+        raw = seg.metrics[name].values.astype(seg.staged_dtype(name))
+    out = np.zeros(pad_n, dtype=raw.dtype)
+    out[: raw.shape[0]] = raw
+    if entry[1] == "delta":
+        out[raw.shape[0]:] = raw[-1]
+    elif entry[1] == "for":
+        out[raw.shape[0]:] = entry[3]
+    return out
+
+
+def cascade_rungs(dev, cases):
+    """Each (label, segment, column) encoded on the host and decoded on the
+    card: bit for bit against the host's padded column, the bytes on the
+    card against dense, and the decode's p50 of CASCADE_DECODES."""
+    import torch
+    from druid_tpu_torch.data import cascade
+    out = {}
+    for label, seg, name in cases:
+        entry = next((e for e in cascade.plan_pair(seg, [name])[0]
+                      if e[0] == name), None)
+        if entry is None or entry[1] != label:
+            raise AssertionError(f"{label}: {name} planned as {entry}")
+        pad_n = seg.padded_rows()
+        want = rung_expected(seg, name, entry, pad_n)
+        t = time.perf_counter()
+        padded = want.copy()
+        padded[seg.n_rows:] = 0
+        col = cascade.encode_column(
+            seg, name, entry, padded,
+            lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev))
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t
+        ms = []
+        for _ in range(CASCADE_DECODES):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            dec = cascade.decode(col)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        got = dec.cpu().numpy()
+        iw = np.dtype(f"<i{want.dtype.itemsize}")
+        if got.dtype != want.dtype or not np.array_equal(
+                got.view(iw) if got.dtype.kind == "f" else got,
+                want.view(iw) if want.dtype.kind == "f" else want):
+            raise AssertionError(f"{label}: the card's decode differs from "
+                                 f"the host's padded column")
+        r = out[label] = {
+            "column": name, "entry": list(entry), "rows": seg.n_rows,
+            "padded_rows": pad_n, "bytes": int(col.nbytes),
+            "dense_bytes": int(col.logical_nbytes),
+            "ratio": col.logical_nbytes / col.nbytes,
+            "encode_host_s": encode_s, "decode_ms": ms,
+            "decode_p50_ms": float(np.median(ms)),
+            "decode_rate_gb_s": col.logical_nbytes
+            / (float(np.median(ms)) / 1e3) / 1e9}
+        log(f"  {label}: {name} {tuple(entry)} on {seg.n_rows} rows: "
+            f"{r['bytes']} B on the card against {r['dense_bytes']} B dense "
+            f"({r['ratio']:.1f}x); host encode {encode_s:.2f} s; decode p50 "
+            f"{r['decode_p50_ms']:.3f} ms ({r['decode_rate_gb_s']:.1f} GB/s "
+            f"of decoded column), bit for bit equal to the host's padded "
+            f"column")
+    return out
+
+
+def cascade_queries(dev, tag, segs, qs, ref, checks):
+    """The queries `qs` over `segs` with the rungs on, then off: rows
+    against numpy in both modes (exact aggregators equal bit for bit
+    between the two, float sums within 1e-5 of their magnitude), warm p50
+    of CASCADE_WARM in each, the decodes a warm run made by kind, and the
+    rung each staged column took."""
+    import torch
+    from druid_tpu_torch.data import cascade
+    from druid_tpu_torch.data.devicepool import device_pool
+    from druid_tpu_torch.engine import QueryExecutor
+    out = {}
+    for name, q in qs.items():
+        r = out[name] = {}
+        rows = {}
+        for mode in (True, False):
+            prev = cascade.set_enabled(mode)
+            try:
+                ex = QueryExecutor(segs, device=dev)
+                with BlockLog() as blog:
+                    t = time.perf_counter()
+                    rows[mode] = ex.run_json(q)
+                    torch.cuda.synchronize()
+                    first = (time.perf_counter() - t) * 1e3
+                checks[name](rows[mode], ref)
+                warm = []
+                for i in range(CASCADE_WARM):
+                    d0 = cascade.decode_stats()
+                    t = time.perf_counter()
+                    got = ex.run_json(q)
+                    torch.cuda.synchronize()
+                    warm.append((time.perf_counter() - t) * 1e3)
+                    d1 = cascade.decode_stats()
+                checks[name](got, ref)
+            finally:
+                cascade.set_enabled(prev)
+            claimed = sorted({(e[0], e[1]) for b in blog.blocks
+                              for e in b.cascades})
+            if not mode and claimed:
+                raise AssertionError(f"{tag} {name}: the rungs off staged "
+                                     f"{claimed}")
+            r["on" if mode else "off"] = {
+                "first_ms": first, "warm_ms": warm,
+                "p50_ms": float(np.median(warm)),
+                "decodes_per_warm_run": {k: d1[k] - d0.get(k, 0)
+                                         for k in d1
+                                         if d1[k] != d0.get(k, 0)},
+                "rungs": claimed, "block": blog.summary()}
+        if not rows[True] or not same_rows(rows[True], rows[False],
+                                           rel=1e-5):
+            raise AssertionError(f"{tag} {name}: rows differ between the "
+                                 f"rungs on and off")
+        on, off = r["on"], r["off"]
+        log(f"  {tag} {name}: rows equal numpy, on = off; warm p50 on "
+            f"{on['p50_ms']:.1f} ms, off {off['p50_ms']:.1f} ms; rungs "
+            f"{on['rungs']}; decodes a warm run {on['decodes_per_warm_run']}"
+            f"; resident {on['block'].get('resident_mb')} MB/segment on, "
+            f"{off['block'].get('resident_mb')} off")
+    s = device_pool().snapshot()
+    out["pool_cascade_ratio"] = s.cascade_ratio
+    out["pool_cascade_bytes"] = s.cascade_bytes
+    out["pool_cascade_logical_bytes"] = s.cascade_logical_bytes
+    log(f"  {tag}: pool cascadeRatio {s.cascade_ratio:.2f} "
+        f"({s.cascade_bytes} B of cascade columns for "
+        f"{s.cascade_logical_bytes} B decoded)")
+    return out
+
+
+def price_reference(segs):
+    """numpy: count, sum and max of `price` over the segments."""
+    vals = np.concatenate([s.metrics["price"].values for s in segs])
+    return {"rows": int(vals.shape[0]),
+            "sum": float(vals.astype(np.float64).sum()),
+            "abs": float(np.abs(vals.astype(np.float64)).sum()),
+            "max": np.float32(vals.max())}
+
+
+def check_price(rows, ref):
+    v = rows[0]["result"]
+    if len(rows) != 1 or v["rows"] != ref["rows"] \
+            or np.float32(v["pmax"]) != ref["max"] \
+            or abs(v["psum"] - ref["sum"]) > 1e-5 * ref["abs"]:
+        raise AssertionError(f"price timeseries: {v}, numpy {ref}")
+
+
+def phase_cascade(dev, head, rollup, rollup_ref):
+    """The staged rungs on the card: each rung at full width (12.5M rows)
+    encoded on the host and decoded on the card; the four main-path
+    queries with the rungs on and off on `head` (headline segments) and
+    `rollup` (phase 10's rollup-order segments, numpy `rollup_ref`); a
+    timeseries over an LZ4 column. B1/B2 launches here are not the main
+    path's (the counts are restored)."""
+    import torch
+    from druid_tpu_torch.data import cascade
+    from druid_tpu_torch.engine import megakernel as mk
+    from druid_tpu_torch.engine import sorted_reduce as sr
+    t_phase = time.perf_counter()
+    saved = (sr.LAUNCHES, mk.LAUNCHES)
+    if not (cascade.enabled() and cascade.lz4_mode() == "device"):
+        raise AssertionError("the rungs must be on (the default)")
+    card = card_line()
+    for s in rollup:
+        with_price(s)
+    out = {"card": card}
+    narrow = narrow_time_segment(head[1])
+    out["rungs"] = cascade_rungs(dev, [
+        ("rle", rollup[0], "dimA"), ("delta", head[0], "__time_offset"),
+        ("for", narrow, "__time_offset"), ("lz4", rollup[0], "price")])
+    checks = {"groupby": check_groupby, "topn": check_topn,
+              # the hours the segments cover (2 of the 8 headline segments
+              # cover 6, from the day's start)
+              "timeseries": lambda rows, ref: check_timeseries(
+                  rows, ref, int(np.count_nonzero(ref["h_cnt"]))),
+              "groupby_filtered": check_filtered}
+    t = time.perf_counter()
+    head_ref = numpy_reference(head)
+    log(f"  numpy reference of {len(head)} headline segments: "
+        f"{time.perf_counter() - t:.1f} s")
+    out["headline"] = cascade_queries(dev, "headline", head, queries(head),
+                                      head_ref, checks)
+    out["rollup"] = cascade_queries(dev, "rollup", rollup, queries(rollup),
+                                    rollup_ref, checks)
+    pq = {"price": {
+        "queryType": "timeseries", "dataSource": "bench",
+        "intervals": [f"{DAY[0]}/{DAY[1]}"], "granularity": "all",
+        "aggregations": [{"type": "count", "name": "rows"},
+                         {"type": "doubleSum", "name": "psum",
+                          "fieldName": "price"},
+                         {"type": "floatMax", "name": "pmax",
+                          "fieldName": "price"}]}}
+    out["price"] = cascade_queries(dev, "rollup (LZ4 price)", rollup, pq,
+                                   price_reference(rollup),
+                                   {"price": check_price})
+    if ("price", "lz4") not in out["price"]["price"]["on"]["rungs"] \
+            or not out["price"]["price"]["on"]["decodes_per_warm_run"].get(
+                "lz4"):
+        raise AssertionError(f"the price query did not decode LZ4 on the "
+                             f"card: {out['price']['price']['on']}")
+    sr.LAUNCHES, mk.LAUNCHES = saved   # these runs are a check, not the path
+    torch.cuda.synchronize()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase cascade took {out['phase_s']:.1f} s; {card}")
+    if out["phase_s"] > CASCADE_PHASE_LIMIT_S:
+        raise AssertionError(f"phase cascade took {out['phase_s']:.1f} s, "
+                             f"over {CASCADE_PHASE_LIMIT_S} s")
     return out
 
 
@@ -2655,14 +2972,15 @@ def phase_rundomain(dev):
 #: X3 and X4 run on 2 of the 8 headline segments: their cold runs (the
 #: expression dimension's host np.unique, X4's own projection argsort) would
 #: otherwise add more than 2 minutes to the phase (reduced)
-EXPR_SMALL_SEGMENTS = 2
+EXPR_SEGMENTS = 4                    # X1 and X2 (reduced from 8)
+EXPR_SMALL_SEGMENTS = 2              # X3 and X4
 VF = {"type": "expression", "name": "vf",
       "expression": "metFloat * 2 + metLong", "outputType": "float"}
 VD = {"type": "expression", "name": "vd", "expression": "metLong * 0.01",
       "outputType": "double"}
 #: query -> (segments it runs on, strategy per segment, (B1, B2) per run)
-EXPR_PLAN = {"x1": (SEGMENTS, "projection", (SEGMENTS, 0)),
-             "x2": (SEGMENTS, "megakernel", (0, SEGMENTS)),
+EXPR_PLAN = {"x1": (EXPR_SEGMENTS, "projection", (EXPR_SEGMENTS, 0)),
+             "x2": (EXPR_SEGMENTS, "megakernel", (0, EXPR_SEGMENTS)),
              "x3": (EXPR_SMALL_SEGMENTS, "mm", (0, 0)),
              "x4": (EXPR_SMALL_SEGMENTS, "windowed", (0, 0))}
 
@@ -3127,23 +3445,27 @@ def aggregator_reference(segments):
     h_val = np.zeros(24 * 10_001, np.int64)
     a_val = np.zeros(100 * 10_001, np.int64)
     first = {}
-    for i, s in enumerate(segments):
+    rolled = {id(s) for s in segments[:ROLLUP_SEGMENTS]}
+
+    def terms(s):
+        t = {}
         a = s.dims["dimA"].ids.astype(np.int64)
         b = s.dims["dimB"].ids.astype(np.int64)
         ml = s.metrics["metLong"].values
         h = (s.time_ms - t0) // 3_600_000
-        r["rows"] += np.bincount(h, minlength=24)
-        r["fc"] += np.bincount(h[a < 50], minlength=24)
-        r["fs"] += np.bincount(h[b != head], weights=ml[b != head],
-                               minlength=24).astype(np.int64)
+        t["rows"] = np.bincount(h, minlength=24)
+        t["fc"] = np.bincount(h[a < 50], minlength=24)
+        t["fs"] = np.bincount(h[b != head], weights=ml[b != head],
+                              minlength=24).astype(np.int64)
         keep = (a >= 25) & (a < 75)
-        np.maximum.at(r["fm"], h[keep], ml[keep])
-        ab += np.bincount(a * 1000 + b, minlength=100_000)
-        h_pair += np.bincount(h * 100_000 + a * 1000 + b,
-                              minlength=24 * 100_000)
-        h_val += np.bincount(h * 10_001 + ml, minlength=24 * 10_001)
-        if i < ROLLUP_SEGMENTS:
-            a_val += np.bincount(a * 10_001 + ml, minlength=100 * 10_001)
+        t["fm"] = np.full(24, np.iinfo(np.int64).min, np.int64)
+        np.maximum.at(t["fm"], h[keep], ml[keep])
+        t["ab"] = np.bincount(a * 1000 + b, minlength=100_000)
+        t["h_pair"] = np.bincount(h * 100_000 + a * 1000 + b,
+                                  minlength=24 * 100_000)
+        t["h_val"] = np.bincount(h * 10_001 + ml, minlength=24 * 10_001)
+        if id(s) in rolled:
+            t["a_val"] = np.bincount(a * 10_001 + ml, minlength=100 * 10_001)
         # first / last per (hour, dimA): the least (time, row) and the
         # greatest time with the least row among its rows
         g = h * 100 + a
@@ -3156,8 +3478,21 @@ def aggregator_reference(segments):
         hi = ((1 << 24) - 1) - (np.maximum.reduceat(
             (off << 24) | (((1 << 24) - 1) - idx), starts) & ((1 << 24) - 1))
         mf = s.metrics["metFloat"].values
-        for gi, i_lo, i_hi in zip(gs[starts], lo, hi):
-            first[int(gi)] = (int(ml[i_lo]), int(ml[i_hi]), float(mf[i_hi]))
+        t["first"] = {int(gi): (int(ml[i_lo]), int(ml[i_hi]),
+                                float(mf[i_hi]))
+                      for gi, i_lo, i_hi in zip(gs[starts], lo, hi)}
+        return t
+    # each segment's terms, added in the segments' order
+    for t in map_segments(terms, segments):
+        for k in ("rows", "fc", "fs"):
+            r[k] += t[k]
+        np.maximum(r["fm"], t["fm"], out=r["fm"])
+        ab += t["ab"]
+        h_pair += t["h_pair"]
+        h_val += t["h_val"]
+        if "a_val" in t:
+            a_val += t["a_val"]
+        first.update(t["first"])
     live = np.flatnonzero(ab)
     r["a2_rows"] = ab.reshape(100, 1000).sum(1)
     r["a2_regs"] = np_registers(live // 1000, reg_b[live % 1000],
@@ -4148,17 +4483,26 @@ def _hourly_e1(segments, t_start, n_buckets):
            "qs": np.zeros((n_buckets, QN), np.int64),
            "tmin": np.full(n_buckets, np.iinfo(np.int64).max),
            "tmax": np.full(n_buckets, np.iinfo(np.int64).min)}
-    for s in segments:
+    def terms(s):
         h = (s.time_ms - t_start) // HOUR_MS
         x = s.metrics["metFloat"].values.astype(np.float64)
-        acc["rows"] += np.bincount(h, minlength=n_buckets)
-        acc["sum"] += np.bincount(h, x, n_buckets)
-        acc["abs"] += np.bincount(h, np.abs(x), n_buckets)
-        acc["sumsq"] += np.bincount(h, x * x, n_buckets)
-        acc["qs"] += np.bincount(h * QN + np_quantile_bucket(x),
-                                 minlength=n_buckets * QN).reshape(-1, QN)
-        np.minimum.at(acc["tmin"], h, s.time_ms)
-        np.maximum.at(acc["tmax"], h, s.time_ms)
+        t = {"rows": np.bincount(h, minlength=n_buckets),
+             "sum": np.bincount(h, x, n_buckets),
+             "abs": np.bincount(h, np.abs(x), n_buckets),
+             "sumsq": np.bincount(h, x * x, n_buckets),
+             "qs": np.bincount(h * QN + np_quantile_bucket(x),
+                               minlength=n_buckets * QN).reshape(-1, QN),
+             "tmin": np.full(n_buckets, np.iinfo(np.int64).max),
+             "tmax": np.full(n_buckets, np.iinfo(np.int64).min)}
+        np.minimum.at(t["tmin"], h, s.time_ms)
+        np.maximum.at(t["tmax"], h, s.time_ms)
+        return t
+    # each segment's terms, added in the segments' order
+    for t in map_segments(terms, segments):
+        for k in ("rows", "sum", "abs", "sumsq", "qs"):
+            acc[k] += t[k]
+        np.minimum(acc["tmin"], t["tmin"], out=acc["tmin"])
+        np.maximum(acc["tmax"], t["tmax"], out=acc["tmax"])
     n = acc["rows"].astype(np.float64)
     acc["var"] = np.where(n > 0, np.maximum(
         acc["sumsq"] - acc["sum"] ** 2 / np.maximum(n, 1.0), 0.0)
@@ -4192,29 +4536,42 @@ def extension_reference(segments):
     hcounts = np.zeros((ga, HIST[2]), np.int64)
     hmin = np.full(ga, np.finfo(np.float64).max)
     hmax = np.full(ga, -np.finfo(np.float64).max)
-    for s in segments:
+    def terms(s):
         a, b = s.dims["dimA"].ids.astype(np.int64), \
             s.dims["dimB"].ids.astype(np.int64)
         pair = a * gb + b
         ml = s.metrics["metLong"].values
         x = s.metrics["metFloat"].values.astype(np.float64)
-        seg_p = np.bincount(pair, minlength=ga * gb).reshape(ga, gb) > 0
-        all_p |= seg_p
-        dc += seg_p.sum(1)
-        rows += np.bincount(a, minlength=ga)
-        lo_p |= np.bincount(pair[ml < 5000], minlength=ga * gb) \
-            .reshape(ga, gb) > 0
-        # metFloat > 100 compares the float32 value with 100 (exact)
-        hi_p |= np.bincount(pair[s.metrics["metFloat"].values > 100],
-                            minlength=ga * gb).reshape(ga, gb) > 0
         keep = passes[b]
-        bl_p |= np.bincount(pair[keep], minlength=ga * gb) \
-            .reshape(ga, gb) > 0
-        bl_rows += np.bincount(a[keep], minlength=ga)
-        hcounts += np.bincount(a * HIST[2] + np_hist_bucket(x, *HIST),
-                               minlength=ga * HIST[2]).reshape(ga, -1)
-        np.minimum.at(hmin, a, x)
-        np.maximum.at(hmax, a, x)
+        t = {"all": np.bincount(pair, minlength=ga * gb).reshape(ga, gb) > 0,
+             "rows": np.bincount(a, minlength=ga),
+             "lo": np.bincount(pair[ml < 5000], minlength=ga * gb)
+             .reshape(ga, gb) > 0,
+             # metFloat > 100 compares the float32 value with 100 (exact)
+             "hi": np.bincount(pair[s.metrics["metFloat"].values > 100],
+                               minlength=ga * gb).reshape(ga, gb) > 0,
+             "bl": np.bincount(pair[keep], minlength=ga * gb)
+             .reshape(ga, gb) > 0,
+             "bl_rows": np.bincount(a[keep], minlength=ga),
+             "h": np.bincount(a * HIST[2] + np_hist_bucket(x, *HIST),
+                              minlength=ga * HIST[2]).reshape(ga, -1),
+             "min": np.full(ga, np.finfo(np.float64).max),
+             "max": np.full(ga, -np.finfo(np.float64).max)}
+        np.minimum.at(t["min"], a, x)
+        np.maximum.at(t["max"], a, x)
+        return t
+    # each segment's terms, added in the segments' order
+    for t in map_segments(terms, segments):
+        all_p |= t["all"]
+        dc += t["all"].sum(1)
+        rows += t["rows"]
+        lo_p |= t["lo"]
+        hi_p |= t["hi"]
+        bl_p |= t["bl"]
+        bl_rows += t["bl_rows"]
+        hcounts += t["h"]
+        np.minimum(hmin, t["min"], out=hmin)
+        np.maximum(hmax, t["max"], out=hmax)
     btab, ftab = np_theta_tables(dim_b, THETA_SIZE)
     reg, rho = np_register_table(np_hash_strings(dim_b), HLL_LOG2M)
     g, ids = np.nonzero(all_p)
@@ -5451,6 +5808,7 @@ def phase_sql(dev, qs, ref, kept, http_report):
 
 
 STORAGE_WARM = 3                     # warm runs a query (p50 of 3)
+STORAGE_PUSH_THREADS = 4             # segments pushed at a time
 STORAGE_PHASE_LIMIT_S = 150.0
 GOLDEN_Q = {"queryType": "groupBy", "dataSource": "golden",
             "intervals": [f"{DAY[0]}/{DAY[1]}"], "granularity": "all",
@@ -5616,9 +5974,10 @@ def tail_value_reference(segments, tail):
 def phase_storage(dev, segments, qs, ref, kept, http_report, keep=None):
     """Phase 20 on phase 6's 8 in-memory headline segments and numpy
     reference: the golden fixtures loaded and answered on the card; the 8
-    segments persisted (V2) to a LocalDeepStorage in a temporary directory,
-    segment 0 again as V1; a LoadQueuePeon loading all 8 into a fresh
-    DataNode (no lazy column materialized by the load), whose
+    segments persisted (V2), STORAGE_PUSH_THREADS at a time, to a
+    LocalDeepStorage in a temporary directory, segment 0 again as V1; a
+    LoadQueuePeon loading all 8 into a fresh DataNode (no lazy column
+    materialized by the load), whose
     DataNodeServer's SegmentLoadMonitor ticks segment/load/* > 0; the four
     main-path queries posted to a broker over it (1 cold and STORAGE_WARM
     warm runs, B1 x8 a groupBy run and B2 x8 a filtered run, rows against
@@ -5632,6 +5991,7 @@ def phase_storage(dev, segments, qs, ref, kept, http_report, keep=None):
     launches})."""
     import shutil
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
     import torch
     from druid_tpu_torch.cluster import (DataNode, DataNodeServer,
                                          InventoryView, descriptor_for)
@@ -5668,13 +6028,21 @@ def phase_storage(dev, segments, qs, ref, kept, http_report, keep=None):
         log("  golden fixtures (tests/golden/segment_v1, segment_v2): "
             "columns bit for bit, groupBy rows equal numpy")
 
-        # 2. persist: the 8 segments as V2, segment 0 again as V1
+        # 2. persist: the 8 segments as V2, STORAGE_PUSH_THREADS at a time
+        # (the tasks of an indexing service push theirs side by side; the
+        # codec's native calls release the GIL), then segment 0 again as V1
         deep = LocalDeepStorage(os.path.join(tmp, "deep"))
-        descs, persist = [], []
-        for s in segments:
+
+        def push(s):
             t = time.perf_counter()
             d = deep.push(s, descriptor_for(s))
-            secs = time.perf_counter() - t
+            return d, time.perf_counter() - t
+        t = time.perf_counter()
+        with ThreadPoolExecutor(STORAGE_PUSH_THREADS) as pool:
+            pushed = list(pool.map(push, segments))
+        wall_s = time.perf_counter() - t
+        descs, persist = [], []
+        for s, (d, secs) in zip(segments, pushed):
             descs.append(d)
             persist.append({"s": secs, "bytes": d.size_bytes,
                             "logical_bytes": s.size_bytes(),
@@ -5684,7 +6052,9 @@ def phase_storage(dev, segments, qs, ref, kept, http_report, keep=None):
                               format_version=1).push(segments[0], descs[0])
         v1_s = time.perf_counter() - t
         out["persist"] = {
-            "segments": persist, "total_s": sum(p["s"] for p in persist),
+            "segments": persist, "wall_s": wall_s,
+            "threads": STORAGE_PUSH_THREADS,
+            "total_s": sum(p["s"] for p in persist),
             "bytes": sum(p["bytes"] for p in persist),
             "logical_bytes": sum(p["logical_bytes"] for p in persist),
             "v1_segment0": {"s": v1_s, "bytes": v1.size_bytes,
@@ -5695,8 +6065,9 @@ def phase_storage(dev, segments, qs, ref, kept, http_report, keep=None):
                 by_part[k] = by_part.get(k, 0) + v
         out["persist"]["by_part"] = by_part
         each = ", ".join(f"{p['s']:.1f}" for p in persist)
-        log(f"  persist V2: 8 segments in {out['persist']['total_s']:.1f} s "
-            f"({each} s), "
+        log(f"  persist V2: 8 segments in {wall_s:.1f} s, "
+            f"{STORAGE_PUSH_THREADS} at a time ({each} s each, "
+            f"{out['persist']['total_s']:.1f} s in all), "
             f"{out['persist']['bytes']} B on disk for "
             f"{out['persist']['logical_bytes']} B logical; by part "
             f"{by_part}; V1 of segment 0 in {v1_s:.1f} s, "
@@ -5755,16 +6126,36 @@ def phase_storage(dev, segments, qs, ref, kept, http_report, keep=None):
         decodes_before = cascade.decode_stats()
         serve = out["serve"] = {}
         leaves = None
-        for name, q in qs.items():
+        # the queries whose rows keep their order first: each staged
+        # column a rung or a loaded segment's persisted words claims must
+        # stage with no host decode (the projection's permuted staging,
+        # after them, reads host rows)
+        unpermuted = ("topn", "timeseries")
+        order = list(unpermuted) + [n for n in qs if n not in unpermuted]
+        for name in order:
+            q = qs[name]
             want = wants.get(name, (0, 0))
             runs = []
             for i in range(1 + STORAGE_WARM):
                 l0 = (sr.LAUNCHES, mk.LAUNCHES)
+                d0 = cascade.decode_stats()
                 if name == "groupby_filtered" and i == 0:
                     with LeafLog(seg0) as leaves:
                         status, _, rows, ms, _ = http_post(http.port, q)
+                elif i == 0:
+                    with BlockLog() as blog:
+                        status, _, rows, ms, _ = http_post(http.port, q)
                 else:
                     status, _, rows, ms, _ = http_post(http.port, q)
+                if i == 0:
+                    d1 = cascade.decode_stats()
+                    cold_decodes = {k: d1[k] - d0.get(k, 0) for k in d1
+                                    if d1[k] != d0.get(k, 0)}
+                    encoded = sorted(
+                        {(k, getattr(v, "cascade_kind", None) or "packed")
+                         for b in (blog.blocks if name != "groupby_filtered"
+                                   else []) for k, v in b.arrays.items()
+                         if not torch.is_tensor(v)})
                 got = (sr.LAUNCHES - l0[0], mk.LAUNCHES - l0[1])
                 if status != 200 or got != want:
                     raise AssertionError(f"storage {name}: status {status},"
@@ -5776,12 +6167,19 @@ def phase_storage(dev, segments, qs, ref, kept, http_report, keep=None):
                         raise AssertionError(f"storage {name}: rows differ "
                                              f"from phase 18's")
                 runs.append(ms)
+            host = {k: v for k, v in cold_decodes.items()
+                    if k in ("host:rle", "host:lz4", "host:packed")}
+            if name in unpermuted and (host or not encoded):
+                raise AssertionError(f"storage {name}: staged {encoded} "
+                                     f"with host decodes {host}")
             res = serve[name] = {
                 "cold_ms": runs[0], "warm_ms": runs[1:],
                 "p50_ms": float(np.median(runs[1:])),
                 "phase18_p50_ms": (http_report or {}).get(name, {}).get(
-                    "p50_ms"), "b1_b2_launches_per_run": list(want)}
-            log(f"  {name} over {SEGMENTS} loaded segments: "
+                    "p50_ms"), "b1_b2_launches_per_run": list(want),
+                "cold_decodes": cold_decodes, "staged_encoded": encoded}
+            log(f"  {name} over {SEGMENTS} loaded segments: staged encoded "
+                f"{encoded}, cold run's decodes {cold_decodes}; "
                 f"rows equal numpy{' and phase 18' if name in phase18 else ''}"
                 f"; cold {res['cold_ms']:.1f} ms, warm p50 "
                 f"{res['p50_ms']:.1f} ms (phase 18 over the in-memory "
@@ -5873,7 +6271,7 @@ def phase_storage(dev, segments, qs, ref, kept, http_report, keep=None):
 # phase 21: streaming ingestion and standing queries
 # ---------------------------------------------------------------------------
 
-INGEST_EVENTS = 10_000_000           # 2 partitions of 5M over 2 hours
+INGEST_EVENTS = 6_000_000            # 2 partitions of 3M over 2 hours
 INGEST_PARTITIONS = 2                # Kafka partitions, read by taskCount 2
 INGEST_HYDRANT_ROWS = 1_000_000      # maxRowsInMemory
 INGEST_SEGMENT_ROWS = 5_000_000      # maxRowsPerSegment (checked per sink)
@@ -6252,7 +6650,7 @@ def phase_ingest(dev):
     runs under Python's cyclic collector as the process sets it; its
     collections in the loop are timed (gc.callbacks), not changed.
 
-    Cuts from the deployment: each task reads 5M events, under the task
+    Cuts from the deployment: each task reads 3M events, under the task
     roll-over (maxTotalRows 20M, INGEST_TASK_ROWS; taskDuration PT1H of
     wall time is never reached), so no task rolls over here; the roll-over
     runs in tests/test_torch_realtime.py. maxRowsPerSegment is checked on
@@ -6806,7 +7204,9 @@ def phase_sharded(dev, segments, qs, ref):
             if len(set(strategies)) != 1 or strategies[0] is None:
                 raise AssertionError(f"{name}: mesh strategies {strategies}")
             split = split_times(q, segments, dev, mesh=mesh)
-            stack = sharded_metrics()["query/sharded/stackBytes"]
+            metrics = sharded_metrics()
+            stack = metrics["query/sharded/stackBytes"]
+            packed_ratio = metrics["query/sharded/packedRatio"]
             # the same query without a mesh, beside it (measurement: its
             # B1/B2 launches are not the phase's); its first run is cold
             # where phase 6 has not run in this process
@@ -6823,6 +7223,7 @@ def phase_sharded(dev, segments, qs, ref):
                 "p50_ms": float(np.median(warm)),
                 "partials_ms": split["partials_ms"],
                 "finish_ms": split["finish_ms"], "stack_bytes": stack,
+                "packed_ratio": packed_ratio,
                 "plain_first_ms": pw[0], "plain_warm_ms": pw[1:],
                 "plain_p50_ms": float(np.median(pw[1:])),
                 "plain_partials_ms": psplit["partials_ms"],
@@ -6831,6 +7232,7 @@ def phase_sharded(dev, segments, qs, ref):
                 f"p50 {r['p50_ms']:.1f} ms, partials "
                 f"{r['partials_ms']:.1f} ms, merge+finish "
                 f"{r['finish_ms']:.1f} ms, stackBytes {stack / 1e9:.3f} GB"
+                f" (packedRatio {packed_ratio:.2f})"
                 f" | no mesh: first run {pw[0]:.1f} ms, warm p50 "
                 f"{r['plain_p50_ms']:.1f} ms, partials "
                 f"{r['plain_partials_ms']:.1f} ms, merge+finish "
@@ -6868,6 +7270,11 @@ def phase_sharded(dev, segments, qs, ref):
     sr.LAUNCHES, mk.LAUNCHES = base
     before = device_pool().snapshot()
     out["stack_bytes_before_release"] = before.stacked_bytes
+    out["stack_logical_bytes_before_release"] = before.stacked_logical_bytes
+    out["stack_ratio"] = before.stacked_ratio
+    log(f"  the stacks of the four queries: {before.stacked_bytes / 1e9:.3f}"
+        f" GB on the card for {before.stacked_logical_bytes / 1e9:.3f} GB "
+        f"decoded (packedRatio {before.stacked_ratio:.2f}); {card}")
     released = release_device_caches()
     after = sharded_metrics()
     out["released"] = released
@@ -6893,7 +7300,7 @@ def phase_sharded(dev, segments, qs, ref):
 CONTROL_WARM = 3                     # warm runs a query (p50 of 3)
 CONTROL_NODES = 2                    # the server's data nodes
 CONTROL_PERIOD_S = 1.0               # the coordinator's period
-CONTROL_EVENTS = 2_000_000           # the batch index task's events
+CONTROL_EVENTS = 1_000_000           # the batch index task's events
 CONTROL_PHASE_LIMIT_S = 300.0
 CONTROL_WAIT_S = 180.0               # a coordinator load, a task
 
@@ -7091,7 +7498,7 @@ def phase_control(dev, qs, ref, kept, storage_report):
                 f"{res['phase20_p50_ms']} ms); (B1, B2) {want_l} a run")
         counted = {"B1": sr.LAUNCHES, "B2": mk.LAUNCHES}
 
-        # 5. index: 2M headline-schema events through a forked peon
+        # 5. index: 1M headline-schema events through a forked peon
         events = ingest_events(n=CONTROL_EVENTS)
         t0 = Interval.of(*INGEST_IV).start
         tally = IngestTally(t0)
@@ -7379,6 +7786,22 @@ def main():
                                "chip_smoke_sharded.json"), "w") as f:
             json.dump(out, f, indent=1, default=float)
         return 0
+    if sys.argv[1:] == ["cascade"]:
+        # the build, 2 headline segments and 2 rollup-order ones (phase
+        # 10's first two) made here, and the cascade phase
+        from druid_tpu_torch.data.segment import NumericColumn, ValueType
+        log("phase cascade: 2 headline and 2 rollup-order segments")
+        head = headline_segments(CASCADE_HEAD_SEGMENTS, first_of=SEGMENTS)
+        rollup = headline_segments(SORTED_SEGMENTS, sort_by_dims=True)
+        for s in rollup:
+            s.metrics["cnt"] = NumericColumn(
+                np.ones(s.n_rows, dtype=np.int64), ValueType.LONG)
+        out = phase_cascade(dev, head, rollup, numpy_reference(rollup))
+        os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(root, "chiprun_out",
+                               "chip_smoke_cascade.json"), "w") as f:
+            json.dump(out, f, indent=1, default=float)
+        return 0
     if sys.argv[1:] == ["extensions"]:
         # the build and phase 16 alone, E5 on phase 14's segments made here
         # (a quicker check of that phase; its numbers are in the log)
@@ -7392,17 +7815,17 @@ def main():
             json.dump(ext, f, indent=1, default=float)
         return 0
 
-    log("phase B1 parity, synthetic projections")
+    phase_start("phase B1 parity, synthetic projections")
     b1 = phase_b1(dev)
     report["b1_parity"] = b1
-    log("phase B2 parity, synthetic")
+    phase_start("phase B2 parity, synthetic")
     b2 = phase_b2(dev)
     report["b2_parity"] = b2
 
-    log("phase packed value fields, synthetic")
+    phase_start("phase packed value fields, synthetic")
     report["packed_parity"] = phase_packed(dev)
 
-    log("phase main path (packing on)")
+    phase_start("phase main path (packing on)")
     sr.LAUNCHES = mk.LAUNCHES = 0
     main_out = phase_main(dev)
     launches = {"B1": sr.LAUNCHES, "B2": mk.LAUNCHES}
@@ -7414,56 +7837,63 @@ def main():
     report["main"] = main_out
     pools = report["pool"] = {"main": pool_snapshot("the main path")}
 
-    log("phase packing off, 2 segments")
+    phase_start("phase packing off, 2 segments")
     report["packing_off"] = phase_packing_off(dev, segments, qs)
     pools["packing_off"] = pool_snapshot("packing off")
 
-    log("phase sharded: the four main-path queries on a mesh of the card, "
+    phase_start(
+        "phase sharded: the four main-path queries on a mesh of the card, "
         "the 8 headline segments")
     report["sharded"], sharded_launches = phase_sharded(dev, segments, qs,
                                                         ref)
     pools["sharded"] = pool_snapshot("sharded")
 
-    log("phase strategies, the 8 headline segments")
+    phase_start("phase strategies, the 8 headline segments")
     report["strategies"] = phase_strategies(dev, segments, qs, ref, captured)
     pools["strategies"] = pool_snapshot("strategies")
 
-    log("phase native surface (N1-N12), the 8 headline segments")
+    phase_start("phase native surface (N1-N12), the 8 headline segments")
     report["native_surface"], native_launches = phase_native(
         dev, segments, qs, ref)
     pools["native_surface"] = pool_snapshot("native surface")
 
-    log("phase extensions (E1-E4), the 8 headline segments")
+    phase_start("phase extensions (E1-E4), the 8 headline segments")
     report["extensions"], ext_launches = phase_extensions(dev, segments)
     pools["extensions"] = pool_snapshot("extensions")
 
-    log(f"phase serving: a Broker over {SERVING_NODES} data nodes (replica "
+    phase_start(
+        f"phase serving: a Broker over {SERVING_NODES} data nodes (replica "
         f"{SERVING_REPLICAS}), the 8 headline segments")
     report["serving"], serving_launches, kept = phase_serving(
         dev, segments, qs, ref, pools["extensions"])
     pools["serving"] = pool_snapshot("serving")
 
-    log(f"phase http: a QueryHttpServer over a Broker over {SERVING_NODES} "
+    phase_start(
+        f"phase http: a QueryHttpServer over a Broker over {SERVING_NODES} "
         f"DataNodeServers, the same segments")
     report["http"], http_launches = phase_http(dev, qs, ref, kept,
                                                report["serving"])
     pools["http"] = pool_snapshot("http")
 
-    log("phase sql: Druid SQL through a RouterHttpServer to the broker's "
+    phase_start(
+        "phase sql: Druid SQL through a RouterHttpServer to the broker's "
         "/druid/v2/sql, the same nodes")
     report["sql"], sql_launches = phase_sql(dev, qs, ref, kept,
                                             report["http"])
     pools["sql"] = pool_snapshot("sql")
 
-    log("phase storage: the 8 segments persisted to deep storage, loaded by "
+    phase_start(
+        "phase storage: the 8 segments persisted to deep storage, loaded by "
         "a load queue into a data node, and served over HTTP")
     keep = {}
     report["storage"], storage_launches = phase_storage(
         dev, segments, qs, ref, kept, report["http"], keep=keep)
     pools["storage"] = report["storage"]["pool"]
+    head = segments[:CASCADE_HEAD_SEGMENTS]      # for the cascade phase
     del segments, captured, kept
 
-    log("phase control: the server command, its coordinator and 2 data "
+    phase_start(
+        "phase control: the server command, its coordinator and 2 data "
         "nodes over phase 20's deep storage; index and compaction tasks in "
         "forked peons; python3 -m druid_tpu_torch")
     report["control"], control_launches = phase_control(
@@ -7471,35 +7901,50 @@ def main():
     pools["control"] = report["control"]["pool"]
     del ref
 
-    log("phase ingest: a stream of the headline schema through the "
+    phase_start("phase ingest: a stream of the headline schema through the "
         "realtime path, standing queries, publish and handoff")
     report["ingest"], ingest_launches = phase_ingest(dev)
     pools["ingest"] = report["ingest"]["pool"]
 
-    log(f"phase sorted, {SORTED_SEGMENTS} segments in the rollup order")
+    phase_start(
+        f"phase sorted, {SORTED_SEGMENTS} segments in the rollup order")
     report["sorted"] = phase_sorted(dev)
     pools["sorted"] = pool_snapshot("sorted")
 
-    log(f"phase run domain, {RUN_SEGMENTS} segments in the rollup order")
-    report["run_domain"] = phase_rundomain(dev)
+    phase_start(
+        f"phase run domain, {RUN_SEGMENTS} segments in the rollup order")
+    kept10 = {}
+    report["run_domain"] = phase_rundomain(dev, keep=kept10)
     pools["run_domain"] = pool_snapshot("run domain")
+
+    phase_start(
+        f"phase cascade: the staged rungs at full width; the main-path "
+        f"queries with the rungs on and off on {CASCADE_HEAD_SEGMENTS} "
+        f"headline and {len(kept10['segments'])} rollup-order segments")
+    report["cascade"] = phase_cascade(dev, head, kept10["segments"],
+                                      kept10["ref"])
+    pools["cascade"] = pool_snapshot("cascade")
+    del head, kept10
 
     entries = []
     saved = (sr.LAUNCHES, mk.LAUNCHES)
     t = time.perf_counter()
     fresh = headline_segments()
     report["fresh_gen_s"] = time.perf_counter() - t
-    log(f"phase expressions (X1-X4); generated the headline data anew in "
+    phase_start(
+        f"phase expressions (X1-X4); generated the headline data anew in "
         f"{report['fresh_gen_s']:.1f} s")
-    expr, expr_launches, expr_errs = phase_expressions(dev, fresh)
+    expr, expr_launches, expr_errs = phase_expressions(
+        dev, fresh[:EXPR_SEGMENTS])
     report["expressions"] = expr
     pools["expressions"] = pool_snapshot("expressions")
-    log("phase aggregators (A1-A5), the same segments")
+    phase_start("phase aggregators (A1-A5), the same segments")
     aggr, aggr_launches = phase_aggregators(dev, fresh)
     report["aggregators"] = aggr
     pools["aggregators"] = pool_snapshot("aggregators")
     del fresh
-    log(f"phase batching and the pool ({BATCH_HOURS} hourly segments and a "
+    phase_start(
+        f"phase batching and the pool ({BATCH_HOURS} hourly segments and a "
         f"straggler)")
     t = time.perf_counter()
     report["batching"] = phase_batching(
@@ -7518,7 +7963,7 @@ def main():
             ("B2", b2, check_b2, "mega_reduce",
              "druid_tpu_torch/csrc/sorted_reduce.cu (sr_partial_words)",
              "druid_tpu/engine/megakernel.py:742")):
-        log(f"phase {which} on the main path's inputs (first segment)")
+        phase_start(f"phase {which} on the main path's inputs (first segment)")
         view, m_in, key, ks, G, span, pcs = inputs[which]
         err, _ = check("main-path", view, m_in, key, ks, G, span, pcs)
         parity["main_path_max_abs_err"] = err
@@ -7580,6 +8025,14 @@ def main():
             "dense_ms": td["ms"], "dense_bound_ms": td["bound_ms"]})
     kernels_line = {"kernels": entries}
     report["kernels"] = entries
+    report["script_s"] = time.perf_counter() - _T0
+    report["timeline"] = [
+        {"phase": name, "start_s": at,
+         "s": (TIMELINE[k + 1][1] if k + 1 < len(TIMELINE)
+               else report["script_s"]) - at}
+        for k, (name, at) in enumerate(TIMELINE)]
+    log(f"script {report['script_s']:.1f} s; by phase: " + ", ".join(
+        f"{p['phase']} {p['s']:.1f}" for p in report["timeline"]))
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=float)

@@ -28,6 +28,25 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 
 
+def stable_argsort(keys: np.ndarray) -> np.ndarray:
+    """`np.argsort(keys, kind="stable")`, the same permutation: keys that
+    span fewer than 2**32 values sort as two 16-bit digits, the low one
+    first, each by numpy's radix sort (a stable sort is unique)."""
+    if keys.size == 0:
+        return np.argsort(keys, kind="stable")
+    lo = int(keys.min())
+    span = int(keys.max()) - lo
+    if span >= 1 << 32:
+        return np.argsort(keys, kind="stable")
+    k = (keys - lo).astype(np.uint32)
+    # the cast to uint16 keeps the low 16 bits
+    order = np.argsort(k.astype(np.uint16), kind="stable")
+    if span < 1 << 16:
+        return order
+    high = (k[order] >> 16).astype(np.uint16)
+    return order[np.argsort(high, kind="stable")]
+
+
 class Bitmap:
     """Fixed-length packed bitset over row ids [0, n_rows)."""
 
@@ -331,11 +350,7 @@ class BitmapIndex:
     # ---- lazy sorted order ---------------------------------------------
     def _sorted(self):
         if self._order is None:
-            ids = self._ids
-            # the same stable order; a 16-bit key takes numpy's radix sort
-            if self.cardinality <= np.iinfo(np.uint16).max + 1:
-                ids = ids.astype(np.uint16)
-            order = np.argsort(ids, kind="stable").astype(np.int32)
+            order = stable_argsort(self._ids).astype(np.int32)
             self._boundaries = np.searchsorted(
                 self._ids[order], np.arange(self.cardinality + 1))
             self._order = order

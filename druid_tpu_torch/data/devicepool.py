@@ -106,10 +106,25 @@ def entry_logical_bytes(value) -> int:
     return _fold_entry(value, measure)
 
 
+class LogicalBytes:
+    """An accounting-only leaf: `logical_nbytes` decoded bytes and no
+    actual bytes. A stack of encoded columns (parallel/distributed.py)
+    keeps each column's per-segment descriptor, so its logical_nbytes
+    describes one segment while its fields hold K; the stack's entry
+    carries one of these for the missing (K - 1) share, so the stacked
+    ratio stays true."""
+
+    __slots__ = ("logical_nbytes",)
+    nbytes = 0
+
+    def __init__(self, logical_nbytes: int):
+        self.logical_nbytes = int(logical_nbytes)
+
+
 def entry_cascade_bytes(value) -> Tuple[int, int]:
     """(actual, decoded) bytes of the cascade-encoded leaves of an entry
-    (marked by `cascade_kind`). The port stages no cascade rung yet, so
-    both are 0 today; the pool keeps the reference's accounting."""
+    (data/cascade.py's RLE, delta, FOR and LZ4 columns, marked by
+    `cascade_kind`): their ratio is the pool's cascadeRatio."""
     def cascade_leaf(attr):
         def measure(v):
             if getattr(v, "cascade_kind", None) is not None:
@@ -132,6 +147,7 @@ class PoolStats:
     cascade_bytes: int = 0
     cascade_logical_bytes: int = 0
     stacked_bytes: int = 0
+    stacked_logical_bytes: int = 0
     stacked_entries: int = 0
     entries: int = 0
     budget_bytes: int = 0
@@ -145,9 +161,16 @@ class PoolStats:
     @property
     def cascade_ratio(self) -> float:
         """Decoded / actual bytes over cascade-encoded entries only (1.0
-        when none is resident, as always so far: no rung stages)."""
+        when none is resident)."""
         return self.cascade_logical_bytes / self.cascade_bytes \
             if self.cascade_bytes else 1.0
+
+    @property
+    def stacked_ratio(self) -> float:
+        """Decoded / actual bytes over the mesh's stacked blocks only
+        (`query/sharded/packedRatio`; 1.0 when nothing is stacked)."""
+        return self.stacked_logical_bytes / self.stacked_bytes \
+            if self.stacked_bytes else 1.0
 
 
 class DeviceSegmentPool:
@@ -175,6 +198,7 @@ class DeviceSegmentPool:
         self._cascade = 0
         self._cascade_logical = 0
         self._stacked = 0
+        self._stacked_logical = 0
         self._stacked_entries = 0
         self._hits = 0
         self._misses = 0
@@ -241,6 +265,7 @@ class DeviceSegmentPool:
         self._cascade_logical += sign * entry[4]
         if self._is_stacked(full_key):
             self._stacked += sign * entry[1]
+            self._stacked_logical += sign * entry[2]
             self._stacked_entries += sign
 
     def _purge_locked(self, owner: int) -> int:
@@ -360,7 +385,7 @@ class DeviceSegmentPool:
                 keys.clear()
             self._resident = self._logical = 0
             self._cascade = self._cascade_logical = 0
-            self._stacked = 0
+            self._stacked = self._stacked_logical = 0
             self._stacked_entries = 0
 
     # ---- observability --------------------------------------------------
@@ -375,6 +400,7 @@ class DeviceSegmentPool:
                              cascade_bytes=self._cascade,
                              cascade_logical_bytes=self._cascade_logical,
                              stacked_bytes=self._stacked,
+                             stacked_logical_bytes=self._stacked_logical,
                              stacked_entries=self._stacked_entries,
                              entries=len(self._entries),
                              budget_bytes=self.budget_bytes)

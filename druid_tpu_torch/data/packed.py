@@ -21,9 +21,10 @@ Encoding, the reference's bit for bit:
 
 Eligibility is a pure function of column stats (dictionary cardinality,
 cached min/max), so identical stats give identical descriptors. Floats,
-int64-staged longs and dictionaries above 2^16 values stage decoded.
-`set_enabled(False)` stages every column decoded; it is the port's one
-switch for encoded staging.
+int64-staged longs and dictionaries above 2^16 values never pack (the
+cascade's rungs, data/cascade.py, claim their columns first).
+`set_enabled(False)` plans no pack; `cascade.set_enabled` is the rungs'
+switch.
 """
 from __future__ import annotations
 
@@ -163,6 +164,24 @@ def pack_padded(padded: np.ndarray, width: int, base: int) -> np.ndarray:
     return words.reshape(-1).view(np.int32)
 
 
+def pack_device(padded: torch.Tensor, width: int,
+                base: int) -> torch.Tensor:
+    """pack_padded on the tensor's device: the same int32 words bit for
+    bit (a stack of encoded columns packs where its rows already are)."""
+    vpw = PACK_WORD_BITS // width
+    n = int(padded.shape[0])
+    assert n % (LANE * vpw) == 0, \
+        f"packed column length {n} not a multiple of {LANE * vpw}"
+    v3 = ((padded.to(torch.int64) - base) & ((1 << width) - 1)) \
+        .reshape(-1, vpw, LANE)
+    words = v3[:, 0, :].clone()
+    for s in range(1, vpw):
+        words |= v3[:, s, :] << (s * width)
+    # the uint32 pattern as int32 (two's complement), as the host's view
+    words = torch.where(words >= 2**31, words - 2**32, words)
+    return words.to(torch.int32).reshape(-1)
+
+
 def unpack_host(pc_or_words, width: Optional[int] = None,
                 base: Optional[int] = None, rows: Optional[int] = None,
                 dtype="int32") -> np.ndarray:
@@ -188,16 +207,18 @@ def unpack_host(pc_or_words, width: Optional[int] = None,
 # ---------------------------------------------------------------------------
 
 def unpack_device(pc: PackedColumn) -> torch.Tensor:
-    """Decode a PackedColumn to its full-width 1-D tensor on its device.
+    """Decode a PackedColumn to its full-width tensor on its device (a
+    stack of words [K, W] decodes to [K, rows]).
     torch's int32 >> is arithmetic; the mask cuts the sign bits, so a word
     with its top bit set (w16 slot 1) decodes exactly."""
     from druid_tpu_torch.data import cascade
     cascade.record_decode("packed")
-    w2 = pc.words.reshape(-1, LANE)
+    lead = tuple(pc.words.shape[:-1])   # a stack's leading [K] axis
+    w2 = pc.words.reshape(lead + (-1, LANE))
     sh = torch.arange(pc.vpw, dtype=torch.int32,
-                      device=pc.words.device) * pc.width
-    v = ((w2[:, None, :] >> sh[None, :, None]) & ((1 << pc.width) - 1)) \
-        .reshape(pc.rows)
+                      device=pc.words.device)[:, None] * pc.width
+    v = ((w2.unsqueeze(-2) >> sh) & ((1 << pc.width) - 1)) \
+        .reshape(lead + (pc.rows,))
     if pc.base:
         v = v + pc.base
     dt = getattr(torch, pc.dtype_str)

@@ -7,17 +7,23 @@ as HLL registers), and an int64 `__time` column sorted ascending.
 
 `device_block` stages a column subset, padded to a multiple of
 DEFAULT_ROW_ALIGN rows, plus `__time_offset` (int32 millis from the interval
-start) and `__valid` (False on padding rows). A column that kernels B1/B2
-read as words (the caller's `words`) stages as bit-packed words
-(data/packed.py) where `cascade.plan_pair` packs it; every other column
-stages as a decoded tensor, since a consumer that reads it decoded would
-unpack it on every query. A complex column stages as-is, padded by rows. A
-permuted layout (the sorted projection) packs
-after the permutation. Staged blocks, and every other device tensor a
-segment keeps (`device_cached`), live in the process-wide byte-budgeted
-device pool (data/devicepool.py), keyed by the columns, row alignment,
-device, permutation and pack descriptor; the pool evicts the least recently
-used entry by bytes and drops a segment's entries when it is collected.
+start) and `__valid` (False on padding rows). The encodings are
+`cascade.plan_pair`'s: a column a cascade rung claims (RLE, delta, FOR, LZ4;
+data/cascade.py) stages encoded, and the program decodes it on the card the
+first time a dense consumer reads it. A column the plan packs stages as
+bit-packed words (data/packed.py) where kernels B1/B2 read it as words (the
+caller's `words`), or where a loaded segment holds its persisted words for
+this layout, which then upload as they are; otherwise it stages decoded,
+since a dense consumer would unpack it on every query. An RLE or LZ4 column
+stages from the segment's cached tables and a hinted column from its words,
+so neither decodes a lazily loaded column on the host. A complex column
+stages as-is, padded by rows. A permuted layout (the sorted projection)
+cascades nothing and packs after the permutation. Staged blocks, and every
+other device tensor a segment keeps (`device_cached`), live in the
+process-wide byte-budgeted device pool (data/devicepool.py), keyed by the
+columns, row alignment, device, permutation and both descriptors; the pool
+evicts the least recently used entry by bytes and drops a segment's entries
+when it is collected.
 
 `SegmentBuilder` makes a segment from rows or columns (the reference's, for
 a subquery's rows and for tests); its rows come out sorted by time.
@@ -150,18 +156,32 @@ class ComplexColumn:
         self.type_name = type_name
 
 
+class _ShapeStub:
+    """Stands in for a padded host array where an encoder reads only its
+    shape and dtype (an RLE or LZ4 rung encodes from the segment's cached
+    tables), so a lazily loaded column is never decoded to stage it."""
+
+    __slots__ = ("shape", "dtype")
+
+    def __init__(self, n: int, dtype):
+        self.shape = (n,)
+        self.dtype = np.dtype(dtype)
+
+
 @dataclass
 class DeviceBlock:
     """A segment staged on a device, every column `padded_rows` long once
     decoded: "__time_offset" int32, "__valid" bool, dimension ids int32,
-    metrics in their staged dtype. An entry is a tensor or a
-    packed.PackedColumn; `packs` is the descriptor it was staged under."""
+    metrics in their staged dtype. An entry is a tensor, a
+    packed.PackedColumn or a cascade column (data/cascade.py); `packs` and
+    `cascades` are the descriptors it was staged under."""
     segment_id: SegmentId
     n_rows: int
     padded_rows: int
     time0: int
     arrays: Dict[str, object]
     packs: Tuple = ()
+    cascades: Tuple = ()
 
     @property
     def resident_nbytes(self) -> int:
@@ -249,32 +269,52 @@ class Segment:
 
         `perm` applies a row permutation on the host before staging (the
         sorted-projection path); it needs a stable hashable `perm_key` so the
-        cache tells layouts apart. `words` names the value columns kernels
-        B1/B2 will read as words: each stages packed where
-        `cascade.plan_pair` packs it (a cascade rung claims a column first,
-        and it then stages dense). Pooled per (columns, row_align, device,
-        perm_key, pack descriptor): flipping packing never serves a block
-        staged the other way, and a block padded to a rung never stands in
-        for one padded to DEFAULT_ROW_ALIGN."""
+        cache tells layouts apart. Encodings come from `cascade.plan_pair`:
+        every cascade rung it plans stages encoded; a column it packs stages
+        packed where kernels B1/B2 read it as words (`words`) or where a
+        loaded segment holds its persisted words for this layout
+        (`_pack_hint`). Pooled per (columns, row_align, device, perm_key,
+        pack descriptor, cascade descriptor): flipping either switch never
+        serves a block staged the other way, and a block padded to a rung
+        never stands in for one padded to DEFAULT_ROW_ALIGN."""
         if perm is not None and perm_key is None:
             raise ValueError("device_block(perm=...) requires perm_key")
-        packs = ()
-        if words:
-            _, packs = cascade.plan_pair(self, columns,
-                                         permuted=perm is not None)
-            want = set(words)
-            packs = tuple(p for p in packs if p[0] in want)
+        cascades, packs = cascade.plan_pair(self, columns,
+                                            permuted=perm is not None)
+        pad_n = self.padded_rows(row_align)
+        want = set(words)
+        packs = tuple(p for p in packs if p[0] in want or self._pack_hint(
+            p[0], (p[1], p[2]), pad_n, perm) is not None)
         key = ("block", tuple(sorted(set(columns))), row_align, str(device),
-               perm_key, packs)
+               perm_key, packs, cascades)
         return self._pool.get_or_build(
             self._pool_owner, key,
             lambda: self._stage_block(columns, device, perm, packs,
-                                      row_align))
+                                      row_align, cascades))
+
+    def _pack_hint(self, name: str, plan: Tuple[int, int], pad_n: int,
+                   perm: Optional[np.ndarray]) -> Optional[np.ndarray]:
+        """The persisted pack words of a loaded column (format V2's
+        `_v2_pack`: words, width, base, padded rows) where the rows keep
+        their order and the (width, base, padded rows) equal this staging's
+        plan: they upload as they are, with no host decode."""
+        if perm is not None:
+            return None
+        col = self.dims.get(name)
+        if col is None:
+            col = self.metrics.get(name)
+        hint = getattr(col, "_v2_pack", None)
+        if hint is not None and tuple(hint[1:]) == (plan[0], plan[1],
+                                                    pad_n):
+            return hint[0]
+        return None
 
     def _stage_block(self, columns: Sequence[str], device: torch.device,
                      perm: Optional[np.ndarray], packs: Tuple = (),
-                     row_align: int = DEFAULT_ROW_ALIGN) -> DeviceBlock:
+                     row_align: int = DEFAULT_ROW_ALIGN,
+                     cascades: Tuple = ()) -> DeviceBlock:
         pack_for = {name: (w, base) for name, w, base in packs}
+        cascade_for = {e[0]: e for e in cascades}
         pad_n = self.padded_rows(row_align)
         time0 = self.interval.start
         off = self.time_ms - time0
@@ -291,10 +331,36 @@ class Segment:
             return out
 
         def put(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            a = np.ascontiguousarray(a)
+            if not a.flags.writeable:
+                a = a.copy()    # a loaded segment's read-only mmap view
+            return torch.from_numpy(a).to(device)
 
-        def _stage(name: str, padded: np.ndarray):
+        def _cascade_stub(name: str) -> bool:
+            # an RLE or LZ4 rung encodes from the segment's cached run or
+            # token tables and the padded shape, never from decoded rows
+            c = cascade_for.get(name)
+            return c is not None and c[1] in ("rle", "lz4")
+
+        def _stage(name: str, host, dt=np.int32):
+            """`host()` gives the raw column; it is read only where the
+            staging needs the rows (not for `_cascade_stub` columns, nor
+            for hinted words, which upload as they are), so a lazily
+            loaded column stays undecoded."""
+            c = cascade_for.get(name)
+            if _cascade_stub(name):
+                return cascade.encode_column(self, name, c,
+                                             _ShapeStub(pad_n, dt), put)
             p = pack_for.get(name)
+            if p is not None:
+                words = self._pack_hint(name, p, pad_n, perm)
+                if words is not None:
+                    return packed.PackedColumn(put(np.asarray(words)), p[0],
+                                               p[1], pad_n, str(np.dtype(dt)))
+            raw = host()
+            padded = _pad(raw if raw.dtype == dt else raw.astype(dt))
+            if c is not None:
+                return cascade.encode_column(self, name, c, padded, put)
             if p is None:
                 return put(padded)
             return packed.PackedColumn(
@@ -302,22 +368,23 @@ class Segment:
                 padded.shape[0], str(padded.dtype))
 
         arrays: Dict[str, object] = {
-            "__time_offset": put(_pad(off.astype(np.int32))),
+            "__time_offset": _stage("__time_offset",
+                                    lambda: off.astype(np.int32)),
             "__valid": put(_pad(np.ones(self.n_rows, dtype=bool), False)),
         }
         for name in columns:
             if name in self.dims:
-                arrays[name] = _stage(name, _pad(self.dims[name].ids))
+                col = self.dims[name]
+                arrays[name] = _stage(name, lambda col=col: col.ids)
             elif name in self.metrics:
-                dt = self.staged_dtype(name)
-                vals = self.metrics[name].values
-                arrays[name] = _stage(name, _pad(vals if vals.dtype == dt
-                                                 else vals.astype(dt)))
+                m = self.metrics[name]
+                arrays[name] = _stage(name, lambda m=m: m.values,
+                                      self.staged_dtype(name))
             elif name not in ("__time", "__time_offset", "__valid"):
                 raise KeyError(f"no such column {name!r} in segment {self.id}")
         return DeviceBlock(segment_id=self.id, n_rows=self.n_rows,
                            padded_rows=pad_n, time0=time0, arrays=arrays,
-                           packs=packs)
+                           packs=packs, cascades=cascades)
 
     def device_cached(self, key: Tuple, fn):
         """Memoize a derived device tensor built by `fn` under `key`, in the

@@ -276,9 +276,9 @@ def _plan_for(segment: Segment, kds: Sequence[KeyDim], index: int,
               aggs: Sequence, flt, virtual_columns: Sequence) -> _Plan:
     """Plan one segment; the reference's eligibility checks, in its order,
     decide whether the plan can join a bucket. The pack and cascade
-    descriptors join the digest as in the reference (the batched blocks
-    stage dense, since no batched strategy reads words, but the buckets
-    stay the reference's)."""
+    descriptors join the digest as in the reference, so chunk-mates stage
+    their cascade rungs under one descriptor (packed words stage only
+    where a loaded segment holds them: no batched strategy reads words)."""
     kds = tuple(kds)
     gplan = plan_grouped_aggregate(segment, intervals, granularity, kds,
                                    aggs, flt, virtual_columns)
@@ -413,13 +413,15 @@ def windowed_all(items: Sequence[Tuple]) -> int:
 
 
 def stack_blocks(items: Sequence[Tuple], columns: Sequence[str], R: int,
-                 device: torch.device) -> Dict[str, torch.Tensor]:
-    """{name: [K, R, ...]} on `device` for K (segment, kds, filter_node,
-    kernels) items, stacked from the pool's staged blocks: each segment's
-    block of `columns` at R rows (a segment whose own padding is R shares
-    the block the per-segment path stages), the id columns of numeric
-    dimensions, and each item's own bitmap words (items may carry
-    different filters under one structure), staged in one wave."""
+                 device: torch.device) -> Dict[str, object]:
+    """{name: a [K, R, ...] tensor or a stacked encoded column (its fields
+    [K, ...], `cascade.stack_columns`)} on `device` for K (segment, kds,
+    filter_node, kernels) items, stacked from the pool's staged blocks:
+    each segment's block of `columns` at R rows (a segment whose own
+    padding is R shares the block the per-segment path stages), the id
+    columns of numeric dimensions, and each item's own bitmap words (items
+    may carry different filters under one structure), staged in one
+    wave."""
     slots = []
     for segment, kds, _, _ in items:
         align = DEFAULT_ROW_ALIGN if segment.padded_rows() == R else R
@@ -436,7 +438,10 @@ def stack_blocks(items: Sequence[Tuple], columns: Sequence[str], R: int,
         [(segment, f, k) for segment, _, f, k in items], R, device)
     for arrs, w in zip(slots, words):
         arrs.update(w)
-    return {name: torch.stack([s[name] for s in slots]) for name in slots[0]}
+    # encoded columns stack field by field (chunk-mates share the cascade
+    # descriptor through the plan digest); the run decodes each slot
+    return {name: cascade.stack_columns([s[name] for s in slots])
+            for name in slots[0]}
 
 
 def _to_host(state):

@@ -1052,8 +1052,11 @@ def _run_leaf_payload(segment: Segment, dim: str, lut: np.ndarray,
     """A leaf as a run table, int32 [pad_pow2(runs + 1), 2] of (exclusive
     run end, the run's match), when `dim` has at most padded_rows / 256
     runs (well under the padded_rows / 32 words of the row-built leaf);
-    else None. The match is decided once per run; a sentinel run (end
-    2^31 - 1, match 0) covers the padding rows."""
+    else None (and None with the cascade off, as in the reference). The
+    match is decided once per run; a sentinel run (end 2^31 - 1, match 0)
+    covers the padding rows."""
+    if not cascade.enabled():
+        return None
     info = cascade.column_run_info(segment, dim, max_runs=padded_rows // 256)
     if info is None:
         return None
@@ -1363,7 +1366,9 @@ def masked_columns(flt: Optional[F.DimFilter], segment: Segment,
     if flt is not None:
         staged |= _staged_columns(flt, segment, vc_arrays)
     block = segment.device_block(sorted(staged), device)
-    cols = {c: block.arrays[c][:n] for c in sorted(staged) + ["__time_offset"]}
+    # the dense view: an encoded column decodes on the card here
+    _, view = cascade.split_resident(block.arrays)
+    cols = {c: view[c][:n] for c in sorted(staged) + ["__time_offset"]}
     mask = torch.ones(n, dtype=torch.bool, device=device) if flt is None \
         else _host_mask(flt, segment, cols, vc_arrays, device)
     if intervals is not None:

@@ -56,17 +56,23 @@ Every strategy gives the same counts, long sums and min/max bit for bit;
 float sums differ by summation order only. Only "mixed" uses float atomics
 (its scatters), so every other strategy repeats its float bits run to run.
 
-On the projection and megakernel strategies the value columns B1/B2 read
-stage as packed words where they fit (data/packed.py); every other column
-stages dense. The program top splits the block (`cascade.split_resident`):
-B1 and B2 read the packed columns as words, and every other consumer reads
-a `DecodedView`, which decodes a column the first time it is read in the
-query (a filter's residual on a packed metric). A column that only the
-kernels read is never decoded.
+Staging follows `cascade.plan_pair`: the cascade rungs (RLE, delta, FOR,
+LZ4) stage encoded where the rows keep their order, and on the projection
+and megakernel strategies the value columns B1/B2 read stage as packed
+words where they fit (data/packed.py); every other column stages dense. The
+derived `__key`/`__bucket` columns take the FOR rung where their range
+packs. The program top splits the block (`cascade.split_resident`): B1 and
+B2 read the packed columns as words, and every other consumer reads a
+`DecodedView`, which decodes a column on the card the first time it is read
+in the query (`__time_offset` for the time mask, a filter's residual on a
+packed metric). A column that only the kernels read is never decoded.
+`cascade.set_enabled(False)` stages every rung dense and turns off
+code-domain aggregation, as in the reference.
 """
 from __future__ import annotations
 
 import math
+from collections.abc import Mapping
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -74,6 +80,8 @@ import numpy as np
 import torch
 
 from druid_tpu_torch.data import cascade as cascade_mod
+from druid_tpu_torch.data import packed as packed_mod
+from druid_tpu_torch.data.bitmap import stable_argsort
 from druid_tpu_torch.data.segment import Segment
 from druid_tpu_torch.engine import megakernel, rundomain
 from druid_tpu_torch.engine.contracts import (BATCH_MAX_SEGMENTS,
@@ -245,7 +253,7 @@ def build_projection(segment: Segment, intervals: Sequence[Interval],
     def _compute():
         raw = _fused_raw_keys(segment, spec)
         n = raw.shape[0]
-        order = np.argsort(raw, kind="stable")
+        order = stable_argsort(raw)
         sr = raw[order]
         n_invalid = int(np.searchsorted(sr, 0))  # -1 rows sort first
         valid_sorted = sr[n_invalid:]
@@ -726,14 +734,32 @@ def fuse_filter_update(arrays: Dict[str, torch.Tensor], mask: torch.Tensor,
 
 
 def _pad_device(segment: Segment, cache_key: Tuple, arr: np.ndarray,
-                padded: int, fill, device: torch.device) -> torch.Tensor:
-    """Padded device copy of a derived host column, cached on the segment."""
-    def _build():
+                padded: int, fill, device: torch.device,
+                value_range: Optional[Tuple[int, int]] = None):
+    """Padded device copy of a derived host column, cached on the segment.
+
+    `value_range=(lo, hi)` marks an int32 column whose exact range is a
+    plan constant (`__key`, `__bucket`): where the cascade's FOR rung
+    covers it (`cascade.for_encode_derived`), it stages as range-packed
+    words (a cascade.ForColumn) that the program decodes on first read."""
+    plan = cascade_mod.for_encode_derived(*value_range) \
+        if value_range is not None and arr.dtype == np.int32 else None
+
+    def _padded() -> np.ndarray:
         out = np.full((padded,), fill, dtype=arr.dtype)
         out[: arr.shape[0]] = arr
-        return torch.from_numpy(out).to(device)
-    return segment.device_cached(("devpad", cache_key, padded, fill,
-                                  str(device)), _build)
+        return out
+    if plan is not None:
+        w, base = plan
+        return segment.device_cached(
+            ("devpadfor", cache_key, padded, fill, w, base, str(device)),
+            lambda: cascade_mod.ForColumn(
+                packed_mod.pack_device(torch.from_numpy(_padded()).to(device),
+                                       w, base), w, base, padded,
+                str(arr.dtype)))
+    return segment.device_cached(
+        ("devpad", cache_key, padded, fill, str(device)),
+        lambda: torch.from_numpy(_padded()).to(device))
 
 
 def staged_col_dtypes(segment: Segment, spec: GroupSpec,
@@ -857,8 +883,9 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
     # code-domain aggregation (engine/rundomain.py): when every column the
     # query reads is constant within one shared run partition, the
     # aggregate runs over run tables; no row-width column stages
-    rd = rundomain.try_run_domain(segment, intervals, granularity, spec,
-                                  kernels, flt, device, virtual_columns)
+    rd = rundomain.try_run_domain(
+        segment, intervals, granularity, spec, kernels, flt, device,
+        virtual_columns) if cascade_mod.enabled() else None
     if rd is not None:
         counts, states = rd
         spec.strategy = "runDomain"
@@ -950,8 +977,11 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
 
     key_dims: Sequence[KeyDim] = spec.dims
     if spec.key_mode == "host":
-        key = _pad_device(segment, spec.host_keys_cache, spec.host_keys,
-                          block.padded_rows, -1, device)
+        # derived keys ride the FOR rung where their range [-1, G) packs
+        arrays["__key"] = _pad_device(
+            segment, spec.host_keys_cache, spec.host_keys, block.padded_rows,
+            -1, device, value_range=(-1, spec.num_total - 1))
+        key = arrays["__key"]
         mask = mask & (key >= 0)
         key_dims = ()
     elif spec.bucket_mode == "all":
@@ -963,8 +993,11 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
         mask = mask & (b >= 0) & (b < spec.num_buckets)
         key = b
     else:
-        key = _pad_device(segment, spec.host_bucket_cache,
-                          spec.host_bucket_ids, block.padded_rows, -1, device)
+        arrays["__bucket"] = _pad_device(
+            segment, spec.host_bucket_cache, spec.host_bucket_ids,
+            block.padded_rows, -1, device,
+            value_range=(-1, spec.num_buckets - 1))
+        key = arrays["__bucket"]
         mask = mask & (key >= 0)
 
     counts, states = fuse_filter_update(
@@ -1078,9 +1111,12 @@ def make_stacked_segment_fn(spec: GroupSpec, vc_plans: Tuple, K: int,
     slot_base = torch.arange(K, dtype=torch.int64, device=device)[:, None] \
         * num_total
 
-    def run(arrays: Dict[str, torch.Tensor], time0s: torch.Tensor,
+    def run(arrays: Dict[str, object], time0s: torch.Tensor,
             iv_rel: torch.Tensor, bucket_off: torch.Tensor,
             aux: StackedAux):
+        # stacked encoded columns decode here, each [K, R] slot on its
+        # first read (cascade.split_resident, as the per-segment top)
+        arrays = cascade_mod.split_resident(arrays)[1]
         t = arrays["__time_offset"]
         mask = arrays["__valid"]
         if vc_plans:
@@ -1101,6 +1137,29 @@ def make_stacked_segment_fn(spec: GroupSpec, vc_plans: Tuple, K: int,
             num_total, slot_base, strategy=strategy, span=window)
 
     return run
+
+
+class _FlatView(Mapping):
+    """A stack's [K, R] columns read as [K * R], each flattened (and, being
+    read through the stack's DecodedView, decoded) on its first read."""
+
+    def __init__(self, arrays):
+        self.arrays = arrays
+        self._flat: Dict = {}
+
+    def __getitem__(self, name):
+        if name not in self._flat:
+            self._flat[name] = self.arrays[name].flatten(0, 1)
+        return self._flat[name]
+
+    def __contains__(self, name):
+        return name in self.arrays
+
+    def __iter__(self):
+        return iter(self.arrays)
+
+    def __len__(self):
+        return len(self.arrays)
 
 
 def _unstack_state(state, K: int, num_total: int):
@@ -1147,8 +1206,8 @@ def fuse_filter_update_stacked(arrays: Dict[str, torch.Tensor],
     def flattened():
         nonlocal flat
         if flat is None:
-            flat = ({c: v.flatten(0, 1) for c, v in arrays.items()},
-                    mask.flatten(), (key + slot_base).flatten())
+            flat = (_FlatView(arrays), mask.flatten(),
+                    (key + slot_base).flatten())
         return flat
 
     if strategy == "windowed":

@@ -32,6 +32,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from druid_tpu_torch.data import cascade
 from druid_tpu_torch.data.segment import Segment, ValueType
 from druid_tpu_torch.engine import hll
 from druid_tpu_torch.engine.contracts import AGG_FOLD_REQUIRED
@@ -305,13 +306,14 @@ class SumKernel(AggKernel):
             and spec.field in segment.metrics
             and segment.column_finite(spec.field))
         # a LONG column whose min equals its max sums as constant x count
-        # and never stages; such a kernel stays off the mm, blocked and
-        # sorted-projection strategies, as in the reference
+        # and never stages (with the cascade on, as in the reference); such
+        # a kernel stays off the mm, blocked and sorted-projection
+        # strategies, as in the reference
         self.const_value: Optional[int] = None
         if vtype is ValueType.LONG and segment is not None \
                 and spec.field in segment.metrics:
             lo, hi = segment.column_minmax(spec.field)
-            if lo == hi:
+            if lo == hi and cascade.enabled():
                 self.const_value = int(lo)
         if vtype is ValueType.LONG and segment is not None \
                 and spec.field in segment.metrics \

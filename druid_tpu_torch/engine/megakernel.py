@@ -248,10 +248,12 @@ def mega_leaf_words(segment, dim: str, lut: np.ndarray, padded_rows: int,
                     device: torch.device, perm: Optional[np.ndarray] = None,
                     perm_key=None) -> torch.Tensor:
     """One mega leaf's int32 words [padded_rows / 32]. Where the rows keep
-    their order and `dim` has run tables, the bits are built once per run
-    (`np.repeat(lut[values], lengths)`) and cached under their own key;
+    their order, the cascade is on and `dim` has run tables, the bits are
+    built once per run (`np.repeat(lut[values], lengths)`) and cached under
+    their own key;
     otherwise they are filters.leaf_words, shared with the staged fill."""
-    info = cascade.column_run_info(segment, dim) if perm is None else None
+    info = cascade.column_run_info(segment, dim) \
+        if perm is None and cascade.enabled() else None
     if info is None:
         return leaf_words(segment, dim, lut, padded_rows, device, perm,
                           perm_key)

@@ -152,7 +152,8 @@ def _plan_run_domain(segment: Segment, intervals, granularity, spec,
 
 def _plan_run_domain_uncached(segment, intervals, granularity, spec, kernels,
                               flt, virtual_columns):
-    if not cascade.run_domain_enabled() or segment.n_rows == 0 \
+    if not cascade.enabled() or not cascade.run_domain_enabled() \
+            or segment.n_rows == 0 \
             or virtual_columns:
         return None                       # a virtual column reads rows
     if spec.bucket_mode not in ("all", "uniform") or spec.key_mode != "dense":

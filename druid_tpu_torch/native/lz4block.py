@@ -14,8 +14,9 @@ codec has two host layers:
     the C++ codec against;
   * `tokenize()`, which parses any LZ4 block into flat token arrays
     (literal stream + per-sequence literal/match lengths and offsets): the
-    device-decodable form a staged LZ4 rung will read (ROADMAP A6), and
-    what the persist-time planner counts (storage/plan.py).
+    device-decodable form the staged LZ4 rung reads
+    (data/cascade.py's Lz4Column), and what the persist-time planner
+    counts (storage/plan.py).
 
 Every compress that a segment keeps is verified by a host decompress
 round trip at its call site (storage/plan.py, storage/format_v2.py), so a

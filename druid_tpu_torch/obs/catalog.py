@@ -2,8 +2,7 @@
 (the port's own copy of the reference package's `obs/catalog.py`).
 
 The entries are the reference's, those the port does not emit among them
-(coordination/latch.py's, and `query/sharded/packedRatio`, constant for the
-port's dense stack): the catalog is the contract between a node and the
+(coordination/latch.py's): the catalog is the contract between a node and the
 dashboards that read it, and a name must not change meaning between the
 two packages (the `query/sharded/*` help text names the reference's
 collectives; the port's sharded merge on the card counts the same way).

@@ -33,14 +33,19 @@ steers the mesh too); the sorted projection, a per-segment layout, becomes
 
 The stack (`_stack_segments`): R is the segments' largest padding (a
 multiple of 1024) and K pads to a multiple of the mesh size with
-all-invalid segments; each shard's block stacks on its device from the
-pool's staged blocks and filter words (batching's `stack_blocks`). The
-stack itself lives in the process-wide device pool under the stack owner,
-counted against the pool's budget (PoolStats.stacked_*), keyed by segment
-identity, the mesh's devices, the columns and the filter words' digest;
-`clear_stack_cache` drops it. It is a copy beside the blocks it came from,
-as the reference's stack is: the stacked run reads one [K / n, R] tensor
-per column, and the pool's blocks are separate tensors.
+all-invalid segments. Each shard's columns are encoded from the segments'
+host columns on its device under the descriptors every segment can stage
+under (`_common_descriptors`, the reference's: RLE at the widest padded
+run count, a rung kept only where every segment has it, packed words where
+every segment packs), stacked field by field (`cascade.stack_columns`),
+with `__valid` as two-run RLE tables while the cascade is on, and the
+filter words staged per segment; the stacked run decodes each slot at its
+top. The stack lives in the process-wide device pool under the stack
+owner, counted against the pool's budget (PoolStats.stacked_*, with
+`devicepool.LogicalBytes` for the decoded bytes the per-segment
+descriptors leave out, so `query/sharded/packedRatio` is true), keyed by
+segment identity, the mesh's devices, the columns, the filter words'
+digest and the descriptors; `clear_stack_cache` drops it.
 """
 from __future__ import annotations
 
@@ -54,8 +59,10 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from druid_tpu_torch.data import cascade as cascade_mod
 from druid_tpu_torch.data import devicepool
-from druid_tpu_torch.data.segment import Segment
+from druid_tpu_torch.data import packed as packed_mod
+from druid_tpu_torch.data.segment import Segment, _ShapeStub
 from druid_tpu_torch.engine import batching
 from druid_tpu_torch.engine import filters as filters_mod
 from druid_tpu_torch.engine import grouping
@@ -296,46 +303,164 @@ def _bitmap_digest(plans: Sequence[GroupPlan]) -> str:
     return h.hexdigest()[:16] if any_nodes else ""
 
 
+def _common_descriptors(segments: Sequence[Segment],
+                        columns: Tuple[str, ...]) -> Tuple[Tuple, Tuple]:
+    """The (cascade, pack) descriptor pair every segment of the stack can
+    stage under, the reference's rule: a column keeps its rung only where
+    every segment planned the same kind (`cascade.plan_pair`), RLE with the
+    widest padded run count (its run tables pad to it), every other rung
+    only with equal parameters (its words must stack), and `lz4host` never
+    (it stages decoded rows anyway); a pack entry stays where every segment
+    planned it. Every other column stacks decoded."""
+    per_seg = [cascade_mod.plan_pair(s, columns) for s in segments]
+    casc0, packs0 = per_seg[0]
+    cascades: List[Tuple] = []
+    for entry in casc0:
+        name, kind = entry[0], entry[1]
+        if kind == "lz4host":
+            continue
+        mates = [next((e for e in cs if e[0] == name), None)
+                 for cs, _ in per_seg]
+        if any(m is None or m[1] != kind for m in mates):
+            continue
+        if kind == "rle":
+            cascades.append((name, kind, max(m[2] for m in mates)))
+        elif all(m == entry for m in mates):
+            cascades.append(entry)
+    claimed = {e[0] for e in cascades}
+    packs = tuple(e for e in packs0 if e[0] not in claimed
+                  and all(e in ps for _, ps in per_seg))
+    return tuple(cascades), packs
+
+
 def _stack_segments(mesh, segments: Sequence[Segment],
                     columns: Tuple[str, ...], plans: Sequence[GroupPlan]):
-    """(per-shard {name: [K / n, R]} stacks, per-shard time0s, R, K),
-    pooled. Keyed by segment identity, not id strings: a rebuilt segment
-    may reuse its id and must not be served stale rows; the entry pins the
-    segment objects, so their id()s cannot be recycled while it lives."""
+    """(per-shard {name: [K / n, R] tensor or stacked encoded column},
+    per-shard time0s, R, K), pooled. Keyed by segment identity, not id
+    strings: a rebuilt segment may reuse its id and must not be served
+    stale rows; the entry pins the segment objects, so their id()s cannot
+    be recycled while it lives. The common descriptors join the key, so a
+    flip of either switch restacks."""
     pool = devicepool.device_pool()
+    cascades, packs = _common_descriptors(segments, columns)
+    valid_rle = cascade_mod.enabled()
     key = (devicepool.STACKED_KIND, tuple(id(s) for s in segments), columns,
-           speclayout.layout_sig(mesh), _bitmap_digest(plans))
+           speclayout.layout_sig(mesh), _bitmap_digest(plans), cascades,
+           packs, valid_rle)
     value = pool.get_or_build(
         _stack_owner_token(pool), key,
-        lambda: _build_stack(mesh, segments, columns, plans))
+        lambda: _build_stack(mesh, segments, columns, plans, cascades, packs,
+                             valid_rle))
     return value[:4]
 
 
 def _build_stack(mesh, segments: Sequence[Segment],
-                 columns: Tuple[str, ...], plans: Sequence[GroupPlan]):
+                 columns: Tuple[str, ...], plans: Sequence[GroupPlan],
+                 cascades: Tuple = (), packs: Tuple = (),
+                 valid_rle: bool = False):
+    """The stack, built from the segments' host columns under the common
+    descriptors (the reference's `encoded_col`): each shard's columns are
+    encoded per segment on the shard's device and stacked field by field
+    (`cascade.stack_columns`); the stacked run decodes each [K / n, R]
+    slot at its top. `__valid` stacks as RLE run tables (two runs a
+    segment) with the cascade on, as in the reference."""
     R = max(s.padded_rows() for s in segments)
     K = -(-len(segments) // mesh.size) * mesh.size
-    items = [(s, (), p.filter_node, p.kernels)
-             for s, p in zip(segments, plans)]
+    casc_by_name = {e[0]: e for e in cascades}
+    pack_by_name = {e[0]: (e[1], e[2]) for e in packs}
+
+    def padded_col(s: Segment, name: str, put) -> torch.Tensor:
+        """The column's rows uploaded and padded to R on the device."""
+        if name == "__time_offset":
+            off = s.time_ms - s.interval.start
+            if off.size and (off.min() < 0 or off.max() >= 2**31):
+                raise ValueError(
+                    f"segment {s.id} outside int32 offset range")
+            a = off.astype(np.int32)
+        elif name in s.dims:
+            a = s.dims[name].ids
+        else:
+            dt = s.staged_dtype(name)
+            a = s.metrics[name].values
+            a = a if a.dtype == dt else a.astype(dt)
+        rows = put(a)
+        out = torch.zeros(R, dtype=rows.dtype, device=rows.device)
+        out[: rows.shape[0]] = rows
+        return out
+
+    def encoded_col(s: Segment, name: str, put):
+        entry = casc_by_name.get(name)
+        if entry is not None and entry[1] in ("rle", "lz4"):
+            # from the segment's cached tables: no host decode of a lazily
+            # loaded column
+            dt = np.int32 if name in s.dims else s.staged_dtype(name)
+            return cascade_mod.encode_column(s, name, entry,
+                                             _ShapeStub(R, dt), put)
+        # FOR, delta and packed words are encoded on the card (the host's
+        # arrays bit for bit), sparing a host pass over every row
+        padded = padded_col(s, name, put)
+        if entry is not None:
+            return cascade_mod.encode_column(s, name, entry, padded, put)
+        wb = pack_by_name.get(name)
+        if wb is not None:
+            return packed_mod.PackedColumn(
+                packed_mod.pack_device(padded, *wb), wb[0], wb[1], R,
+                str(padded.dtype).replace("torch.", ""))
+        return padded
+
+    def valid_col(s: Segment, put):
+        n = s.n_rows
+        if not valid_rle:
+            v = np.zeros(R, dtype=bool)
+            v[:n] = True
+            return put(v)
+        vals = np.zeros(8, dtype=np.int32)
+        vals[0] = 1 if n else 0
+        return cascade_mod.RleColumn(
+            put(vals), put(np.full(8, n, dtype=np.int32)),
+            put(np.asarray([n], dtype=np.int32)), R, "bool")
+
+    items = [(s, p.filter_node, p.kernels) for s, p in zip(segments, plans)]
     slices = speclayout.shard_slices(K, mesh.size)
-    shards = [batching.stack_blocks(items[sl], columns, R, dev)
-              if items[sl] else None
-              for sl, dev in zip(slices, mesh.devices)]
-    # padding segments (the tail of K) are zeros: no row is valid, and
-    # their filter words pass none
-    for i, (sl, dev) in enumerate(zip(slices, mesh.devices)):
-        n_pad = (sl.stop - sl.start) - len(items[sl])
-        if n_pad:
-            shards[i] = {name: torch.cat(
-                ([shards[i][name]] if shards[i] is not None else [])
-                + [torch.zeros((n_pad,) + tuple(t.shape[1:]), dtype=t.dtype,
-                               device=dev)])
-                for name, t in shards[0].items()}
+    templates = None
+    shards = []
+    for sl, dev in zip(slices, mesh.devices):
+        def put(a, dev=dev):
+            a = np.ascontiguousarray(a)
+            if not a.flags.writeable:
+                a = a.copy()    # a loaded segment's read-only mmap view
+            return torch.from_numpy(a).to(dev)
+        mine = items[sl]
+        slots = []
+        words = filters_mod.stage_device_bitmaps_multi(mine, R, dev) \
+            if mine else []
+        for (s, _, _), w in zip(mine, words):
+            cols = {name: encoded_col(s, name, put) for name in columns}
+            cols["__time_offset"] = encoded_col(s, "__time_offset", put)
+            cols["__valid"] = valid_col(s, put)
+            cols.update(w)
+            slots.append(cols)
+        if templates is None and slots:
+            templates = slots[0]
+        # padding segments (the tail of K) are zeros: no row is valid, and
+        # their filter words pass none
+        while len(slots) < sl.stop - sl.start:
+            slots.append({name: cascade_mod.zeros_like_column(v, dev)
+                          for name, v in templates.items()})
+        shards.append({name: cascade_mod.stack_columns(
+            [s[name] for s in slots]) for name in slots[0]})
     time0s = np.zeros((K,), dtype=np.int64)
     time0s[:len(segments)] = [s.interval.start for s in segments]
+    # stacked encoded columns keep the per-segment descriptor, so their
+    # logical bytes describe one segment: the missing (K / n - 1) shares
+    per = K // mesh.size
+    corr = sum((per - 1) * int(v.logical_nbytes)
+               for shard in shards for v in shard.values()
+               if cascade_mod.is_encoded(v))
     # the trailing segment tuple pins the objects (the id() guard); it
     # counts 0 in the pool's bytes
-    return (shards, speclayout.split(mesh, time0s), R, K, tuple(segments))
+    return (shards, speclayout.split(mesh, time0s), R, K, tuple(segments),
+            devicepool.LogicalBytes(corr))
 
 
 def clear_stack_cache() -> int:
@@ -437,10 +562,9 @@ def sharded_stats() -> ShardedStats:
 
 class ShardedMonitor(Monitor):
     """Emits `query/sharded/*` per tick: the dispatches merged on the card
-    over the tick window, and the stacked blocks' residency from the
-    device pool's stacked accounting. The catalog's
-    `query/sharded/packedRatio` is not emitted: the port's stack stages
-    dense, so it would always read 1.0."""
+    over the tick window, and the stacked blocks' residency and their
+    decoded / actual ratio (`query/sharded/packedRatio`) from the device
+    pool's stacked accounting."""
 
     def __init__(self, stats: Optional[ShardedStats] = None,
                  pool: Optional["devicepool.DeviceSegmentPool"] = None):
@@ -454,3 +578,4 @@ class ShardedMonitor(Monitor):
         emitter.metric("query/sharded/mergeDevice", s[0] - last[0])
         p = self.pool.snapshot()
         emitter.metric("query/sharded/stackBytes", p.stacked_bytes)
+        emitter.metric("query/sharded/packedRatio", p.stacked_ratio)

@@ -24,12 +24,15 @@ block-codec part (`dim.<name>.ids` / `met.<name>`) and load eagerly; V1
 segments keep loading through the version.bin route in
 storage/format.load_segment.
 
-The port stages packed words only in the projection's permuted row order
-(engine/grouping.py), and a staged LZ4 or RLE rung is not ported (ROADMAP
-A6). So a loaded packed, RLE or LZ4 column that a query stages is decoded
-on the host once, the first time it is staged, and kept decoded for the
-segment's life; the persisted words are not uploaded as they are. The
-mmap stays open as long as the segment (`Segment._mapper`).
+Staging a loaded segment decodes nothing on the host where the rows keep
+their order: an RLE column stages from its persisted run tables, an LZ4
+column from the token arrays the load parses out of its blob (`_seed_lz4`),
+and a packed column whose persisted (width, base, padded rows) match the
+staging plan uploads its words as they are (`_v2_pack`,
+`Segment._pack_hint`). A host path that reads the rows (the sorted
+projection's permuted staging, a host mask) decodes a lazy column once and
+keeps it decoded for the segment's life. The mmap stays open as long as the
+segment (`Segment._mapper`).
 
 The writer streams each bitmap index through a writeout file (one bitmap
 in memory at a time); its bytes equal the in-memory encoder's.
@@ -70,9 +73,13 @@ from druid_tpu_torch.utils.intervals import Interval
 
 
 def persist_segment_auto(segment: Segment, directory: str,
-                         format_version: int = 2, **kw) -> int:
+                         format_version: Optional[int] = None,
+                         **kw) -> int:
     """The product persist entry point (deep-storage push): format V2 by
-    default, V1 with `format_version=1` (for readers older than V2)."""
+    default (`default_format_version`), V1 with `format_version=1` (for
+    readers older than V2)."""
+    if format_version is None:
+        format_version = default_format_version()
     if format_version == 1:
         from druid_tpu_torch.storage.format import persist_segment
         return persist_segment(segment, directory, **kw)
@@ -344,8 +351,8 @@ def persist_segment_v2(segment: Segment, directory: str,
             "columns": specs,
             "time": {"max_delta": int(max_delta)},
             "staging": {
-                "cascades": plan_mod.descriptor_to_json(cascades),
-                "packs": plan_mod.descriptor_to_json(packs),
+                "cascades": cascade_mod.descriptor_to_json(cascades),
+                "packs": cascade_mod.descriptor_to_json(packs),
             },
         }
         sm.add("index.json", json.dumps(meta).encode())
@@ -403,9 +410,8 @@ def load_segment_v2(directory: str,
     """mmap a V2 segment: run/word tables become zero-copy frombuffer views
     over the page cache, decoded rows become lazy columns, and the cached
     stats (run counts, rle tables, min/max, finiteness, the largest time
-    gap) seed from the persisted descriptors, so planning reads no decoded
-    row. The LZ4 token tables the reference also seeds feed only its device
-    LZ4 decoder, which the port does not have; `time_ordered` is computed
+    gap, the LZ4 token tables) seed from the persisted descriptors, so
+    planning and staging read no decoded row; `time_ordered` is computed
     from the decoded `__time` (the port's Segment takes it from no one)."""
     t_start = time.perf_counter()
     mapper = SmooshedFileMapper(directory)
@@ -450,7 +456,8 @@ def load_segment_v2(directory: str,
         vpw = PACK_WORD_BITS // w
         words = _raw_part(mapper, directory, f"col.{name}.pack",
                           np.int32, rows // vpw)
-        return _pack_decoder(words, w, base, rows, n_rows, spec["dtype"])
+        return (_pack_decoder(words, w, base, rows, n_rows, spec["dtype"]),
+                (words, w, base, rows))
 
     dims: Dict[str, StringDimColumn] = {}
     for name in meta["dimensions"]:
@@ -463,8 +470,9 @@ def load_segment_v2(directory: str,
             col = LazyStringDimColumn(n_rows, d, load_rle(name, spec),
                                       "rle")
         elif enc == "pack":
-            col = LazyStringDimColumn(n_rows, d, load_pack(name, spec),
-                                      "packed")
+            decoder, hint = load_pack(name, spec)
+            col = LazyStringDimColumn(n_rows, d, decoder, "packed")
+            col._v2_pack = hint
         else:
             ids = codecs.decompress_array(
                 mapper.part(f"dim.{name}.ids")).copy()
@@ -492,8 +500,9 @@ def load_segment_v2(directory: str,
             m = LazyNumericColumn(n_rows, vtype, load_rle(name, spec),
                                   "rle")
         elif enc == "pack":
-            m = LazyNumericColumn(n_rows, vtype, load_pack(name, spec),
-                                  "packed")
+            decoder, hint = load_pack(name, spec)
+            m = LazyNumericColumn(n_rows, vtype, decoder, "packed")
+            m._v2_pack = hint
         elif enc == "lz4":
             blob = mapper.part(f"col.{name}.lz4")
             raw_len, comp_len = int(spec["raw"]), int(spec["comp"])
@@ -505,6 +514,8 @@ def load_segment_v2(directory: str,
                 n_rows, vtype,
                 _lz4_decoder(blob, raw_len, n_rows, spec["dtype"]), "lz4")
             seeds.append((("finite", name), bool(spec.get("finite", True))))
+            seeds.extend(_seed_lz4(name, blob, raw_len, comp_len,
+                                   int(spec["n"])))
         else:
             vals = codecs.decompress_array(mapper.part(f"met.{name}")).copy()
             m = NumericColumn(vals, vtype)
@@ -529,3 +540,28 @@ def load_segment_v2(directory: str,
     _LOAD_STATS.record(time.perf_counter() - t_start, seg.size_bytes(),
                        on_disk)
     return seg
+
+
+def _seed_lz4(name: str, blob, raw_len: int, comp_len: int,
+              n_values: int) -> List[Tuple[Tuple, object]]:
+    """The LZ4 rung's cached stats and token arrays, parsed from the
+    persisted blob (the sequence structure of the compressed bytes; no row
+    is decoded), so staging a loaded LZ4 column uploads its tokens without
+    decompressing or recompressing it on the host."""
+    enc = cascade_mod.lz4_tokens(bytes(blob), n_values)
+    return [(("cascade_lz4stat", name),
+             (raw_len, comp_len, int(enc[1].shape[0]))),
+            (("cascade_lz4enc", name), enc)]
+
+
+def logical_column_bytes(segment: Segment) -> int:
+    """Decoded-equivalent bytes of a segment's columns (lazy columns report
+    theirs without decoding)."""
+    return segment.size_bytes()
+
+
+def default_format_version() -> int:
+    """The format `persist_segment_auto` writes by default: 2 (the
+    reference's default; it pins V1 by an environment variable, the port by
+    `format_version=1`)."""
+    return 2

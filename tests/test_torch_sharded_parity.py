@@ -9,8 +9,9 @@ not depend on order: the rows compare with `==`, floats included. The mesh
 run makes exactly one sharded dispatch per query and no batched or
 per-segment one, and its stack is resident in the device pool. The
 reference's packed/cascade switches are import-time environment latches,
-hence its subprocesses; the port's is `packed.set_enabled`, flipped here in
-process: parity does not depend on it.
+hence its subprocesses; the port's are `packed.set_enabled` and
+`cascade.set_enabled`, flipped here in process: parity depends on neither,
+and with the cascade on the mesh's stack holds encoded columns.
 """
 import pytest
 import torch
@@ -22,7 +23,7 @@ from druid_tpu.parallel import make_mesh as ref_make_mesh
 from druid_tpu.parallel import use_mesh as ref_use_mesh
 from druid_tpu.utils.intervals import Interval
 
-from druid_tpu_torch.data import devicepool, packed
+from druid_tpu_torch.data import cascade, devicepool, packed
 from druid_tpu_torch.engine import QueryExecutor as PortExecutor
 from druid_tpu_torch.engine import batching, engines
 from druid_tpu_torch.obs import dispatch
@@ -69,10 +70,12 @@ def data():
     return [_carry(s) for s in ref], want
 
 
+@pytest.mark.parametrize("rungs", [True, False], ids=["rungs", "norungs"])
 @pytest.mark.parametrize("packing", [True, False], ids=["packed", "dense"])
-def test_sharded_bit_identical(data, packing, monkeypatch):
+def test_sharded_bit_identical(data, packing, rungs, monkeypatch):
     port, want = data
     prev = packed.set_enabled(packing)
+    prev_rungs = cascade.set_enabled(rungs)
     try:
         plain = {n: PortExecutor(port, device="cpu").run_json(q)
                  for n, q in QUERIES.items()}
@@ -90,12 +93,21 @@ def test_sharded_bit_identical(data, packing, monkeypatch):
         monkeypatch.setattr(engines, "run_grouped_aggregate", per_segment)
         before = distributed.sharded_stats().snapshot()
         kinds = dispatch.stats().snapshot()
+        distributed.clear_stack_cache()
         ex = PortExecutor(port, device="cpu", mesh=make_mesh(8, device="cpu"))
         got = {n: ex.run_json(q) for n, q in QUERIES.items()}
         after = distributed.sharded_stats().snapshot()
         kinds_after = dispatch.stats().snapshot()
+        stacks = [v for k, v in devicepool.device_pool().owner_entries(
+            distributed._STACK_TOKEN).items()]
     finally:
         packed.set_enabled(prev)
+        cascade.set_enabled(prev_rungs)
+    # the stack holds encoded columns (the `__valid` run tables) with the
+    # cascade on, and dense ones with it off
+    valid = [shard["__valid"] for st in stacks for shard in st[0]]
+    assert valid and all(
+        isinstance(v, cascade.RleColumn) == rungs for v in valid)
     assert calls == {"batched": 0, "per_segment": 0}
     assert after[0] - before[0] == len(QUERIES)
     assert after[1] - before[1] == len(QUERIES) * len(port)

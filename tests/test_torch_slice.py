@@ -334,8 +334,9 @@ def test_headline_queries_packed_and_cascaded_match_reference(
         head_segs, name, monkeypatch):
     """Packing and cascading on in both packages (their defaults): the
     port's rows are the reference's. On the projection (B1, B2) metLong
-    stages as w16 words; off it (topN, timeseries: no kernel reads words)
-    every column stages dense."""
+    stages as w16 words and nothing cascades (a permuted layout); off it
+    (topN, timeseries: no kernel reads words) nothing packs, and only the
+    cascade rungs the block's descriptor names stage encoded."""
     from druid_tpu_torch.data import packed
     monkeypatch.setattr(ref_grouping, "PROJECTION_MIN_ROWS", 0)
     monkeypatch.setattr(port_grouping, "PROJECTION_MIN_ROWS", 0)
@@ -355,13 +356,18 @@ def test_headline_queries_packed_and_cascaded_match_reference(
         met = block.arrays["metLong"]
         if name.startswith("groupby"):
             assert block.packs == (("metLong", 16, 0),)
+            assert block.cascades == ()
             assert isinstance(met, packed.PackedColumn)
             assert block.resident_nbytes < block.logical_nbytes
+            encoded = {"metLong"}
         else:
             assert block.packs == ()
-            assert block.resident_nbytes == block.logical_nbytes
-        assert all(torch.is_tensor(v) for k, v in block.arrays.items()
-                   if k != "metLong")
+            encoded = {e[0] for e in block.cascades}
+            assert encoded == {"__time_offset"}
+            assert (block.resident_nbytes < block.logical_nbytes) \
+                == bool(encoded)
+        assert all(torch.is_tensor(v) == (k not in encoded)
+                   for k, v in block.arrays.items())
 
 
 @pytest.mark.parametrize("name", ["groupby", "topn", "timeseries",
@@ -381,7 +387,10 @@ def test_headline_queries_same_rows_packing_on_and_off(head_segs, name,
         off = PortExecutor(port, device="cpu").run_json(q)
     finally:
         packed.set_enabled(prev)
-    assert all(torch.is_tensor(v) for seg in port
-               for b in _blocks(seg) for v in b.arrays.values())
+    # packing off: only cascade rungs stage encoded
+    assert all(b.packs == () for seg in port for b in _blocks(seg))
+    assert all(torch.is_tensor(v) or getattr(v, "cascade_kind", None)
+               for seg in port for b in _blocks(seg)
+               for v in b.arrays.values())
     assert on and on == off
 

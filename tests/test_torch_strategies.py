@@ -878,6 +878,7 @@ def test_projection_span_matches_reference(unsorted_segs):
         pp = port_grouping.build_projection(p, [PortInterval.parse(iv)], pg,
                                             pspec)
         assert (pp.keys < 0).any()
+        np.testing.assert_array_equal(pp.order, np.asarray(rp.order))
         np.testing.assert_array_equal(pp.keys, rp.keys)
         assert pp.max_span == rp.max_span
 
@@ -891,6 +892,22 @@ def test_max_block_span_ignores_dead_rows():
     got = port_grouping._max_block_span(keys, keys >= 0)
     assert got == 8
     assert port_grouping._max_block_span(keys, keys > 100_000) == 1
+
+
+@pytest.mark.parametrize("n", [0, 1, 5000])
+@pytest.mark.parametrize("span", [1, 200, (1 << 16) - 1, 1 << 16, 1 << 20,
+                                  (1 << 32) - 1, 1 << 40])
+def test_stable_argsort_is_numpys(span, n):
+    """The projection's radix argsort gives np.argsort's stable order for
+    keys of every span (one 16-bit digit, two, or numpy's own sort), with
+    invalid rows (-1) and many ties."""
+    rng = np.random.default_rng(span % 9973 + n)
+    keys = rng.integers(-1, span, size=n, dtype=np.int64)
+    keys[rng.random(n) < 0.3] = -1
+    if n:
+        keys[0] = span - 1
+    got = port_grouping.stable_argsort(keys)
+    np.testing.assert_array_equal(got, np.argsort(keys, kind="stable"))
 
 
 # ---------------------------------------------------------------------------
