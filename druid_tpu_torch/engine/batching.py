@@ -362,6 +362,14 @@ def _pow2_chunks(group: List[_Plan]) -> Tuple[List[List[_Plan]], List[_Plan]]:
     return out, group[i:]
 
 
+def _chunks(buckets: Sequence[List[_Plan]]) -> List[List[_Plan]]:
+    """Every stacked run's chunk, bucket by bucket: the power-of-two chunks
+    of each bucket of at least BATCH_MIN_SEGMENTS plans (the remainders run
+    alone)."""
+    return [c for b in buckets if len(b) >= BATCH_MIN_SEGMENTS
+            for c in _pow2_chunks(b)[0]]
+
+
 # ---------------------------------------------------------------------------
 # The stacked run
 # ---------------------------------------------------------------------------
@@ -467,50 +475,53 @@ def _run_batch(chunk: List[_Plan], device: torch.device
     R = ref.rung
     K = len(chunk)                  # a power of two (_pow2_chunks)
 
-    vc_dtypes = {v.name: vc_dtype(v.output_type)
-                 for v in ref.virtual_columns}
-    strategy, window = grouping.select_strategy(
-        ref.spec, ref.kernels, ref.col_dtypes, R,
-        functools.partial(windowed_all, [
-            (p.segment, p.intervals, p.granularity, p.spec) for p in chunk]),
-        vc_dtypes)
-    if strategy == "projection":
-        return None
-    for p in chunk:
-        p.spec.strategy, p.spec.window = strategy, window
+    with trace_span("engine/plan"):
+        vc_dtypes = {v.name: vc_dtype(v.output_type)
+                     for v in ref.virtual_columns}
+        strategy, window = grouping.select_strategy(
+            ref.spec, ref.kernels, ref.col_dtypes, R,
+            functools.partial(windowed_all, [
+                (p.segment, p.intervals, p.granularity, p.spec)
+                for p in chunk]),
+            vc_dtypes)
+        if strategy == "projection":
+            return None
+        for p in chunk:
+            p.spec.strategy, p.spec.window = strategy, window
+        aux = assemble_stacked_aux(ref.spec, ref.kds, ref.filter_node,
+                                   ref.kernels, ref.granularity, ref.vc_luts)
+        fn, _ = stacked_program(
+            grouping._structure_sig(ref.spec, len(ref.intervals),
+                                    ref.filter_node, ref.kernels,
+                                    ref.vc_plans, ref.packs, ref.cascades),
+            ref.spec, ref.vc_plans, K, R, device)
 
-    arrays = stack_blocks(
-        [(p.segment, p.kds, p.filter_node, p.kernels) for p in chunk],
-        ref.columns, R, device)
+    with trace_span("engine/stage"):
+        arrays = stack_blocks(
+            [(p.segment, p.kds, p.filter_node, p.kernels) for p in chunk],
+            ref.columns, R, device)
+        time0s = torch.tensor([p.segment.interval.start for p in chunk],
+                              dtype=torch.int64, device=device)
+        iv_rel = torch.from_numpy(np.stack([
+            interval_offsets(p.intervals, p.segment.interval.start)
+            for p in chunk])).to(device)
+        bucket_off = torch.tensor(
+            [p.spec.uniform_first_offset if p.spec.bucket_mode == "uniform"
+             else 0 for p in chunk], dtype=torch.int64, device=device)
 
-    time0s = torch.tensor([p.segment.interval.start for p in chunk],
-                          dtype=torch.int64, device=device)
-    iv_rel = torch.from_numpy(np.stack([
-        interval_offsets(p.intervals, p.segment.interval.start)
-        for p in chunk])).to(device)
-    bucket_off = torch.tensor(
-        [p.spec.uniform_first_offset if p.spec.bucket_mode == "uniform"
-         else 0 for p in chunk], dtype=torch.int64, device=device)
-    aux = assemble_stacked_aux(ref.spec, ref.kds, ref.filter_node,
-                               ref.kernels, ref.granularity, ref.vc_luts)
-    fn, _ = stacked_program(
-        grouping._structure_sig(ref.spec, len(ref.intervals),
-                                ref.filter_node, ref.kernels, ref.vc_plans,
-                                ref.packs, ref.cascades),
-        ref.spec, ref.vc_plans, K, R, device)
-
-    with trace_span("engine/batch/dispatch", segments=K, rows=R):
+    with trace_span("engine/reduce"):
         counts, states = fn(arrays, time0s, iv_rel, bucket_off, aux)
-        counts_h = counts.cpu().numpy().astype(np.int64)
     dispatch_mod.record("batched")
-    states_h = [_to_host(st) for st in states]
-    out: List[SegmentPartial] = []
-    for i, p in enumerate(chunk):
-        out.append(SegmentPartial(
-            segment=p.segment, spec=p.spec, counts=counts_h[i],
-            states={k.name: k.host_post(_slot(st, i), p.segment)
-                    for k, st in zip(p.kernels, states_h)},
-            kernels=p.kernels))
+    with trace_span("engine/to_host"):
+        counts_h = counts.cpu().numpy().astype(np.int64)
+        states_h = [_to_host(st) for st in states]
+        out: List[SegmentPartial] = []
+        for i, p in enumerate(chunk):
+            out.append(SegmentPartial(
+                segment=p.segment, spec=p.spec, counts=counts_h[i],
+                states={k.name: k.host_post(_slot(st, i), p.segment)
+                        for k, st in zip(p.kernels, states_h)},
+                kernels=p.kernels))
     _STATS.record_batch(K, sum(p.segment.n_rows for p in chunk), K * R)
     return out
 
@@ -534,30 +545,27 @@ def run_with_batching(segs: Sequence[Segment], intervals: Sequence[Interval],
     `check` (a cancel or timeout probe) runs between runs."""
     if not query_enabled(context) or len(segs) < BATCH_MIN_SEGMENTS:
         return None
-    plans = [_plan_for(s, kds, i, intervals, granularity, aggs, flt,
-                       virtual_columns)
-             for i, (s, kds) in enumerate(zip(segs, kds_per_seg))]
-    buckets = _shape_buckets([p for p in plans if p.eligible])
-    if not any(len(b) >= BATCH_MIN_SEGMENTS for b in buckets):
+    with trace_span("engine/plan"):
+        plans = [_plan_for(s, kds, i, intervals, granularity, aggs, flt,
+                           virtual_columns)
+                 for i, (s, kds) in enumerate(zip(segs, kds_per_seg))]
+        chunks = _chunks(_shape_buckets([p for p in plans if p.eligible]))
+    if not chunks:
         # nothing batches; the plans run alone, not planned again
         return [_run_straggler(p, aggs, flt, device, check, first=(i == 0))
                 for i, p in enumerate(plans)]
 
     results: List[Optional[SegmentPartial]] = [None] * len(segs)
     dispatched = 0
-    for bucket in buckets:
-        if len(bucket) < BATCH_MIN_SEGMENTS:
+    for chunk in chunks:
+        if check is not None and dispatched:
+            check()
+        partials = _run_batch(chunk, device)
+        if partials is None:
             continue
-        chunks, _remainder = _pow2_chunks(bucket)
-        for chunk in chunks:
-            if check is not None and dispatched:
-                check()
-            partials = _run_batch(chunk, device)
-            if partials is None:
-                continue
-            dispatched += 1
-            for p, partial in zip(chunk, partials):
-                results[p.index] = partial
+        dispatched += 1
+        for p, partial in zip(chunk, partials):
+            results[p.index] = partial
 
     n_fallback = sum(1 for r in results if r is None)
     if dispatched and n_fallback:
@@ -608,19 +616,20 @@ def run_multi_with_batching(work: Sequence[BatchWork], device: torch.device,
     shared chunk as in its own query's. `on_batch(n_queries, n_segments,
     fill_ratio)` fires per stacked run."""
     all_plans: List[List[_Plan]] = []
-    for r, w in enumerate(work):
-        opted_out = not query_enabled(w.context)
-        plans = []
-        for i, (s, kds) in enumerate(zip(w.segs, w.kds_per_seg)):
-            p = _plan_for(s, kds, i, w.intervals, w.granularity, w.aggs,
-                          w.flt, w.virtual_columns)
-            p.req = r
-            if opted_out:
-                p.eligible = False
-            plans.append(p)
-        all_plans.append(plans)
-    buckets = _shape_buckets([p for plans in all_plans
-                              for p in plans if p.eligible])
+    with trace_span("engine/plan"):
+        for r, w in enumerate(work):
+            opted_out = not query_enabled(w.context)
+            plans = []
+            for i, (s, kds) in enumerate(zip(w.segs, w.kds_per_seg)):
+                p = _plan_for(s, kds, i, w.intervals, w.granularity, w.aggs,
+                              w.flt, w.virtual_columns)
+                p.req = r
+                if opted_out:
+                    p.eligible = False
+                plans.append(p)
+            all_plans.append(plans)
+        chunks = _chunks(_shape_buckets([p for plans in all_plans
+                                         for p in plans if p.eligible]))
 
     results: List[List[Optional[SegmentPartial]]] = \
         [[None] * len(plans) for plans in all_plans]
@@ -636,29 +645,25 @@ def run_multi_with_batching(work: Sequence[BatchWork], device: torch.device,
                 dead[r] = e
 
     dispatched = 0
-    for bucket in buckets:
-        if len(bucket) < BATCH_MIN_SEGMENTS:
+    for chunk in chunks:
+        if dispatched:
+            _poll_checks()
+        live = [p for p in chunk if p.req not in dead]
+        if len(live) < len(chunk):
+            # a cancelled mate broke the power-of-two size: the survivors
+            # run alone
             continue
-        chunks, _remainder = _pow2_chunks(bucket)
-        for chunk in chunks:
-            if dispatched:
-                _poll_checks()
-            live = [p for p in chunk if p.req not in dead]
-            if len(live) < len(chunk):
-                # a cancelled mate broke the power-of-two size: the
-                # survivors run alone
-                continue
-            partials = _run_batch(live, device)
-            if partials is None:
-                continue
-            dispatched += 1
-            if on_batch is not None:
-                slots = len(live) * live[0].rung
-                rows = sum(p.segment.n_rows for p in live)
-                on_batch(len({p.req for p in live}), len(live),
-                         rows / slots if slots else 0.0)
-            for p, partial in zip(live, partials):
-                results[p.req][p.index] = partial
+        partials = _run_batch(live, device)
+        if partials is None:
+            continue
+        dispatched += 1
+        if on_batch is not None:
+            slots = len(live) * live[0].rung
+            rows = sum(p.segment.n_rows for p in live)
+            on_batch(len({p.req for p in live}), len(live),
+                     rows / slots if slots else 0.0)
+        for p, partial in zip(live, partials):
+            results[p.req][p.index] = partial
 
     _poll_checks()
     out: List[object] = []

@@ -430,8 +430,9 @@ def _query_plan(query, segments: Sequence[Segment], clamp: bool = True):
 def _partials_with_segs(query, segments: Sequence[Segment],
                         device: torch.device, clamp: bool, check
                         ) -> Tuple[AggregatePartials, List[Segment]]:
-    intervals, segs, kds_per_seg, vals_per_seg = _query_plan(query,
-                                                             segments, clamp)
+    with trace_span("engine/plan"):
+        intervals, segs, kds_per_seg, vals_per_seg = _query_plan(
+            query, segments, clamp)
     if not segs:
         return AggregatePartials([], [], [], intervals), segs
     partials, dim_values = _make_partials(segs, intervals, query,
@@ -525,22 +526,24 @@ def make_aggregate_partials_multi(items, device: torch.device,
     `on_batch(n_queries, n_segments, fill)` observes each stacked run."""
     work: List[batching.BatchWork] = []
     meta: List[object] = []   # per item: (intervals, segs, vals) or result
-    for query, segments, check in items:
-        try:
-            intervals, segs, kds_per_seg, vals_per_seg = _query_plan(
-                query, segments, clamp)
-        except Exception as e:
-            meta.append(e)
-            continue
-        if not segs:
-            meta.append(AggregatePartials([], [], [], intervals))
-            continue
-        meta.append((intervals, segs, vals_per_seg))
-        work.append(batching.BatchWork(
-            segs=segs, intervals=intervals, granularity=query.granularity,
-            kds_per_seg=kds_per_seg, aggs=query.aggregations,
-            flt=query.filter, virtual_columns=query.virtual_columns,
-            context=query.context_map, check=check))
+    with trace_span("engine/plan"):
+        for query, segments, check in items:
+            try:
+                intervals, segs, kds_per_seg, vals_per_seg = _query_plan(
+                    query, segments, clamp)
+            except Exception as e:
+                meta.append(e)
+                continue
+            if not segs:
+                meta.append(AggregatePartials([], [], [], intervals))
+                continue
+            meta.append((intervals, segs, vals_per_seg))
+            work.append(batching.BatchWork(
+                segs=segs, intervals=intervals,
+                granularity=query.granularity, kds_per_seg=kds_per_seg,
+                aggs=query.aggregations, flt=query.filter,
+                virtual_columns=query.virtual_columns,
+                context=query.context_map, check=check))
     with trace_span("engine/partials", queries=len(work),
                     segments=sum(len(w.segs) for w in work)):
         multi = iter(batching.run_multi_with_batching(work, device,

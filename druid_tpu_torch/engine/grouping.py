@@ -20,10 +20,11 @@ buckets and the keys are computed once over the stack; "mixed" scatters
 into one [K * G] grid with the key offset by k * G, while "blocked" and
 "mm" keep a batch axis (a key offset would multiply their work by K).
 
-Before any of these, `rundomain.try_run_domain` (the reference's code-domain
-path) takes a segment whose referenced columns are constant within one shared
-run partition: the aggregate runs over run tables, no row block stages, and
-the partial's strategy is "runDomain".
+Before any of these, `rundomain.run_planned` (the reference's code-domain
+path, planned by `rundomain._plan_run_domain`) takes a segment whose
+referenced columns are constant within one shared run partition: the
+aggregate runs over run tables, no row block stages, and the partial's
+strategy is "runDomain".
 
 Reduction strategies (`select_strategy`, the reference's order and
 thresholds; `FORCE_STRATEGY` forces an eligible one):
@@ -96,6 +97,7 @@ from druid_tpu_torch.engine.filters import (ConstNode, FilterNode,
 from druid_tpu_torch.engine.kernels import (AggKernel, count_true,
                                             expand_batch, make_kernel)
 from druid_tpu_torch.obs import dispatch as dispatch_mod
+from druid_tpu_torch.obs.trace import fold_span
 from druid_tpu_torch.engine.mmagg import (MM_GROUP_LIMIT, mm_reduce,
                                           mm_reduce_stacked)
 from druid_tpu_torch.utils.expression import (lut_for_site, parse_expression,
@@ -866,36 +868,129 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
     `device` before the filter and every reduction. `plan` (from
     plan_grouped_aggregate over the same arguments) skips the planning: the
     batched path passes the plan it built for bucketing."""
-    if plan is None:
-        plan = plan_grouped_aggregate(segment, intervals, granularity, dims,
-                                      aggs, flt, virtual_columns)
-    spec, filter_node, kernels = plan.spec, plan.filter_node, plan.kernels
-    vc_plans, vc_luts = plan.vc_plans, plan.vc_luts
+    with fold_span("engine/plan"):
+        if plan is None:
+            plan = plan_grouped_aggregate(segment, intervals, granularity,
+                                          dims, aggs, flt, virtual_columns)
+        spec, filter_node, kernels = plan.spec, plan.filter_node, \
+            plan.kernels
+        vc_plans, vc_luts = plan.vc_plans, plan.vc_luts
+        if isinstance(filter_node, ConstNode) and not filter_node.value:
+            # constant-false filter: nothing matches, no device work
+            return SegmentPartial(
+                segment=segment, spec=spec,
+                counts=np.zeros(spec.num_total, dtype=np.int64),
+                states={k.name: k.empty_state(spec.num_total)
+                        for k in kernels},
+                kernels=kernels)
+        # code-domain aggregation (engine/rundomain.py): when every column
+        # the query reads is constant within one shared run partition, the
+        # aggregate runs over run tables; no row-width column stages
+        rd_plan = rundomain._plan_run_domain(
+            segment, intervals, granularity, spec, kernels, flt,
+            virtual_columns) if cascade_mod.enabled() else None
+        if rd_plan is None:
+            filter_node, perm, perm_key, words, needed = _plan_row_run(
+                segment, intervals, granularity, aggs, flt, virtual_columns,
+                plan, device)
 
-    if isinstance(filter_node, ConstNode) and not filter_node.value:
-        # constant-false filter: nothing matches, no device work
-        return SegmentPartial(
-            segment=segment, spec=spec,
-            counts=np.zeros(spec.num_total, dtype=np.int64),
-            states={k.name: k.empty_state(spec.num_total) for k in kernels},
-            kernels=kernels)
-
-    # code-domain aggregation (engine/rundomain.py): when every column the
-    # query reads is constant within one shared run partition, the
-    # aggregate runs over run tables; no row-width column stages
-    rd = rundomain.try_run_domain(
-        segment, intervals, granularity, spec, kernels, flt, device,
-        virtual_columns) if cascade_mod.enabled() else None
-    if rd is not None:
-        counts, states = rd
+    if rd_plan is not None:
+        with fold_span("engine/reduce"):
+            counts, states = rundomain.run_planned(segment, spec, rd_plan,
+                                                   device)
         spec.strategy = "runDomain"
-        return SegmentPartial(
-            segment=segment, spec=spec,
-            counts=counts.cpu().numpy().astype(np.int64),
-            states={k.name: k.host_post(st, segment)
-                    for k, st in zip(kernels, states)},
-            kernels=kernels)
+        with fold_span("engine/to_host"):
+            return SegmentPartial(
+                segment=segment, spec=spec,
+                counts=counts.cpu().numpy().astype(np.int64),
+                states={k.name: k.host_post(st, segment)
+                        for k, st in zip(kernels, states)},
+                kernels=kernels)
 
+    with fold_span("engine/stage"):
+        block = segment.device_block(sorted(needed), device, perm=perm,
+                                     perm_key=perm_key, words=words)
+        # packed value columns go to B1/B2 as words; everything else reads
+        # the dense view, which decodes a column on its first read
+        packed_cols, arrays = cascade_mod.split_resident(block.arrays)
+        rows = block.padded_rows
+        # the derived columns join the view after the virtual columns, so
+        # a derived column of a virtual column's name wins, as it always did
+        derived: Dict[str, object] = {}
+        if spec.key_mode == "dense":
+            for d in spec.dims:
+                if d.host_ids is not None:
+                    # a derived id column (numeric or expression dimension)
+                    derived[d.column] = _pad_device(
+                        segment, d.ids_key, d.host_ids, rows, 0, device)
+        # staged combined words and fused leaf words, in the projection's
+        # row order on that path
+        derived.update(stage_device_bitmaps(segment, filter_node, rows,
+                                            device, perm, perm_key, kernels))
+        derived.update(megakernel.stage_mega_leaves(
+            segment, filter_node, rows, device, perm, perm_key, kernels))
+        if spec.key_mode == "host":
+            # derived keys ride the FOR rung where their range [-1, G)
+            # packs
+            derived["__key"] = _pad_device(
+                segment, spec.host_keys_cache, spec.host_keys, rows, -1,
+                device, value_range=(-1, spec.num_total - 1))
+        elif spec.bucket_mode not in ("all", "uniform"):
+            derived["__bucket"] = _pad_device(
+                segment, spec.host_bucket_cache, spec.host_bucket_ids, rows,
+                -1, device, value_range=(-1, spec.num_buckets - 1))
+
+    with fold_span("engine/reduce"):
+        if vc_plans:
+            # over the staged (on the projection path, permuted) rows,
+            # before the filter and every reduction
+            eval_virtual_columns(arrays, segment.interval.start, vc_plans,
+                                 vc_luts)
+        arrays.update(derived)
+        t = arrays["__time_offset"]
+        mask = arrays["__valid"] & time_mask(
+            t, interval_offsets(intervals, segment.interval.start))
+        key_dims: Sequence[KeyDim] = spec.dims
+        if spec.key_mode == "host":
+            key = arrays["__key"]
+            mask = mask & (key >= 0)
+            key_dims = ()
+        elif spec.bucket_mode == "all":
+            key = torch.zeros(t.shape, dtype=torch.int64, device=device)
+        elif spec.bucket_mode == "uniform":
+            # int32 offsets, floor division like the reference's bucket
+            # math
+            b = (t.to(torch.int64) - spec.uniform_first_offset) \
+                // spec.uniform_period
+            mask = mask & (b >= 0) & (b < spec.num_buckets)
+            key = b
+        else:
+            key = arrays["__bucket"]
+            mask = mask & (key >= 0)
+        counts, states = fuse_filter_update(
+            arrays, mask, key, key_dims, filter_node, kernels,
+            spec.num_total, strategy=spec.strategy, span=spec.window,
+            packed_cols=packed_cols or None)
+    dispatch_mod.record("segment")
+    with fold_span("engine/to_host"):
+        host_states = {k.name: k.host_post(st, segment)
+                       for k, st in zip(kernels, states)}
+        return SegmentPartial(segment=segment, spec=spec,
+                              counts=counts.cpu().numpy().astype(np.int64),
+                              states=host_states, kernels=kernels)
+
+
+def _plan_row_run(segment: Segment, intervals: Sequence[Interval],
+                  granularity: Granularity, aggs: Sequence, flt,
+                  virtual_columns: Sequence, plan: GroupPlan,
+                  device: torch.device):
+    """The row program's host planning of one segment, after the run
+    domain refused it: the strategy (and on the projection path the
+    sorted layout and its key rewrite, in `plan.spec`) and the megakernel's
+    fused filter trees (the filtered kernels' in place). Returns (the
+    filter tree, perm, perm_key, packed words, the columns to stage)."""
+    spec, filter_node, kernels = plan.spec, plan.filter_node, plan.kernels
+    vc_plans = plan.vc_plans
     base_needed = _value_needs(segment, aggs, flt, virtual_columns,
                                filter_node, kernels, vc_plans)
     needed = set(base_needed)
@@ -942,74 +1037,10 @@ def run_grouped_aggregate(segment: Segment, intervals: Sequence[Interval],
                                    perm_digest(perm_key))
     else:
         megakernel.record_disabled_fallback(filter_node, kernels)
-
-    block = segment.device_block(sorted(needed), device, perm=perm,
-                                 perm_key=perm_key, words=words)
-    # packed value columns go to B1/B2 as words; everything else reads the
-    # dense view, which decodes a column on its first read
-    packed_cols, arrays = cascade_mod.split_resident(block.arrays)
-    if vc_plans:
-        # over the staged (on the projection path, permuted) rows, before
-        # the filter and every reduction
-        eval_virtual_columns(arrays, segment.interval.start, vc_plans,
-                             vc_luts)
-    if spec.key_mode == "dense":
-        for d in spec.dims:
-            if d.host_ids is not None:
-                # a derived id column (numeric or expression dimension)
-                arrays[d.column] = _pad_device(
-                    segment, d.ids_key, d.host_ids, block.padded_rows, 0,
-                    device)
-    # staged combined words and fused leaf words, in the projection's row
-    # order on that path
-    arrays.update(stage_device_bitmaps(segment, filter_node,
-                                       block.padded_rows, device, perm,
-                                       perm_key, kernels))
-    arrays.update(megakernel.stage_mega_leaves(
-        segment, filter_node, block.padded_rows, device, perm, perm_key,
-        kernels))
     if spec.strategy == "projection" \
             and megakernel.split_for_kernel(filter_node)[0]:
         spec.strategy = "megakernel"
-    t = arrays["__time_offset"]
-    mask = arrays["__valid"] & time_mask(
-        t, interval_offsets(intervals, segment.interval.start))
-
-    key_dims: Sequence[KeyDim] = spec.dims
-    if spec.key_mode == "host":
-        # derived keys ride the FOR rung where their range [-1, G) packs
-        arrays["__key"] = _pad_device(
-            segment, spec.host_keys_cache, spec.host_keys, block.padded_rows,
-            -1, device, value_range=(-1, spec.num_total - 1))
-        key = arrays["__key"]
-        mask = mask & (key >= 0)
-        key_dims = ()
-    elif spec.bucket_mode == "all":
-        key = torch.zeros(t.shape, dtype=torch.int64, device=device)
-    elif spec.bucket_mode == "uniform":
-        # int32 offsets, floor division like the reference's bucket math
-        b = (t.to(torch.int64) - spec.uniform_first_offset) \
-            // spec.uniform_period
-        mask = mask & (b >= 0) & (b < spec.num_buckets)
-        key = b
-    else:
-        arrays["__bucket"] = _pad_device(
-            segment, spec.host_bucket_cache, spec.host_bucket_ids,
-            block.padded_rows, -1, device,
-            value_range=(-1, spec.num_buckets - 1))
-        key = arrays["__bucket"]
-        mask = mask & (key >= 0)
-
-    counts, states = fuse_filter_update(
-        arrays, mask, key, key_dims, filter_node, kernels, spec.num_total,
-        strategy=spec.strategy, span=spec.window,
-        packed_cols=packed_cols or None)
-    dispatch_mod.record("segment")
-    host_states = {k.name: k.host_post(st, segment)
-                   for k, st in zip(kernels, states)}
-    return SegmentPartial(segment=segment, spec=spec,
-                          counts=counts.cpu().numpy().astype(np.int64),
-                          states=host_states, kernels=kernels)
+    return filter_node, perm, perm_key, words, needed
 
 
 # ---------------------------------------------------------------------------

@@ -3,18 +3,19 @@
 The port's counterpart of the reference's run-domain path in
 `druid_tpu/data/cascade.py` (`_RunKernel`, `_run_filter_ok`,
 `_plan_run_kernel`, `_plan_run_domain`, `_joint_runs`, `_values_at_starts`,
-`_run_update`, `_build_run_fn`, `try_run_domain`). When every column a query
-reads (group dimensions, filter columns, aggregated columns) is constant
-within one shared run partition of the segment, the joint change points of
-those columns and, at a uniform granularity, of the time bucket, the whole
-aggregate runs over the partition's runs instead of its rows: a run counts
+`_run_update`, `_build_run_fn`, `try_run_domain`, here `_plan_run_domain`
+then `run_planned`). When every column a query reads (group dimensions,
+filter columns, aggregated columns) is constant within one shared run
+partition of the segment, the joint change points of those columns and, at
+a uniform granularity, of the time bucket, the whole aggregate runs over
+the partition's runs instead of its rows: a run counts
 its length, a LONG sum adds value x length in int64 (exact, and wrapping as
 the row sums wrap), a min/max reads the run's value. No row-width column
 stages and nothing decodes; the run tables (at most CASCADE_MAX_RUNS runs)
 are cached on the segment. Float sums, whose bits follow the summation
 order, never run here, so the results equal the row program's bit for bit.
 
-`run_grouped_aggregate` tries this first for every segment; the plan refuses
+`run_grouped_aggregate` plans this first for every segment; the plan refuses
 (None) virtual columns, a dimension with derived host ids (numeric and
 expression dimensions), a non-dense key, a granularity that is neither
 "all" nor uniform, an interval that does not cover the segment, a filter
@@ -312,15 +313,10 @@ def _run_update(rk: _RunKernel, cols: Dict[str, torch.Tensor],
     return torch.where(has_nan, float("nan"), out)
 
 
-def try_run_domain(segment: Segment, intervals, granularity, spec,
-                   kernels: Sequence[AggKernel], flt, device: torch.device,
-                   virtual_columns: Sequence = ()):
-    """One segment's grouped aggregate in run space when the plan allows:
-    (counts int64 [num_total], per-kernel device states), else None."""
-    plan = _plan_run_domain(segment, intervals, granularity, spec, kernels,
-                            flt, virtual_columns)
-    if plan is None:
-        return None
+def run_planned(segment: Segment, spec, plan, device: torch.device):
+    """One segment's grouped aggregate in run space, over the plan
+    `_plan_run_domain` made (not None): (counts int64 [num_total],
+    per-kernel device states)."""
     fnode, rkernels, pkey, bucket, (starts, lengths, nr) = plan
     rpad = cascade.pad_pow2(nr)
     # the cache key names the partition, not just its columns: a uniform

@@ -8,10 +8,25 @@ Reference analogs:
 
 One trace per query: the trace id IS the queryId (a fresh id when the query
 carries none), spans are (name, service, start, duration, attrs) nodes in a
-parent tree. Spans cost two monotonic clock reads and a dict — no device
-syncs, no locks on the hot path (the store append takes the store lock once
-per finished span) — and the whole subsystem no-ops unless a ROOT span is
-open on the current thread, so untraced paths pay one thread-local read.
+parent tree. The whole subsystem no-ops unless a ROOT span is open on the
+current thread: an untraced path (context {"trace": false}, or no root)
+pays one thread-local read per span site and gets the shared inactive
+context, with no clock read, allocation or torch call. An open span costs
+its clock reads, a dict and one profiler range, with no device sync and no
+lock on the hot path (the store append takes the store lock once per
+finished span).
+
+Clocks. `startMs` is `time.time()`, the wall clock the profiler's (kineto's)
+events are stamped on, so a span lines up with the device trace; the
+duration is `time.monotonic()`. Every open span also enters a profiler
+range of its own name on its thread (`_RecordFunctionFast`, a host op; the
+ranges nest as the spans do), so a profile of the process shows the spans
+among its host events and names the device's idle gaps by them; a range
+opened before the profile starts is not in it. `attach()` opens no
+range. `attrs["cpuMs"]` is the span's `time.thread_time()`: the
+CPU its thread spent inside it, so `durationMs - cpuMs` is the time the
+thread did not run (waiting for the interpreter lock, a lock, a blocking
+sleep or read). A CUDA sync that spins counts as CPU time.
 
 Propagation:
   * thread-local span stack: `span(name)` children nest under the current
@@ -29,10 +44,27 @@ Storage: a bounded per-process ring buffer (TraceStore), read by trace id.
 In this package the broker and its data nodes share one process, so their
 spans land in one store directly.
 
-The port opens the broker's spans (broker/query, broker/plan,
-broker/scatter, broker/node, broker/merge), engine/partials around each
-partial production and pool/h2d around each device-pool build. It has no
-compile spans: its kernels are built once per process, not per query.
+The port's spans, from the entry down:
+  * http/request — the trace root of a POST /druid/v2 (the handler stamps
+    a queryId first when the query has none), over the lifecycle and the
+    reply; http/reply — json.dumps, the headers and the socket write.
+  * query — the lifecycle's root (a child under http/request);
+    queue/wait, sched/flush — the scheduler's admission.
+  * broker/query, broker/plan, broker/scatter, broker/node, broker/merge —
+    the broker; datanode/query — a data node served over HTTP.
+  * engine/partials — one partial production; inside it, per run (never
+    per kernel): engine/plan (host planning; never nested in another
+    engine/plan), engine/stage (the run's inputs put on the card),
+    engine/reduce (the mask, the filter and the reduction enqueued; the
+    filter is fused into the reduction, so no host span times it apart),
+    engine/to_host (the copy of the run's states to the host, where the
+    run waits for the card). A stacked run has a set of its own; the
+    segments that run alone fold theirs into one span a stage
+    (`fold_span`, the runs counted in attrs["runs"]). `_query_plan`'s
+    engine/plan runs just before engine/partials opens.
+  * pool/h2d — a device-pool build (inside engine/stage on a miss).
+It has no compile spans: its kernels are built once per process, not per
+query.
 """
 from __future__ import annotations
 
@@ -41,6 +73,12 @@ import threading
 import time
 import uuid
 from typing import Dict, List, Optional
+
+# a host op range: the profiler keeps it among the host's events and,
+# unlike a `record_function` user annotation, draws no device-side copy of
+# it over the kernels launched inside (which a device trace would count as
+# the card's busy time)
+from torch._C._profiler import _RecordFunctionFast as _profiler_range
 
 #: context key carrying the remote parent ("traceId:spanId"); the span id is
 #: always our own hex (no ":"), so rsplit from the right survives arbitrary
@@ -64,8 +102,8 @@ class Span:
     spans are immutable JSON dicts in the store/collector."""
 
     __slots__ = ("trace_id", "span_id", "parent_id", "name", "service",
-                 "start_ms", "duration_ms", "attrs", "_t0", "_store",
-                 "_collector")
+                 "start_ms", "duration_ms", "attrs", "_t0", "_cpu0",
+                 "_store", "_collector", "_folds", "_acc")
 
     def __init__(self, trace_id: str, span_id: str, parent_id: Optional[str],
                  name: str, service: str, attrs: Optional[dict] = None,
@@ -79,8 +117,11 @@ class Span:
         self.duration_ms: Optional[float] = None
         self.attrs = dict(attrs or {})
         self._t0 = time.monotonic()
+        self._cpu0 = time.thread_time()
         self._store = store
         self._collector = collector
+        self._folds: Optional[Dict[str, "Span"]] = None   # fold_span's
+        self._acc: Optional[list] = None   # a folded span's [ms, cpu ms, runs]
 
     def to_json(self) -> dict:
         return {"traceId": self.trace_id, "spanId": self.span_id,
@@ -94,7 +135,14 @@ class Span:
     def finish(self) -> None:
         if self.duration_ms is not None:
             return                       # idempotent (double __exit__)
-        self.duration_ms = (time.monotonic() - self._t0) * 1000.0
+        for f in (self._folds or {}).values():
+            f.finish()                   # stored ahead of their parent
+        if self._acc is not None:
+            self.duration_ms, cpu_ms, self.attrs["runs"] = self._acc
+        else:
+            self.duration_ms = (time.monotonic() - self._t0) * 1000.0
+            cpu_ms = (time.thread_time() - self._cpu0) * 1000.0
+        self.attrs["cpuMs"] = round(cpu_ms, 3)
         j = self.to_json()
         if self._store is not None:
             self._store.add_json(j)
@@ -141,16 +189,31 @@ _NULL_CTX = _NullCtx()
 
 
 class _SpanCtx:
-    __slots__ = ("_span",)
+    """An open span, mirrored by a profiler range of its name on the same
+    thread."""
+    __slots__ = ("_span", "_range")
 
     def __init__(self, s: Span):
         self._span = s
+        self._range = _profiler_range(s.name)
 
     def __enter__(self) -> Span:
         _stack().append(self._span)
+        self._range.__enter__()
         return self._span
 
     def __exit__(self, et, ev, tb):
+        self._unwind(et, ev, tb)
+        self._span.finish()
+        return False
+
+    def _unwind(self, et, ev, tb):
+        try:
+            self._range.__exit__(et, ev, tb)
+        except RuntimeError:
+            # entered before a profile started: the range holds nothing to
+            # end, and its exit under the profile refuses
+            pass
         st = _stack()
         if st and st[-1] is self._span:
             st.pop()
@@ -158,7 +221,23 @@ class _SpanCtx:
             st.remove(self._span)
         if et is not None:
             self._span.attrs.setdefault("error", f"{et.__name__}: {ev}")
-        self._span.finish()
+
+
+class _FoldCtx(_SpanCtx):
+    """One run of a folded span: a profiler range of its own, its time and
+    CPU added to the span, which finishes with its parent."""
+    __slots__ = ("_t", "_cpu")
+
+    def __enter__(self) -> Span:
+        self._t, self._cpu = time.monotonic(), time.thread_time()
+        return super().__enter__()
+
+    def __exit__(self, et, ev, tb):
+        acc = self._span._acc
+        acc[0] += (time.monotonic() - self._t) * 1000.0
+        acc[1] += (time.thread_time() - self._cpu) * 1000.0
+        acc[2] += 1
+        self._unwind(et, ev, tb)
         return False
 
 
@@ -199,11 +278,27 @@ def span(name: str, **attrs):
         attrs=attrs, store=parent._store, collector=parent._collector))
 
 
-def span_when(cond: bool, name: str, **attrs):
-    """`span(name)` when `cond`, else the inactive context: a site whose
-    span is conditional opens it without duplicating the call in an
-    if/else."""
-    return span(name, **attrs) if cond else _NULL_CTX
+def fold_span(name: str):
+    """Like `span`, for a stage that repeats once per segment (a segment
+    run alone): every run under one parent adds into ONE child span of
+    this name, which finishes with the parent. Each run still enters a
+    profiler range of its own; the span's `startMs` is its first run's,
+    its `durationMs` and `cpuMs` the runs' sums and `attrs["runs"]` their
+    count, so a query over many segments keeps a few spans, not four a
+    segment."""
+    parent = current_span()
+    if parent is None:
+        return _NULL_CTX
+    if parent._folds is None:
+        parent._folds = {}
+    s = parent._folds.get(name)
+    if s is None:
+        s = parent._folds[name] = Span(
+            trace_id=parent.trace_id, span_id=_new_id(),
+            parent_id=parent.span_id, name=name, service=parent.service,
+            store=parent._store, collector=parent._collector)
+        s._acc = [0.0, 0.0, 0]
+    return _FoldCtx(s)
 
 
 def trace_enabled(query) -> bool:
@@ -260,9 +355,11 @@ class TraceStore:
     """trace id -> span list, LRU-by-creation ring: the oldest trace is
     evicted when `max_traces` is exceeded; spans beyond
     `max_spans_per_trace` are counted, not kept (a runaway span producer
-    must not eat the process). Span ids dedupe — a data node sharing this
-    process with the broker (in-process tests) records spans locally AND
-    ships them back in the response; both paths land once."""
+    must not eat the process), but for the parent of a span kept: a parent
+    finishes after its children, so a full trace still keeps its root and
+    the path down to every span it holds. Span ids dedupe — a data node
+    sharing this process with the broker (in-process tests) records spans
+    locally AND ships them back in the response; both paths land once."""
 
     def __init__(self, max_traces: int = 256,
                  max_spans_per_trace: int = 2048):
@@ -271,9 +368,6 @@ class TraceStore:
         self._lock = threading.Lock()
         self._traces: "collections.OrderedDict[str, dict]" = \
             collections.OrderedDict()
-
-    def add(self, s: Span) -> None:
-        self.add_json(s.to_json())
 
     def add_json(self, j: dict) -> None:
         tid = j.get("traceId")
@@ -284,15 +378,17 @@ class TraceStore:
             t = self._traces.get(tid)
             if t is None:
                 t = self._traces[tid] = {"spans": [], "ids": set(),
-                                         "dropped": 0}
+                                         "parents": set(), "dropped": 0}
                 while len(self._traces) > self.max_traces:
                     self._traces.popitem(last=False)
             if sid in t["ids"]:
                 return
-            if len(t["spans"]) >= self.max_spans_per_trace:
+            if len(t["spans"]) >= self.max_spans_per_trace \
+                    and sid not in t["parents"]:
                 t["dropped"] += 1
                 return
             t["ids"].add(sid)
+            t["parents"].add(j.get("parentId"))
             t["spans"].append(j)
 
     def ingest(self, spans) -> None:

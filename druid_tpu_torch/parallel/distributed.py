@@ -176,6 +176,83 @@ def try_sharded(segments: Sequence[Segment], intervals: Sequence[Interval],
     if mesh is None or not segments:
         return None
 
+    with trace_span("engine/plan"):
+        planned = _plan_sharded(segments, intervals, granularity,
+                                kds_per_seg, aggs, flt, virtual_columns)
+    if planned is None or isinstance(planned, SegmentPartial):
+        return planned
+    plan0, plans, kds, columns = planned
+    spec0, filter_node, kernels = plan0.spec, plan0.filter_node, \
+        plan0.kernels
+
+    with trace_span("engine/stage"):
+        shards, time0s, R, K = _stack_segments(mesh, segments, columns,
+                                               plans)
+        iv_rel = np.zeros((K, max(len(intervals), 1), 2), dtype=np.int32)
+        bucket_off = np.zeros((K,), dtype=np.int64)
+        for i, s in enumerate(segments):
+            t0 = s.interval.start
+            iv_rel[i, :len(intervals)] = interval_offsets(intervals, t0)
+            if spec0.bucket_mode == "uniform":
+                bucket_off[i] = int(spec0.bucket_starts[0]) - t0
+        iv_rel = speclayout.split(mesh, iv_rel)
+        bucket_off = speclayout.split(mesh, bucket_off)
+
+    with trace_span("engine/plan"):
+        # through the module, so that a test forcing a strategy (patching
+        # grouping.select_strategy) steers the mesh too
+        spec0.strategy, spec0.window = grouping.select_strategy(
+            spec0, kernels, staged_col_dtypes(segments[0], spec0, columns),
+            R, functools.partial(batching.windowed_all, [
+                (s, intervals, granularity, spec0) for s in segments]),
+            {v.name: vc_dtype(v.output_type) for v in virtual_columns})
+        if spec0.strategy == "projection":
+            # the sorted projection is a per-segment layout a stack cannot
+            # share: the stacked run scatters ("mixed"), and the projection
+            # stays the meshless path's
+            spec0.strategy, spec0.window = "mixed", 0
+        aux = assemble_stacked_aux(spec0, kds, filter_node, kernels,
+                                   granularity, plan0.vc_luts)
+        structure = grouping._structure_sig(spec0, len(intervals),
+                                            filter_node, kernels,
+                                            plan0.vc_plans)
+        fns = [batching.stacked_program(structure, spec0, plan0.vc_plans,
+                                        K // mesh.size, R, dev)
+               for dev in mesh.devices]
+
+    with trace_span("engine/reduce"):
+        per_shard = []
+        for (fn, _), arrays, t0s, ivr, boff, dev in zip(
+                fns, shards, time0s, iv_rel, bucket_off, mesh.devices):
+            with _on_device(dev):
+                # a copy: the run adds its virtual columns to the dict
+                counts, states = fn(dict(arrays), t0s, ivr, boff, aux)
+                states = [k.device_post(st, t0s[:, None])
+                          for k, st in zip(kernels, states)]
+                per_shard.append((
+                    counts.sum(0),
+                    [_merge_local(k, st) for k, st in zip(kernels, states)]))
+        counts, states = _merge_shards(kernels, per_shard, mesh.devices[0])
+    dispatch_mod.record("sharded")
+    _SHARDED_STATS.record(len(segments))
+    with trace_span("engine/to_host"):
+        counts = counts.cpu().numpy()
+        # not a host merge: the states were merged on the card; this
+        # converts the merged device form to the host form
+        host_states = {k.name: k.host_from_device(st)
+                       for k, st in zip(kernels, states)}
+    return SegmentPartial(segment=segments[0], spec=spec0, counts=counts,
+                          states=host_states, kernels=kernels)
+
+
+def _plan_sharded(segments: Sequence[Segment],
+                  intervals: Sequence[Interval], granularity: Granularity,
+                  kds_per_seg: Sequence[Sequence[KeyDim]], aggs: Sequence,
+                  flt, virtual_columns: Sequence):
+    """The sharded run's eligibility and plans, the reference's checks in
+    order: None where the segments cannot share one run, a zero partial
+    where a constant-false filter holds in every segment, else (the first
+    plan, every plan, the key dimensions, the columns to stack)."""
     kds = list(kds_per_seg[0])
     if any(d.host_ids is not None for d in kds):
         # a numeric dimension's ids are a per-segment query-time
@@ -215,62 +292,7 @@ def try_sharded(segments: Sequence[Segment], intervals: Sequence[Interval],
                                      vc_plans=plan0.vc_plans)
     if not _same_columns(segments, needed):
         return None
-
-    shards, time0s, R, K = _stack_segments(mesh, segments, columns, plans)
-
-    # through the module, so that a test forcing a strategy (patching
-    # grouping.select_strategy) steers the mesh too
-    spec0.strategy, spec0.window = grouping.select_strategy(
-        spec0, kernels, staged_col_dtypes(segments[0], spec0, columns), R,
-        functools.partial(batching.windowed_all, [
-            (s, intervals, granularity, spec0) for s in segments]),
-        {v.name: vc_dtype(v.output_type) for v in virtual_columns})
-    if spec0.strategy == "projection":
-        # the sorted projection is a per-segment layout a stack cannot
-        # share: the stacked run scatters ("mixed"), and the projection
-        # stays the meshless path's
-        spec0.strategy, spec0.window = "mixed", 0
-
-    iv_rel = np.zeros((K, max(len(intervals), 1), 2), dtype=np.int32)
-    bucket_off = np.zeros((K,), dtype=np.int64)
-    for i, s in enumerate(segments):
-        t0 = s.interval.start
-        iv_rel[i, :len(intervals)] = interval_offsets(intervals, t0)
-        if spec0.bucket_mode == "uniform":
-            bucket_off[i] = int(spec0.bucket_starts[0]) - t0
-    iv_rel = speclayout.split(mesh, iv_rel)
-    bucket_off = speclayout.split(mesh, bucket_off)
-    aux = assemble_stacked_aux(spec0, kds, filter_node, kernels, granularity,
-                               plan0.vc_luts)
-
-    structure = grouping._structure_sig(spec0, len(intervals), filter_node,
-                                        kernels, plan0.vc_plans)
-    fns = [batching.stacked_program(structure, spec0, plan0.vc_plans,
-                                    K // mesh.size, R, dev)
-           for dev in mesh.devices]
-    with trace_span("engine/sharded/dispatch", segments=K,
-                    devices=mesh.size, compile=any(b for _, b in fns)):
-        per_shard = []
-        for (fn, _), arrays, t0s, ivr, boff, dev in zip(
-                fns, shards, time0s, iv_rel, bucket_off, mesh.devices):
-            with _on_device(dev):
-                # a copy: the run adds its virtual columns to the dict
-                counts, states = fn(dict(arrays), t0s, ivr, boff, aux)
-                states = [k.device_post(st, t0s[:, None])
-                          for k, st in zip(kernels, states)]
-                per_shard.append((
-                    counts.sum(0),
-                    [_merge_local(k, st) for k, st in zip(kernels, states)]))
-        counts, states = _merge_shards(kernels, per_shard, mesh.devices[0])
-        counts = counts.cpu().numpy()
-    dispatch_mod.record("sharded")
-    _SHARDED_STATS.record(len(segments))
-    # not a host merge: the states were merged on the card; this converts
-    # the merged device form to the host form
-    host_states = {k.name: k.host_from_device(st)
-                   for k, st in zip(kernels, states)}
-    return SegmentPartial(segment=segments[0], spec=spec0, counts=counts,
-                          states=host_states, kernels=kernels)
+    return plan0, plans, kds, columns
 
 
 def _on_device(dev: torch.device):

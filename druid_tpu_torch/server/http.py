@@ -29,9 +29,12 @@ from __future__ import annotations
 import json
 import logging
 import threading
+import uuid
+from dataclasses import replace
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from druid_tpu_torch.obs import trace as qtrace
 from druid_tpu_torch.server.lifecycle import QueryLifecycle, Unauthorized
 from druid_tpu_torch.server.querymanager import (QueryCapacityError,
                                                  QueryInterruptedError,
@@ -392,10 +395,7 @@ class QueryHttpServer:
                                     self.headers.get("Accept") or ""):
                             self._stream_scan(payload, identity)
                             return
-                        # ETag over the (query, exact segment set) identity
-                        # (QueryResource's If-None-Match / X-Druid-ETag).
-                        # Parsed ONCE; lifecycle.etag authorizes before any
-                        # 304 so a match never leaks forbidden data's state
+                        # parsed ONCE: the ETag and the run share it
                         from druid_tpu_torch.query.model import query_from_json
                         try:
                             query = query_from_json(payload)
@@ -405,37 +405,17 @@ class QueryHttpServer:
                             if outer.lifecycle.on_result:
                                 outer.lifecycle.on_result(False)
                             raise
-                        etag = outer.lifecycle.etag(query,
-                                                    identity=identity)
-                        if etag is not None and \
-                                self.headers.get("If-None-Match") == etag:
-                            outer.lifecycle.log_conditional_hit(query, etag)
-                            self.send_response(304)
-                            self.send_header("X-Druid-ETag", etag)
-                            self.send_header("Content-Length", "0")
-                            self.end_headers()
-                            return
-                        rows = outer.lifecycle.run(query,
-                                                   identity=identity)
-                        headers = {}
-                        # a degraded result (allowPartialResults) stamps
-                        # its missing-segments report on the response
-                        # context header — the contract is EXPLICIT,
-                        # exactly once, never a silent hole in the rows.
-                        # It must NOT carry the ETag: the etag names the
-                        # COMPLETE result over this segment set, and a
-                        # client caching the partial body against it
-                        # would be confirmed 304-fresh forever after the
-                        # cluster heals — the conditional-request twin of
-                        # 'partials never populate the result cache'
-                        missing = getattr(rows, "missing_segments", None)
-                        if missing is not None:
-                            headers["X-Druid-Response-Context"] = \
-                                json.dumps({"partial": True,
-                                            "missingSegments": missing})
-                        elif etag:
-                            headers["X-Druid-ETag"] = etag
-                        self._reply(200, rows, headers or None)
+                        if not query.context_map.get("queryId"):
+                            # one query, one trace: the root below and the
+                            # lifecycle's share this id
+                            query = replace(query, context=tuple(sorted(
+                                {**query.context_map,
+                                 "queryId": str(uuid.uuid4())}.items())))
+                        with qtrace.root_span(
+                                "http/request", query,
+                                service=getattr(outer.lifecycle.emitter,
+                                                "service", "druid/query")):
+                            self._native_query(query, identity)
                     else:
                         self._reply(404, {"error": "unknown path"})
                 except Unauthorized as e:
@@ -459,6 +439,41 @@ class QueryHttpServer:
                     self._reply(400, {"error": f"{type(e).__name__}: {e}"})
                 except Exception as e:
                     self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+
+            def _native_query(self, query, identity) -> None:
+                """POST /druid/v2 after the parse, under the trace root
+                `http/request`: the ETag (QueryResource's If-None-Match /
+                X-Druid-ETag; lifecycle.etag authorizes before any 304 so
+                a match never leaks forbidden data's state), the
+                lifecycle's run and the reply (span `http/reply`)."""
+                etag = outer.lifecycle.etag(query, identity=identity)
+                if etag is not None and \
+                        self.headers.get("If-None-Match") == etag:
+                    outer.lifecycle.log_conditional_hit(query, etag)
+                    self.send_response(304)
+                    self.send_header("X-Druid-ETag", etag)
+                    self.send_header("Content-Length", "0")
+                    self.end_headers()
+                    return
+                rows = outer.lifecycle.run(query, identity=identity)
+                headers = {}
+                # a degraded result (allowPartialResults) stamps its
+                # missing-segments report on the response context header
+                # — the contract is EXPLICIT, exactly once, never a silent
+                # hole in the rows. It must NOT carry the ETag: the etag
+                # names the COMPLETE result over this segment set, and a
+                # client caching the partial body against it would be
+                # confirmed 304-fresh forever after the cluster heals —
+                # the conditional-request twin of 'partials never populate
+                # the result cache'
+                missing = getattr(rows, "missing_segments", None)
+                if missing is not None:
+                    headers["X-Druid-Response-Context"] = json.dumps(
+                        {"partial": True, "missingSegments": missing})
+                elif etag:
+                    headers["X-Druid-ETag"] = etag
+                with qtrace.span("http/reply"):
+                    self._reply(200, rows, headers or None)
 
             def _stream_scan(self, payload: dict, identity) -> None:
                 """Chunked NDJSON scan results: one batch per line, written

@@ -199,10 +199,11 @@ class QueryLifecycle:
     def _finish_trace(self, query: Query, qid: str, ms: float,
                       root) -> None:
         """Phase-attributed per-query metrics from the assembled trace
-        (query/compile/time, query/stage/h2d/time, query/node/time) and the
-        slow-query log: a threshold breach emits an alert with the full
-        phase breakdown, so 'where did the 40 ms go' is answerable from the
-        metrics stream alone."""
+        (query/stage/h2d/time and query/node/time, `emit_trace_metrics`;
+        the port emits no query/compile/time: nothing compiles per query)
+        and the slow-query log: a threshold breach emits an alert with the
+        full phase breakdown, so 'where did the 40 ms go' is answerable
+        from the metrics stream alone."""
         if self.emitter is None:
             return
         # restrict to THIS run's subtree: a client-reused queryId lands
