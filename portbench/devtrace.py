@@ -1,22 +1,31 @@
-"""A slice of the window traced by `torch.profiler` (CPU and CUDA): the
-device's busy time, its kernels by name and its idle gaps, each gap named
-by the host operation running at its middle."""
+"""A slice of the window traced by `torch.profiler` (CPU and CUDA): each
+card's busy time, the kernels by name and the idle gaps, each gap named
+by the host operation running at its middle.
+
+The profiler starts before the window's start is fixed (`Recorder`: its
+start holds the process for seconds) and stops at the slice's end; only
+the events inside the slice count, each cut to it (`clip`). The CUDA
+events are split by card (`device_index`): a card's busy time is the
+union of its own operations, `busy_s` the mean over the layout's cards,
+and `kernel_s` the kernels' time summed over every card."""
 from __future__ import annotations
 
 import bisect
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
-import torch
+#: a device operation: (name, start s, seconds, card)
+Op = Tuple[str, float, float, int]
 
 
 @dataclass
 class DeviceTrace:
     window: Tuple[float, float]           # wall clock s of the slice
-    kernels: List[Tuple[str, float, float]] = field(default_factory=list)
-    copies: List[Tuple[str, float, float]] = field(default_factory=list)
+    kernels: List[Op] = field(default_factory=list)
+    copies: List[Op] = field(default_factory=list)
     host: List[Tuple[str, float, float]] = field(default_factory=list)
+    cards: Tuple[int, ...] = (0,)         # the layout's cards
 
     @property
     def window_s(self) -> float:
@@ -24,39 +33,44 @@ class DeviceTrace:
 
     @property
     def kernel_s(self) -> float:
-        return sum(d for _, _, d in self.kernels)
+        """The kernels' time summed over every card."""
+        return sum(op[2] for op in self.kernels)
 
-    def busy_intervals(self) -> List[Tuple[float, float]]:
-        """Union of the device's operations (kernels, copies, sets), in
-        the profiler's clock (s)."""
-        spans = sorted((s, s + d) for _, s, d in self.kernels + self.copies)
-        out: List[List[float]] = []
-        for a, b in spans:
-            if out and a <= out[-1][1]:
-                out[-1][1] = max(out[-1][1], b)
-            else:
-                out.append([a, b])
-        return [(a, b) for a, b in out]
+    def busy_intervals(self, card: int) -> List[Tuple[float, float]]:
+        """Union of `card`'s operations (kernels, copies, sets), in the
+        profiler's clock (s)."""
+        return union((s, s + d) for _, s, d, c in self.kernels + self.copies
+                     if c == card)
+
+    def card_busy_s(self, card: int) -> float:
+        return min(self.window_s,
+                   sum(b - a for a, b in self.busy_intervals(card)))
 
     @property
     def busy_s(self) -> float:
-        return min(self.window_s,
-                   sum(b - a for a, b in self.busy_intervals()))
+        """The mean over the layout's cards of each card's busy time."""
+        return sum(map(self.card_busy_s, self.cards)) / len(self.cards)
 
     def breakdown(self, top: int = 10) -> Dict[str, list]:
+        """The device operations with most time, summed over the cards,
+        and the longest idle gaps between a card's operations, named
+        "cardN <host operation>" where the layout has several cards."""
         by_name: Dict[str, float] = {}
-        for name, _, d in self.kernels + self.copies:
+        for name, _, d, _ in self.kernels + self.copies:
             name = short_name(name)
             by_name[name] = by_name.get(name, 0.0) + d
         ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-        busy = self.busy_intervals()
-        gaps = sorted(((busy[i][1], busy[i + 1][0])
-                       for i in range(len(busy) - 1)),
-                      key=lambda g: g[0] - g[1])[:top]
+        gaps = []
+        for card in self.cards:
+            busy = self.busy_intervals(card)
+            gaps += [(busy[i][1], busy[i + 1][0], card)
+                     for i in range(len(busy) - 1)]
+        gaps = sorted(gaps, key=lambda g: g[0] - g[1])[:top]
         host = sorted(self.host, key=lambda h: h[1])
         starts = [h[1] for h in host]
+        prefix = len(self.cards) > 1
         named = []
-        for a, b in gaps:
+        for a, b, card in gaps:
             mid = (a + b) / 2
             label = "no host operation traced"
             # the latest-starting host operation that covers the middle
@@ -67,8 +81,33 @@ class DeviceTrace:
                 if s + d >= mid:
                     label = name
                     break
-            named.append([short_name(label), b - a])
+            label = short_name(label)
+            named.append([f"card{card} {label}" if prefix else label,
+                          b - a])
         return {"device_ops": [[n, s] for n, s in ops], "idle_gaps": named}
+
+
+def union(intervals) -> List[Tuple[float, float]]:
+    """Sorted disjoint (start, end) pairs covering `intervals`."""
+    out: List[List[float]] = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return [(a, b) for a, b in out]
+
+
+def clip(events, window: Tuple[float, float]) -> list:
+    """The events (name, start, seconds, ...) that meet `window`, each cut
+    to it."""
+    lo, hi = window
+    out = []
+    for ev in events:
+        a, b = max(ev[1], lo), min(ev[1] + ev[2], hi)
+        if b >= a:
+            out.append((ev[0], a, b - a) + tuple(ev[3:]))
+    return out
 
 
 def short_name(name: str, limit: int = 120) -> str:
@@ -87,37 +126,43 @@ def _event_fields(e):
     return name, start, dur
 
 
-def record(start: float, seconds: float, device) -> DeviceTrace:
-    """Sleep until the wall-clock time `start`, then profile the process
-    for `seconds`."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    wait = start - time.time()
-    if wait > 0:
-        time.sleep(wait)
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    try:
-        # the program's threads (HTTP handlers, the broker's scatter pool)
-        # exist before the slice starts: trace them all
-        from torch._C._profiler import _ExperimentalConfig
-        prof = profile(activities=activities, experimental_config=
-                       _ExperimentalConfig(profile_all_threads=True))
-    except TypeError:
-        prof = profile(activities=activities)
-    prof.start()
-    t0 = time.time()
-    time.sleep(seconds)
-    t1 = time.time()
-    prof.stop()
-    out = DeviceTrace((t0, t1))
-    for e in prof.profiler.kineto_results.events():
-        name, s, d = _event_fields(e)
-        if e.device_type() == DeviceType.CUDA:
-            low = name.lower()
-            (out.copies if low.startswith(("memcpy", "memset"))
-             else out.kernels).append((name, s, d))
-        else:
-            out.host.append((name, s, d))
-    return out
+class Recorder:
+    """The profiler over the process's threads, started on construction;
+    `stop` ends it at a slice's end and keeps what lies inside the
+    slice."""
+
+    def __init__(self, kind: str):
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if kind == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        try:
+            # the program's threads (HTTP handlers, the broker's scatter
+            # pool) exist before the profile starts: trace them all
+            from torch._C._profiler import _ExperimentalConfig
+            self.prof = profile(activities=activities, experimental_config=
+                                _ExperimentalConfig(profile_all_threads=True))
+        except TypeError:
+            self.prof = profile(activities=activities)
+        self.prof.start()
+
+    def stop(self, window: Tuple[float, float],
+             cards: Sequence[int]) -> DeviceTrace:
+        """Sleep until the wall-clock end of `window`, stop, and return
+        the events inside it, the CUDA ones by card."""
+        from torch.autograd import DeviceType
+        wait = window[1] - time.time()
+        if wait > 0:
+            time.sleep(wait)
+        self.prof.stop()
+        kernels, copies, host = [], [], []
+        for e in self.prof.profiler.kineto_results.events():
+            name, s, d = _event_fields(e)
+            if e.device_type() == DeviceType.CUDA:
+                (copies if name.lower().startswith(("memcpy", "memset"))
+                 else kernels).append((name, s, d, int(e.device_index())))
+            else:
+                host.append((name, s, d))
+        return DeviceTrace(window, clip(kernels, window),
+                           clip(copies, window), clip(host, window),
+                           tuple(cards))

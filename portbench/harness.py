@@ -2,10 +2,27 @@
 window driven over HTTP by closed-loop clients, the metrics read, and
 the replies held against the plain reference.
 
-The program is `druid_tpu_torch` alone: two in-process `DataNode`s,
-holding alternate week segments, behind a `Broker` behind
+The program is `druid_tpu_torch` alone: in-process `DataNode`s holding
+the week segments, behind a `Broker` behind
 `QueryHttpServer(QueryLifecycle(broker))`; the clients post native JSON
 to its `/druid/v2` from a child process (`clients.py`).
+
+A configuration's `layout` block decides the cluster and the cards the
+run measures (`Layout.of`); a key left out takes its default:
+
+- `chips`: the cards (1). It may not exceed the cell's `chips`;
+- `data_nodes`: the in-process data nodes (2); segment i goes to node
+  i mod `data_nodes`;
+- `mesh`: the cards of each node's mesh (absent or 0: no mesh). `chips`
+  must be a multiple of it. Node i holds cards (i*m .. i*m+m-1) mod
+  `chips`, runs on the first and shards its aggregates over all of them
+  (`DataNode(mesh=)`); without a mesh node i sits on card i mod `chips`.
+  Nodes may share cards. The broker sits on card 0.
+
+On the CPU (the tests) every node runs on the one CPU device, a mesh of
+m being m CPU shards (`make_mesh(m, device="cpu")`). The held bytes are
+summed over the layout's cards, the peak is the fullest card's, and the
+device trace reads each card apart (`devtrace.py`).
 """
 from __future__ import annotations
 
@@ -17,14 +34,13 @@ import sys
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from portbench import reference, registry, roofline
 from portbench.gen import common
 
-DATA_NODES = 2
 GRACE_S = 60.0                  # a query in flight at the close may finish
 START_LEAD_S = 0.5              # the clients' process starts inside this
 SLICE = (0.2, 0.8)              # the traced share of the window
@@ -82,23 +98,84 @@ def make_segments(cfg: dict, seed: int, device) -> tuple:
     return segments, width, t_gen, t_build
 
 
-class Program:
-    """The port's serving stack over the segments."""
+@dataclass(frozen=True)
+class Layout:
+    """The cluster a configuration asks for (the module's docstring)."""
+    chips: int = 1
+    data_nodes: int = 2
+    mesh: int = 0
 
-    def __init__(self, segments, device):
+    @classmethod
+    def of(cls, cfg: dict, chips: Optional[int] = None) -> "Layout":
+        """The configuration's layout, checked against the cell's `chips`
+        (default: the layout's own); raises ValueError before any set-up
+        where it cannot be built."""
+        block = cfg.get("layout", {})
+        out = cls(**{k: int(block.get(k, getattr(cls, k)))
+                     for k in ("chips", "data_nodes", "mesh")})
+        name = cfg.get("name", "?")
+        if out.chips < 1 or out.data_nodes < 1 or out.mesh < 0:
+            raise ValueError(f"configuration {name}: layout {out} needs "
+                             "chips and data_nodes of 1 or more, mesh of 0 "
+                             "or more")
+        if chips is not None and out.chips > chips:
+            raise ValueError(f"configuration {name}: its layout asks for "
+                             f"{out.chips} cards, the cell for {chips}")
+        if out.mesh and out.chips % out.mesh:
+            raise ValueError(f"configuration {name}: {out.chips} cards are "
+                             f"not a multiple of a mesh of {out.mesh}")
+        return out
+
+    def node_cards(self, i: int) -> List[int]:
+        """The cards data node i holds: its mesh's, or its one."""
+        if self.mesh:
+            return [(i * self.mesh + j) % self.chips
+                    for j in range(self.mesh)]
+        return [i % self.chips]
+
+    def cards(self, kind: str) -> List[torch.device]:
+        """The devices the run measures: the layout's cards, or the CPU."""
+        if kind == "cpu":
+            return [torch.device("cpu")]
+        return [torch.device(kind, i) for i in range(self.chips)]
+
+
+def placement(layout: Layout, kind: str) -> List[tuple]:
+    """(device, mesh or None) of each data node."""
+    from druid_tpu_torch.parallel.context import Mesh, make_mesh
+    out = []
+    for i in range(layout.data_nodes):
+        idx = layout.node_cards(i)
+        if kind == "cpu":
+            mesh = make_mesh(layout.mesh, device="cpu") if layout.mesh \
+                else None
+            out.append((torch.device("cpu"), mesh))
+        else:
+            devs = tuple(torch.device(kind, k) for k in idx)
+            out.append((devs[0], Mesh(devs) if layout.mesh else None))
+    return out
+
+
+class Program:
+    """The port's serving stack over the segments, placed as `layout`
+    says on devices of `kind` ("cuda" or "cpu")."""
+
+    def __init__(self, segments, kind, layout: Layout = Layout()):
         from druid_tpu_torch.cluster import Broker, DataNode, InventoryView
         from druid_tpu_torch.cluster.view import descriptor_for
         from druid_tpu_torch.server import QueryHttpServer, QueryLifecycle
+        kind = torch.device(kind).type
         self.view = InventoryView()
-        self.nodes = [DataNode(f"historical-{i}", device=device)
-                      for i in range(DATA_NODES)]
+        self.nodes = [DataNode(f"historical-{i}", device=dev, mesh=mesh)
+                      for i, (dev, mesh) in enumerate(placement(layout,
+                                                                kind))]
         for node in self.nodes:
             self.view.register(node)
         for i, seg in enumerate(segments):
-            node = self.nodes[i % DATA_NODES]
+            node = self.nodes[i % len(self.nodes)]
             node.load_segment(seg)
             self.view.announce(node.name, descriptor_for(seg))
-        self.broker = Broker(self.view, device=device)
+        self.broker = Broker(self.view, device=layout.cards(kind)[0])
         self.http = QueryHttpServer(QueryLifecycle(self.broker)).start()
         self.url = f"http://127.0.0.1:{self.http.port}/druid/v2"
 
@@ -111,14 +188,24 @@ class Program:
         self.nodes, self.view, self.broker, self.http = [], None, None, None
 
 
-def allocated_bytes(device) -> Optional[int]:
-    """The card's allocated bytes once its queue has drained (the caching
-    allocator's count: tensors alive, not blocks cached); None off a
-    card."""
-    if device.type != "cuda":
+def allocated_bytes(cards: Sequence[torch.device]) -> Optional[int]:
+    """The cards' allocated bytes summed, each once its queue has drained
+    (the caching allocator's count: tensors alive, not blocks cached);
+    None off a card."""
+    if cards[0].type != "cuda":
         return None
-    torch.cuda.synchronize(device)
-    return torch.cuda.memory_allocated(device)
+    total = 0
+    for card in cards:
+        torch.cuda.synchronize(card)
+        total += torch.cuda.memory_allocated(card)
+    return total
+
+
+def peak_bytes(cards: Sequence[torch.device]) -> List[int]:
+    """Each card's peak allocated bytes since the process started (0 off
+    a card)."""
+    return [torch.cuda.max_memory_allocated(c) if c.type == "cuda" else 0
+            for c in cards]
 
 
 def pool_snapshot():
@@ -194,7 +281,7 @@ class RunData:
     records: List[dict]
     setup_s: float
     held_rows: int
-    held_bytes: Optional[int]   # the card's allocated bytes the warm-up left
+    held_bytes: Optional[int]   # the cards' allocated bytes the warm-up left
     batches: Dict[str, float] = field(default_factory=dict)
     spans: Dict[str, List[dict]] = field(default_factory=dict)
     trace: Optional[object] = None       # devtrace.DeviceTrace
@@ -258,11 +345,18 @@ def card_line(device) -> str:
 
 def run_cell(cell: str, cfg: dict, mix: dict, seed: int, seconds: float,
              trace: bool, device, metric_specs: List[dict], limits: dict,
-             t0: float) -> dict:
-    """Everything after the card check. Returns the result object (the
-    last line's keys) with the checks last."""
-    device = torch.device(device)
+             t0: float, chips: Optional[int] = None) -> dict:
+    """Everything after the card check, on devices of `device`'s type
+    ("cuda" or "cpu"), the cell holding `chips` cards (default: its
+    layout's). Returns the result object (the last line's keys) with the
+    checks last."""
+    layout = Layout.of(cfg, chips)
+    cards = layout.cards(torch.device(device).type)
+    device = cards[0]
     log(card_line(device))
+    log(f"layout: {layout}; data nodes on cards "
+        f"{[layout.node_cards(i) for i in range(layout.data_nodes)]}, "
+        "the broker on card 0")
     if mix["datasource"] != cfg["datasource"]:
         raise ValueError(f"mix {mix['name']} queries {mix['datasource']}, "
                          f"configuration {cfg['name']} holds "
@@ -283,9 +377,9 @@ def run_cell(cell: str, cfg: dict, mix: dict, seed: int, seconds: float,
         queries.append(Query(q["name"], qj,
                              common.rows_in_intervals(cfg, ivs),
                              roofline.logical_bytes(qj, cfg, width, ivs)))
-    base = allocated_bytes(device)
+    base = allocated_bytes(cards)
     t = time.time()
-    program = Program(segments, device)
+    program = Program(segments, device.type, layout)
     del segments
     log(f"set-up: program started in {time.time() - t:.3f} s")
     t = time.time()
@@ -295,16 +389,23 @@ def run_cell(cell: str, cfg: dict, mix: dict, seed: int, seconds: float,
             _post(program.url, q.json)
             log(f"warm {q.name}: {time.time() - tq:.3f} s, strategies "
                 f"{strategies.take()}")
-    held = allocated_bytes(device)
+    held = allocated_bytes(cards)
     log(f"set-up: warm-up in {time.time() - t:.3f} s")
     pool = pool_snapshot()
     log(f"pool after warm-up: resident {pool.resident_bytes} B, evicted "
-        f"{pool.evicted_bytes} B, logical {pool.logical_bytes} B; card "
-        f"allocated {held} B over the {base} B before the program")
+        f"{pool.evicted_bytes} B, logical {pool.logical_bytes} B; "
+        f"{len(cards)} card(s) allocated {held} B over the {base} B before "
+        "the program")
 
+    recorder = dev_trace = None
     if trace:
         from druid_tpu_torch.obs.trace import trace_store
+
+        from portbench import devtrace
         trace_store().max_traces = max(trace_store().max_traces, 1 << 20)
+        # before the window's start is fixed: the profiler's start holds
+        # the process for seconds
+        recorder = devtrace.Recorder(device.type)
     batches0 = batch_counts()
     start = time.time() + START_LEAD_S
     spec = {"url": program.url, "clients": int(mix["clients"]),
@@ -318,12 +419,10 @@ def run_cell(cell: str, cfg: dict, mix: dict, seed: int, seconds: float,
     try:
         child.stdin.write(json.dumps(spec))
         child.stdin.close()
-        dev_trace = None
-        if trace:
-            from portbench import devtrace
-            dev_trace = devtrace.record(start + SLICE[0] * seconds,
-                                        (SLICE[1] - SLICE[0]) * seconds,
-                                        device)
+        if recorder is not None:
+            dev_trace = recorder.stop((start + SLICE[0] * seconds,
+                                       start + SLICE[1] * seconds),
+                                      [c.index or 0 for c in cards])
         out = child.stdout.read()       # the clients end by their deadline
         child.wait(timeout=60)
     finally:
@@ -333,8 +432,9 @@ def run_cell(cell: str, cfg: dict, mix: dict, seed: int, seconds: float,
     got = json.loads(out)
     records = got["records"]
     window = (start, start + seconds)
-    peak = torch.cuda.max_memory_allocated(device) \
-        if device.type == "cuda" else 0
+    peaks = peak_bytes(cards)
+    log("peak allocated bytes by card: " + json.dumps(
+        {str(c): p for c, p in zip(cards, peaks)}))
     batches1 = batch_counts()
     spans = {}
     if trace:
@@ -378,8 +478,12 @@ def run_cell(cell: str, cfg: dict, mix: dict, seed: int, seconds: float,
               "device": {"platform": "gpu" if device.type == "cuda"
                          else device.type,
                          "kind": run.device_name,
-                         "count": 1, "memory_peak_bytes": int(peak)}}
+                         "count": layout.chips,
+                         "memory_peak_bytes": int(max(peaks))}}
     if dev_trace is not None:
+        log("busy s by card: " + json.dumps(
+            {f"card{c}": dev_trace.card_busy_s(c) for c in dev_trace.cards})
+            + f" of a {dev_trace.window_s} s slice")
         result["device"]["busy_s"] = dev_trace.busy_s
         result["device"]["window_s"] = dev_trace.window_s
         result["breakdown"] = dev_trace.breakdown()

@@ -1,5 +1,6 @@
 """Device: the share of the traced slice of the window in which no
-operation ran on the card (torch.profiler, CPU and CUDA)."""
+operation ran on a card (torch.profiler, CPU and CUDA), averaged over
+the layout's cards."""
 
 
 def read(run):

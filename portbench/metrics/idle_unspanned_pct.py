@@ -1,12 +1,13 @@
-"""Device: the share of the traced slice's idle time (the slice less the
-device's busy intervals) during which no span of the port was open: the
-idle time no span explains. The spans are the stored ones of the
-window's queries (`startMs` on the wall clock the profiler stamps its
-events on), so a query already in flight when the slice begins counts
-from its own start; the device trace gives only the busy intervals. Only
-the slice's part inside the window counts: the profile's start can hold
-the process for seconds, and a slice that begins late runs past the
-window's close, where no query is sent."""
+"""Device: the share of the traced slice's idle time during which no span
+of the port was open: the idle time no span explains. A card's idle time
+is the slice less its busy intervals; the unspanned idle time is summed
+over the layout's cards and divided by the idle time summed over them.
+The spans are the stored ones of the window's queries (`startMs` on the
+wall clock the profiler stamps its events on), so a query already in
+flight when the slice begins counts from its own start; the device trace
+gives only the busy intervals. Only the slice's part inside the window
+counts."""
+from portbench.devtrace import union
 
 #: the port's spans (PERF.md's table of spans and counters)
 SPANS = frozenset({
@@ -14,17 +15,6 @@ SPANS = frozenset({
     "broker/query", "broker/plan", "broker/scatter", "broker/node",
     "broker/merge", "datanode/query", "engine/partials", "engine/plan",
     "engine/stage", "engine/reduce", "engine/to_host", "pool/h2d"})
-
-
-def union(intervals):
-    """Sorted disjoint (start, end) pairs covering `intervals`."""
-    out = []
-    for a, b in sorted(intervals):
-        if out and a <= out[-1][1]:
-            out[-1][1] = max(out[-1][1], b)
-        else:
-            out.append([a, b])
-    return [(a, b) for a, b in out]
 
 
 def idle(window, busy):
@@ -73,8 +63,12 @@ def read(run):
     lo, hi = max(t.window[0], run.window[0]), min(t.window[1], run.window[1])
     if hi <= lo:
         return None
-    gaps = idle((lo, hi), t.busy_intervals())
-    idle_s = sum(b - a for a, b in gaps)
+    idle_s = unspanned_s = 0.0
+    for card in t.cards:
+        gaps = idle((lo, hi), t.busy_intervals(card))
+        card_idle = sum(b - a for a, b in gaps)
+        idle_s += card_idle
+        unspanned_s += card_idle - overlap(gaps, spanned)
     if idle_s <= 0:
         return 0.0
-    return 100.0 * (idle_s - overlap(gaps, spanned)) / idle_s
+    return 100.0 * unspanned_s / idle_s

@@ -1,5 +1,5 @@
-"""Kernels: the profiler's CUDA kernel time in the traced slice over the
-queries answered inside it."""
+"""Kernels: the profiler's CUDA kernel time in the traced slice, summed
+over the cards, over the queries answered inside it."""
 from portbench.metrics import _slice
 
 

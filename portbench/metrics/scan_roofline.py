@@ -1,7 +1,8 @@
 """Kernels: the least time of the queries answered inside the traced
-slice (their logical input bytes, `roofline.logical_bytes`, at the
-card's peak memory rate) over the profiler's kernel time in the
-slice."""
+slice (their logical input bytes, `roofline.logical_bytes`, at one
+card's peak memory rate) over the profiler's kernel time in the slice
+summed over the cards: a share of the cards' combined bandwidth, which
+several cards cannot take over 100%."""
 from portbench import roofline
 from portbench.metrics import _slice
 

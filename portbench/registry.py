@@ -2,14 +2,18 @@
 
 - `BENCHMARK.json` at the checkout's root: the cells and the metrics.
 - `configs/<config>.json`: a configuration; its `generator` key names
-  `gen/<generator>.py`.
+  `gen/<generator>.py`, and its `layout` block (`chips`, `data_nodes`,
+  `mesh`; `harness.Layout`) the cards, the data nodes and each node's
+  mesh that the harness builds and measures. A cell's `chips` in
+  `BENCHMARK.json` is its configuration's `layout.chips`.
 - `mixes/<traffic>.json`: a traffic mix.
 - `metrics/<metric>.py`: a metric's reader, a module with
   `read(run) -> float | None`. A name with dots that has no file of its
   own (`query_p90_ms.tpch-sf50.timeseries`) is read by the file of its
   first part (`query_p90_ms.py`).
 
-Adding a configuration, a mix or a metric adds files; none is edited.
+Adding a configuration, a mix or a metric adds files; none is edited,
+a configuration over several cards and meshes included.
 """
 from __future__ import annotations
 

@@ -2,13 +2,15 @@
 
     python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-Runs one cell of `BENCHMARK.json` on one CUDA card and prints, as its
-last line of standard output, one JSON object: `correct`, `attempted`,
-`failed`, `metrics` (the cell's end-to-end metrics, or with `--trace 1`
-its per-layer ones), `device`, with `--trace 1` `breakdown`, and last
+Runs one cell of `BENCHMARK.json` on the CUDA cards its configuration's
+`layout` places it on (`harness.py`) and prints, as its last line of
+standard output, one JSON object: `correct`, `attempted`, `failed`,
+`metrics` (the cell's end-to-end metrics, or with `--trace 1` its
+per-layer ones), `device`, with `--trace 1` `breakdown`, and last
 `checks`, each number compared with its limit. Set-up, the window's
 counts and the checks go to standard error. Exits 2 without a result
-where no card is found, and 3 where JAX or the JAX package was loaded.
+where fewer cards than the cell's `chips` are found, 3 where JAX or the
+JAX package was loaded, and 1 where the layout cannot be built.
 """
 from __future__ import annotations
 
@@ -48,9 +50,8 @@ def main(argv=None) -> int:
     mix = registry.mix(cell["traffic"])
     result = harness.run_cell(
         cell["name"], cfg, mix, args.seed, args.seconds, bool(args.trace),
-        torch.device("cuda", 0),
-        registry.metrics_of(bench, cell["name"], bool(args.trace)),
-        cfg["limits"], T0)
+        "cuda", registry.metrics_of(bench, cell["name"], bool(args.trace)),
+        cfg["limits"], T0, chips=int(cell["chips"]))
 
     bad = harness.forbidden_modules()
     if bad:

@@ -42,3 +42,25 @@ def test_a_new_mix_and_metric_are_new_files(tmp_path, monkeypatch):
     assert registry.metric_path("queries_answered.ssb-sf20.dummy") == \
         copy / "metrics" / "queries_answered.py"
     assert all(p.read_bytes() == b for p, b in before.items())
+
+
+def test_cells_match_their_layouts():
+    """A cell asks for as many chips as its configuration's layout holds,
+    and the layout can be built on them."""
+    from portbench import harness
+    for w in registry.benchmark()["workloads"]:
+        cfg = registry.config(w["config"])
+        layout = harness.Layout.of(cfg, w["chips"])
+        assert layout.chips == w["chips"], w["name"]
+
+
+def test_each_per_layer_metric_moves_what_its_cells_report():
+    """A per-layer metric's `moves` is an end-to-end metric that every
+    cell it lists reports."""
+    bench = registry.benchmark()
+    cells = [w["name"] for w in bench["workloads"]]
+    for m in bench["per_layer"]:
+        for cell in m.get("workloads", cells):
+            reported = {e["name"] for e in registry.metrics_of(bench, cell,
+                                                               False)}
+            assert m["moves"] in reported, (m["name"], cell)

@@ -67,7 +67,8 @@ def _trace(start=100.0):
     name no span: the reader takes the spans from the store."""
     return devtrace.DeviceTrace(
         window=(start, start + 10.0),
-        kernels=[("k", 101.0, 1.0)], copies=[("Memcpy HtoD", 105.0, 1.0)],
+        kernels=[("k", 101.0, 1.0, 0)],
+        copies=[("Memcpy HtoD", 105.0, 1.0, 0)],
         host=[("aten::view", 100.0, 10.0)])
 
 
